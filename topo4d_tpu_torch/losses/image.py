@@ -1,0 +1,94 @@
+"""Photometric losses: L1, SSIM, PSNR on (C, H, W) images (losses/image.py).
+
+The SSIM window is the separable 11-tap Gaussian as tap-weighted shifted
+slices (``_shift_pass``): exact float32 on every device, no convolution
+library, no TF32.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """mean |x - y| (reference ``l1_loss_v1``)."""
+    return torch.mean(torch.abs(x - y))
+
+
+def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Per-leading-dim MSE: (C, ...) -> (C, 1)."""
+    d = (img1 - img2) ** 2
+    return d.reshape(d.shape[0], -1).mean(dim=1, keepdim=True)
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """20 log10(1 / sqrt(mse)) per leading dim (reference ``calc_psnr``)."""
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse(img1, img2)))
+
+
+@functools.lru_cache(maxsize=8)
+def _gaussian_1d(window_size: int, sigma: float) -> np.ndarray:
+    """Normalized 1-D Gaussian taps (reference external.py:73-75)."""
+    xs = np.arange(window_size) - window_size // 2
+    g = np.exp(-(xs**2) / (2.0 * sigma**2))
+    return (g / g.sum()).astype(np.float32)
+
+
+def _shift_pass(x: torch.Tensor, axis: int, window_size: int, sigma: float) -> torch.Tensor:
+    """'same' zero-padded 1-D Gaussian conv along ``axis`` as shifted slices."""
+    g = _gaussian_1d(window_size, sigma)
+    half = window_size // 2
+    pads = [0, 0] * x.dim()
+    # F.pad lists (left, right) pairs from the LAST axis backwards
+    pads[2 * (x.dim() - 1 - axis)] = half
+    pads[2 * (x.dim() - 1 - axis) + 1] = half
+    xp = F.pad(x, pads)
+    n = x.shape[axis]
+    out = None
+    for k in range(window_size):
+        term = float(g[k]) * xp.narrow(axis, k, n)
+        out = term if out is None else out + term
+    return out
+
+
+def _window_conv(img: torch.Tensor, window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Depthwise 'same' Gaussian window of (C, H, W): rows, then columns."""
+    return _shift_pass(_shift_pass(img, 1, window_size, sigma), 2, window_size, sigma)
+
+
+def ssim(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    window_size: int = 11,
+    sigma: float = 1.5,
+    size_average: bool = True,
+) -> torch.Tensor:
+    """SSIM of (C, H, W) images: Gaussian window with zero padding,
+    c1 = 0.01^2, c2 = 0.03^2 (reference ``calc_ssim``)."""
+    c = img1.shape[0]
+    stacked = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0)
+    conv = _window_conv(stacked, window_size, sigma)
+    mu1 = conv[0:c]
+    mu2 = conv[c : 2 * c]
+    mu1_sq = mu1 * mu1
+    mu2_sq = mu2 * mu2
+    mu1_mu2 = mu1 * mu2
+    sigma1_sq = conv[2 * c : 3 * c] - mu1_sq
+    sigma2_sq = conv[3 * c : 4 * c] - mu2_sq
+    sigma12 = conv[4 * c : 5 * c] - mu1_mu2
+    c1, c2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+    )
+    if size_average:
+        return ssim_map.mean()
+    return ssim_map.mean(dim=(1, 2))
+
+
+def photometric_loss(pred: torch.Tensor, target: torch.Tensor, l1_weight: float = 0.8) -> torch.Tensor:
+    """The reference image loss 0.8 L1 + 0.2 (1 - SSIM) (train.py:315)."""
+    return l1_weight * l1_loss(pred, target) + (1.0 - l1_weight) * (1.0 - ssim(pred, target))

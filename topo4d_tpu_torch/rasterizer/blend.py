@@ -1,0 +1,216 @@
+"""The tile blend: CUDA kernels K1/K2 and their plain PyTorch version.
+
+Replaces ``rasterizer/pallas_blend.py`` (and ``pallas_resident.py``, whose
+contract is the same). ``tile_blend(packed, tile_start, tile_count,
+tiles_x, tiles_y)`` blends (tile, depth)-sorted packed entries into
+(T, 8, 256) tile buffers: rows 0-2 rgb, 3 depth, 4 T_final (rows 0-4 as in
+JAX), row 5 the count of entries up to each pixel's last contributor (the
+backward's residual), rows 6-7 zero.
+
+Dispatch: a CUDA tensor goes to the kernels ``csrc/blend_fwd.cu`` (K1) and
+``csrc/blend_bwd.cu`` (K2) or raises; a CPU tensor goes to
+``tile_blend_plain``, which is also each kernel's oracle on the card.
+``LAUNCHES`` counts kernel launches and plain calls.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from topo4d_tpu_torch import kernels
+from topo4d_tpu_torch.core.gaussian import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_MIN
+from topo4d_tpu_torch.rasterizer.tiles import PACK_FIELDS, TILE
+
+PX = TILE * TILE  # 256 pixels per tile
+
+# launches of each kernel and calls of the plain version, since the last reset
+LAUNCHES: Dict[str, int] = {"tile_blend_fwd": 0, "tile_blend_bwd": 0, "tile_blend_plain": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (CPU path, and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+
+def _blend_weights_core(alpha):
+    t_incl = torch.cumprod(1.0 - alpha, dim=-1)  # T after entry i
+    t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]], dim=-1)
+    # alpha <= 0.99 => t_incl is non-increasing, so "terminated at or before
+    # i" == t_incl_i < 1e-4, and the terminating entry is not drawn
+    keep = t_incl >= TRANSMITTANCE_MIN
+    w = alpha * t_excl * keep
+    t_final = torch.amin(torch.where(keep, t_incl, torch.ones_like(t_incl)), dim=-1)
+    return w, t_final, t_incl, keep
+
+
+class BlendWeights(torch.autograd.Function):
+    """Front-to-back weights (w (..., M), T_final (...)) from alphas in depth order.
+
+    Port of ``reference.py:blend_weights`` with its hand-derived backward:
+    the termination mask is piecewise constant, the T_final cotangent lands
+    on the last kept entry, and the cumprod adjoint is a suffix sum divided
+    by (1 - alpha) >= 0.01.
+    """
+
+    @staticmethod
+    def forward(ctx, alpha):
+        w, t_final, t_incl, _ = _blend_weights_core(alpha)
+        ctx.save_for_backward(alpha, t_incl)
+        return w, t_final
+
+    @staticmethod
+    def backward(ctx, gw, gtf):
+        alpha, t_incl = ctx.saved_tensors
+        t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]], dim=-1)
+        keep = t_incl >= TRANSMITTANCE_MIN
+        keepf = keep.to(alpha.dtype)
+        g_direct = gw * t_excl * keepf
+        c_shift = gw * alpha * keepf
+        c_incl = torch.cat([c_shift[..., 1:], torch.zeros_like(c_shift[..., :1])], dim=-1)
+        keep_next = torch.cat([keep[..., 1:], torch.zeros_like(keep[..., :1])], dim=-1)
+        last_kept = (keep & ~keep_next).to(alpha.dtype)
+        c_incl = c_incl + gtf[..., None] * last_kept
+        s = torch.flip(torch.cumsum(torch.flip(c_incl * t_incl, [-1]), dim=-1), [-1])
+        return g_direct - s / (1.0 - alpha)
+
+
+def blend_weights(alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return BlendWeights.apply(alpha)
+
+
+def _pixel_coords(tile_ids: torch.Tensor, tiles_x: int):
+    """Pixel-center coordinates (T, 256) of each tile's pixels, row-major."""
+    p = torch.arange(PX, device=tile_ids.device)
+    px = (tile_ids[:, None] % tiles_x) * TILE + p[None, :] % TILE
+    py = (tile_ids[:, None] // tiles_x) * TILE + p[None, :] // TILE
+    return px.to(torch.float32), py.to(torch.float32)
+
+
+def tile_alpha(packed, tile_start, tile_count, tiles_x):
+    """Per (tile, pixel, entry) alphas with the CUDA skip rules -> ((T, 256, M), entries).
+
+    Each tile's range padded to the largest count M as a dense batch;
+    ``entries`` is the gathered (16, T, M) packed data (padding zeroed).
+    The 0.99 clamp is straight-through in the backward
+    (``reference.py:_alpha_at_pixels``).
+    """
+    t = tile_start.shape[0]
+    dev = packed.device
+    m = max(int(tile_count.max()), 1) if t else 1
+    j = torch.arange(m, device=dev)
+    valid = j[None, :] < tile_count[:, None].to(torch.int64)
+    idx = torch.where(valid, tile_start[:, None].to(torch.int64) + j[None, :], 0)
+    ent = packed[:, idx] * valid  # (16, T, M)
+    px, py = _pixel_coords(torch.arange(t, device=dev), tiles_x)
+    dx = ent[0][:, None, :] - px[:, :, None]  # (T, 256, M)
+    dy = ent[1][:, None, :] - py[:, :, None]
+    ca, cb, cc, op = (ent[k][:, None, :] for k in (2, 3, 4, 5))
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    raw = op * torch.exp(power)
+    alpha = raw + (torch.clamp(raw, max=ALPHA_MAX) - raw).detach()
+    keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & valid[:, None, :]
+    return torch.where(keep, alpha, torch.zeros_like(alpha)), ent
+
+
+def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int):
+    """Plain PyTorch tile blend, differentiable by autograd -> (T, 8, 256)."""
+    LAUNCHES["tile_blend_plain"] += 1
+    alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x)
+    w, t_final = blend_weights(alpha)  # (T, 256, M), (T, 256)
+    feat = ent[8:12].permute(1, 2, 0)  # (T, M, 4): r, g, b, depth
+    acc = torch.matmul(w, feat).transpose(1, 2)  # (T, 4, 256)
+    m = alpha.shape[-1]
+    pos = torch.arange(1, m + 1, device=packed.device, dtype=torch.float32)
+    n_contrib = torch.amax((w > 0) * pos, dim=-1)  # entries up to the last contributor
+    zeros = torch.zeros_like(t_final)
+    return torch.cat(
+        [acc, torch.stack([t_final, n_contrib, zeros, zeros], dim=1)], dim=1
+    )
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y):
+    t = tiles_x * tiles_y
+    if packed.device.type != "cuda":
+        raise ValueError(f"tile blend kernel needs CUDA tensors, got {packed.device}")
+    if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != PACK_FIELDS:
+        raise ValueError(f"packed must be float32 ({PACK_FIELDS}, E_pad), got {packed.dtype} {tuple(packed.shape)}")
+    for name, r in (("tile_start", tile_start), ("tile_count", tile_count)):
+        if r.dtype != torch.int32 or r.shape != (t,) or r.device != packed.device:
+            raise ValueError(f"{name} must be int32 ({t},) on {packed.device}, got {r.dtype} {tuple(r.shape)} {r.device}")
+        if not r.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not packed.is_contiguous():
+        raise ValueError("packed must be contiguous")
+
+
+def tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: int):
+    """Launch K1 -> (T, 8, 256) float32."""
+    _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y)
+    t = tiles_x * tiles_y
+    out = torch.empty((t, 8, PX), dtype=torch.float32, device=packed.device)
+    fn = kernels.kernel("tile_blend_fwd")
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    status = fn(
+        packed.data_ptr(), packed.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
+        tiles_x, t, out.data_ptr(), stream,
+    )
+    kernels.check(status, "tile_blend_fwd")
+    LAUNCHES["tile_blend_fwd"] += 1
+    return out
+
+
+def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x: int, tiles_y: int):
+    """Launch K2 -> dpacked (16, E_pad) float32 (zero outside the tile ranges)."""
+    _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y)
+    t = tiles_x * tiles_y
+    for name, a in (("fwd_out", fwd_out), ("g_out", g_out)):
+        if a.dtype != torch.float32 or a.shape != (t, 8, PX) or a.device != packed.device:
+            raise ValueError(f"{name} must be float32 ({t}, 8, {PX}) on {packed.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dpacked = torch.zeros_like(packed)
+    fn = kernels.kernel("tile_blend_bwd")
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    status = fn(
+        packed.data_ptr(), packed.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
+        tiles_x, t, fwd_out.data_ptr(), g_out.data_ptr(), dpacked.data_ptr(), stream,
+    )
+    kernels.check(status, "tile_blend_bwd")
+    LAUNCHES["tile_blend_bwd"] += 1
+    return dpacked
+
+
+class _TileBlendCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, tile_start, tile_count, tiles_x, tiles_y):
+        out = tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x, tiles_y)
+        ctx.save_for_backward(packed, tile_start, tile_count, out)
+        ctx.tiles = (tiles_x, tiles_y)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        packed, tile_start, tile_count, out = ctx.saved_tensors
+        dpacked = tile_blend_bwd_cuda(
+            packed, tile_start, tile_count, out, g_out.contiguous(), *ctx.tiles
+        )
+        return dpacked, None, None, None, None
+
+
+def tile_blend(packed, tile_start, tile_count, tiles_x: int, tiles_y: int):
+    """Blend packed entries -> (T, 8, 256); kernels on CUDA, plain version on CPU."""
+    if packed.device.type == "cpu":
+        return tile_blend_plain(packed, tile_start, tile_count, tiles_x, tiles_y)
+    return _TileBlendCUDA.apply(packed, tile_start, tile_count, tiles_x, tiles_y)

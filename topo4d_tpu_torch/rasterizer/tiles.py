@@ -1,0 +1,212 @@
+"""Duplicate-and-sort tile binning and entry packing (rasterizer/tiles.py).
+
+Each Gaussian is duplicated into ``max_span``^2 (tile, depth-rank) entries
+(cropped to its top-left ``max_span`` x ``max_span`` tile sub-rect and
+counted in ``num_cropped`` when its rect is larger), entries are sorted by
+(tile, stable depth rank), and each tile blends its contiguous range.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from topo4d_tpu_torch.core.gaussian import Projected
+
+TILE = 16  # pixels per tile side
+PACK_FIELDS = 16  # rows of the transposed packed-entry layout
+PACK_CHUNK = 128  # tail padding quantum of the packed layout
+
+
+class Binning(NamedTuple):
+    """The entry permutation + tile ranges of one view (values-free)."""
+
+    sorted_gid: torch.Tensor  # (E,) int64 entry -> gaussian id
+    sorted_tile: torch.Tensor  # (E,) int64 entry -> tile id (T = invalid)
+    entry_valid: torch.Tensor  # (E,) bool
+    tile_start: torch.Tensor  # (T,) int32
+    tile_count: torch.Tensor  # (T,) int32
+    num_cropped: torch.Tensor  # () int32
+    inv_positions: torch.Tensor  # (N, R) int64: each gaussian's R entry slots
+
+
+class PackedBins(NamedTuple):
+    """Depth-sorted per-tile entry ranges with packed per-entry data.
+
+    packed layout (PACK_FIELDS, E_pad):
+      0:x 1:y 2:conic_a 3:conic_b 4:conic_c 5:opacity 6:tile_id 7:0
+      8:r 9:g 10:b 11:depth 12..15:0, tail padded with -1.
+    """
+
+    packed: torch.Tensor
+    tile_start: torch.Tensor
+    tile_count: torch.Tensor
+    num_cropped: torch.Tensor
+
+
+def num_tiles(width: int, height: int):
+    """(tiles_x, tiles_y) for an image size."""
+    return -(-width // TILE), -(-height // TILE)
+
+
+def tile_rect(proj: Projected, width: int, height: int):
+    """Per-Gaussian touched tile rect [x0, x1) x [y0, y1) (CUDA getRect)."""
+    tiles_x, tiles_y = num_tiles(width, height)
+    r = proj.radii.to(torch.float32)
+    mx = proj.means2d[:, 0]
+    my = proj.means2d[:, 1]
+    x0 = torch.clamp(torch.floor((mx - r) / TILE), 0, tiles_x).to(torch.int64)
+    y0 = torch.clamp(torch.floor((my - r) / TILE), 0, tiles_y).to(torch.int64)
+    x1 = torch.clamp(torch.floor((mx + r + TILE - 1) / TILE), 0, tiles_x).to(torch.int64)
+    y1 = torch.clamp(torch.floor((my + r + TILE - 1) / TILE), 0, tiles_y).to(torch.int64)
+    zero = torch.zeros_like(x0)
+    m = proj.mask
+    return (
+        torch.where(m, x0, zero), torch.where(m, y0, zero),
+        torch.where(m, x1, zero), torch.where(m, y1, zero),
+        tiles_x, tiles_y,
+    )
+
+
+def depth_sorted_order(proj: Projected) -> torch.Tensor:
+    """Front-to-back Gaussian order: stable sort by view z, culled last."""
+    key = torch.where(proj.mask, proj.depths, torch.full_like(proj.depths, float("inf")))
+    return torch.argsort(key, stable=True)
+
+
+def _binning_keys(proj: Projected, width: int, height: int, max_span: int):
+    """-> (flat_tile (N*R,), flat_rank (N*R,), order (N,), num_cropped, T)."""
+    n = proj.means2d.shape[0]
+    dev = proj.means2d.device
+    x0, y0, x1, y1, tiles_x, tiles_y = tile_rect(proj, width, height)
+    span_w = x1 - x0
+    span_h = y1 - y0
+    cropped = (span_w > max_span) | (span_h > max_span)
+    num_cropped = torch.sum(cropped & proj.mask).to(torch.int32)
+
+    r = max_span * max_span
+    k = torch.arange(r, device=dev)
+    di = k // max_span
+    dj = k % max_span
+    ty = y0[:, None] + di[None, :]
+    tx = x0[:, None] + dj[None, :]
+    valid = proj.mask[:, None] & (di[None, :] < span_h[:, None]) & (dj[None, :] < span_w[:, None])
+    t = tiles_x * tiles_y
+    tile_id = torch.where(valid, ty * tiles_x + tx, torch.full_like(tx, t))
+
+    order = depth_sorted_order(proj)
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(n, device=dev)
+    flat_tile = tile_id.reshape(-1)
+    flat_rank = rank[:, None].expand(n, r).reshape(-1)
+    return flat_tile, flat_rank, order, num_cropped, t
+
+
+def _tile_ranges(sorted_tile: torch.Tensor, t: int):
+    ids = torch.arange(t, device=sorted_tile.device, dtype=sorted_tile.dtype)
+    start = torch.searchsorted(sorted_tile, ids, right=False)
+    end = torch.searchsorted(sorted_tile, ids, right=True)
+    return start.to(torch.int32), (end - start).to(torch.int32)
+
+
+@torch.no_grad()
+def compute_binning(proj: Projected, width: int, height: int, max_span: int = 4) -> Binning:
+    """Duplicate-and-sort once; returns the permutation and tile ranges.
+
+    One sort of the fused int64 key tile * N + depth_rank: keys are unique
+    per (tile, gaussian), so this equals the stable lexicographic order.
+    """
+    n = proj.means2d.shape[0]
+    flat_tile, flat_rank, order, num_cropped, t = _binning_keys(
+        proj, width, height, max_span
+    )
+    sorted_key, _ = torch.sort(flat_tile * n + flat_rank, stable=True)
+    sorted_tile = sorted_key // n
+    sorted_rank = sorted_key - sorted_tile * n
+    tile_start, tile_count = _tile_ranges(sorted_tile, t)
+    sorted_gid = order[sorted_rank]
+    # every gaussian owns exactly R sorted slots: the stable argsort by id
+    # lists them, giving the dense inverse of the permutation
+    inv = torch.argsort(sorted_gid, stable=True)
+    return Binning(
+        sorted_gid=sorted_gid,
+        sorted_tile=sorted_tile,
+        entry_valid=sorted_tile < t,
+        tile_start=tile_start,
+        tile_count=tile_count,
+        num_cropped=num_cropped,
+        inv_positions=inv.reshape(n, max_span * max_span),
+    )
+
+
+class _GatherEntries(torch.autograd.Function):
+    """(10, N) fields -> (10, E) sorted-entry rows (invalid entries zeroed).
+
+    The backward folds entry gradients back to Gaussians as a dense gather
+    along ``inv_positions`` summed over each Gaussian's R slots, not as a
+    scatter-add (``index_add_``) over E entries.
+    """
+
+    @staticmethod
+    def forward(ctx, fields, sorted_gid, entry_valid, inv_positions):
+        rows = fields[:, sorted_gid]
+        ctx.save_for_backward(entry_valid, inv_positions)
+        return torch.where(entry_valid[None, :], rows, torch.zeros_like(rows))
+
+    @staticmethod
+    def backward(ctx, g):
+        entry_valid, inv = ctx.saved_tensors
+        return fold_entry_grads(g, entry_valid, inv), None, None, None
+
+
+def fold_entry_grads(g: torch.Tensor, entry_valid: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """(C, E) per-entry gradients -> (C, N) per-Gaussian sums (dense gather-sum)."""
+    gv = torch.where(entry_valid[None, :], g, torch.zeros_like(g))
+    return gv[:, inv.reshape(-1)].reshape(g.shape[0], *inv.shape).sum(dim=-1)
+
+
+# packed rows carrying the ten differentiable per-Gaussian fields
+FIELD_ROWS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11)
+
+
+def pack_with_binning(
+    proj: Projected,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    binning: Binning,
+) -> PackedBins:
+    """Pack the current values along ``binning``'s permutation: one gather."""
+    fields = torch.stack(
+        [
+            proj.means2d[:, 0], proj.means2d[:, 1],
+            proj.conics[:, 0], proj.conics[:, 1], proj.conics[:, 2],
+            opacities,
+            colors[:, 0], colors[:, 1], colors[:, 2],
+            proj.depths,
+        ],
+        dim=0,
+    )  # (10, N)
+    rows10 = _GatherEntries.apply(
+        fields, binning.sorted_gid, binning.entry_valid, binning.inv_positions
+    )
+    e = rows10.shape[1]
+    zeros = rows10.new_zeros((1, e))
+    packed = torch.cat(
+        [
+            rows10[0:6],
+            binning.sorted_tile.to(torch.float32)[None, :],
+            zeros,
+            rows10[6:10],
+            rows10.new_zeros((4, e)),
+        ],
+        dim=0,
+    )  # (16, E)
+    pad = (-e) % PACK_CHUNK + PACK_CHUNK
+    packed = torch.nn.functional.pad(packed, (0, pad), value=-1.0)
+    return PackedBins(
+        packed=packed,
+        tile_start=binning.tile_start,
+        tile_count=binning.tile_count,
+        num_cropped=binning.num_cropped,
+    )
