@@ -8,16 +8,28 @@ order; any failure raises and exits non-zero:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: every kernel of ``topo4d_tpu_torch/csrc`` with nvcc, in parallel;
-3. kernels vs their plain PyTorch versions at head scale (8,280 Gaussians,
-   375x512, one view) at max_span 4 and 2, plus a saturated-window case;
-4. the main path: the parity-mode trainer (``Trainer.fit_frame_geometry``)
-   fits frame 0 ("init", init_opt_num cut to 100) and frame 1 ("track",
-   the full opt_num of 1,100) of a synthetic 24-view sequence; the launch
-   counters must equal the step count and the plain blend must not run;
-5. five "track" steps on the card against the same five on the CPU;
-6. timings: K1, K2 and the plain version at the main path's shapes with
-   their bounds, ms per step, s per tracked frame, and a profile of ten
-   track steps (device busy share, activities per step, top kernels).
+3. kernels vs their plain PyTorch versions: K1/K2 at head scale (8,280
+   Gaussians, 375x512, one view) at max_span 4 and 2, full canvas and
+   compact, plus a saturated-window case in both modes; K5 at the dense
+   phase's (15, 2160, 3840) and the geometry phase's (15, 512, 375),
+   forward and backward;
+4. the main path, as ``Trainer.run`` orders it, each part with the launch
+   counters set to 0 just before it and read just after:
+   a. geometry, frame 0 ("init", init_opt_num cut to 100) of a synthetic
+      24-view sequence at 375x512;
+   b. the dense texture phase of frame 0 (``Trainer.fit_frame_texture``):
+      277,780 dense Gaussians (the head grid densified at density 5), 24
+      views at 3840x2160, the full 301 iterations, compact tiles;
+   c. geometry, frame 1 ("track", the full opt_num of 1,100);
+   K1/K2 run once per step and K5 twice, the plain versions never;
+5. card against CPU: five "track" steps, and three texture steps at
+   480x270 on a density-1 dense mesh;
+6. timings: K1, K2 and the plain blend at the geometry shapes and at one
+   4K dense view, there both compact and on the full canvas; K5, its plain
+   version and cuDNN's depthwise convolution at both blur shapes; each
+   kernel's bound; profiles of ten track steps and of ten dense steps,
+   compact and on the full canvas (device busy share, activities per step,
+   top kernels).
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -36,6 +48,9 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 INIT_ITERS = 100  # frame 0 cut from the reference's 7,000 to fit the time limit
+DENSITY = 5  # dense points per quad edge: 277,780 dense Gaussians on the head grid
+FULL_W, FULL_H = 3840, 2160  # the texture phase's full-resolution views
+ROWS_PER_CHUNK = 1024  # the plain blend's rows per call at 4K (memory)
 DEVICE = "cuda"
 CARD = ""
 
@@ -59,103 +74,242 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def pack_view(params, cam, max_span):
-    """Project, bin and pack one view -> (PackedBins, Binning, tiles_x, tiles_y)."""
-    from topo4d_tpu_torch.core.gaussian import activate_params, project_gaussians
-    from topo4d_tpu_torch.rasterizer.tiles import compute_binning, num_tiles, pack_with_binning
+def bound(nbytes, ops):
+    """(ms, "bytes" | "operations"): the larger of the two floors."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = ops / H100_FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def reset_counts():
+    from topo4d_tpu_torch.losses import blur
+    from topo4d_tpu_torch.rasterizer import blend
+
+    blend.reset_launches()
+    blur.reset_launches()
+
+
+def read_counts():
+    from topo4d_tpu_torch.losses import blur
+    from topo4d_tpu_torch.rasterizer import blend
+
+    return {**blend.LAUNCHES, **blur.LAUNCHES}
+
+
+def pack_view(rv, cam, max_span, capacity=None, with_static=False):
+    """Bin (frozen, optionally compact) and pack one view -> (PackedBins, Binning, tiles_x, tiles_y)."""
+    from topo4d_tpu_torch.core.gaussian import project_gaussians
+    from topo4d_tpu_torch.rasterizer.render import binning_for
+    from topo4d_tpu_torch.rasterizer.tiles import num_tiles, pack_with_binning
 
     with torch.no_grad():
-        rv = activate_params(params)
+        binning = binning_for(rv, cam, max_span, with_static=with_static, tile_capacity=capacity)
         proj = project_gaussians(rv, cam)
-        binning = compute_binning(proj, cam.width, cam.height, max_span)
         bins = pack_with_binning(proj, rv.colors, rv.opacities, binning)
     return bins, binning, *num_tiles(cam.width, cam.height)
 
 
-def pair_counts(packed, start, count, tiles_x):
+def blend_rows(bins, binning, tiles_x, tiles_y, compact: bool):
+    """(start, count, tile ids) of the rows K1/K2 blend: the compact list, or
+    every tile of the canvas with its id."""
+    if compact:
+        c = binning.compact
+        return c.start, c.count, c.ids
+    ids = torch.arange(tiles_x * tiles_y, device=bins.packed.device, dtype=torch.int32)
+    return bins.tile_start, bins.tile_count, ids
+
+
+def plain_blend(packed, start, count, tx, ty, ids, g_out=None):
+    """The plain blend over ``ROWS_PER_CHUNK`` rows at a time -> output
+    (R, 8, 256), and with ``g_out`` also dpacked from autograd (each entry
+    belongs to one tile, so the chunks' gradients add up)."""
+    from topo4d_tpu_torch.rasterizer.blend import tile_blend_plain
+
+    outs = []
+    dp = None if g_out is None else torch.zeros_like(packed)
+    for s in range(0, start.shape[0], ROWS_PER_CHUNK):
+        sl = slice(s, s + ROWS_PER_CHUNK)
+        if g_out is None:
+            with torch.no_grad():
+                outs.append(tile_blend_plain(packed, start[sl], count[sl], tx, ty, ids[sl]))
+            continue
+        pp = packed.detach().requires_grad_(True)
+        o = tile_blend_plain(pp, start[sl], count[sl], tx, ty, ids[sl])
+        (d,) = torch.autograd.grad(o, pp, g_out[sl])
+        dp += d
+        outs.append(o.detach())
+    return torch.cat(outs), dp
+
+
+def pair_counts(packed, start, count, tiles_x, ids):
     """What this input's data needs K1 to do: (pairs evaluated, pairs
-    contributing, entries read), the last summed over tiles as the entries
+    contributing, entries read), the last summed over rows as the entries
     up to the furthest any pixel of the tile must look."""
     from topo4d_tpu_torch.core.gaussian import TRANSMITTANCE_MIN
     from topo4d_tpu_torch.rasterizer.blend import tile_alpha
 
+    evaluated = contributing = entries = 0
     with torch.no_grad():
-        alpha, _ = tile_alpha(packed, start, count, tiles_x)
-        stop = torch.cumprod(1.0 - alpha, dim=-1) < TRANSMITTANCE_MIN
-        full = count[:, None].long().expand(-1, alpha.shape[1])
-        # a pixel evaluates entries up to and including its terminating one
-        first = torch.minimum(torch.where(stop.any(-1), stop.float().argmax(-1) + 1, full), full)
-        evaluated = int(first.sum())
-        contributing = int(((alpha > 0) & ~stop).sum())
-        entries = int(first.amax(-1).sum())
+        for s in range(0, start.shape[0], ROWS_PER_CHUNK):
+            sl = slice(s, s + ROWS_PER_CHUNK)
+            alpha, _ = tile_alpha(packed, start[sl], count[sl], tiles_x, ids[sl])
+            stop = torch.cumprod(1.0 - alpha, dim=-1) < TRANSMITTANCE_MIN
+            full = count[sl, None].long().expand(-1, alpha.shape[1])
+            # a pixel evaluates entries up to and including its terminating one
+            first = torch.minimum(torch.where(stop.any(-1), stop.float().argmax(-1) + 1, full), full)
+            evaluated += int(first.sum())
+            contributing += int(((alpha > 0) & ~stop).sum())
+            entries += int(first.amax(-1).sum())
     return evaluated, contributing, entries
 
 
-def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int):
-    """K1 and K2 against the plain version on the same inputs; asserts the
-    JAX suite's tolerances and returns (K1 max |err| on rows 0-4, K2 max
-    |err| of the Gaussian gradients)."""
-    from topo4d_tpu_torch.rasterizer.blend import (
-        tile_blend_bwd_cuda,
-        tile_blend_fwd_cuda,
-        tile_blend_plain,
-    )
+def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, compact: bool = False):
+    """K1 and K2 against the plain version on the same inputs (full canvas
+    or the compact rows); asserts the JAX suite's tolerances and returns
+    (K1 max |err| on rows 0-4, K2 max |err| of the Gaussian gradients).
+    In compact mode also checks that the compact rows, scattered onto the
+    canvas, equal the full-canvas blend bit for bit, forward and backward."""
+    from topo4d_tpu_torch.core.gaussian import ALPHA_MAX, TRANSMITTANCE_MIN
+    from topo4d_tpu_torch.rasterizer.blend import PX, tile_blend_bwd_cuda, tile_blend_fwd_cuda
     from topo4d_tpu_torch.rasterizer.tiles import FIELD_ROWS, fold_entry_grads
 
-    packed, start, count = bins.packed, bins.tile_start, bins.tile_count
-    out_k = tile_blend_fwd_cuda(packed, start, count, tiles_x, tiles_y)
-    packed_p = packed.clone().requires_grad_(True)
-    out_p = tile_blend_plain(packed_p, start, count, tiles_x, tiles_y)
-    torch.cuda.synchronize()
-    fwd_err = float((out_k[:, :5] - out_p[:, :5].detach()).abs().max())
-    term_diff = int((out_k[:, 5] != out_p[:, 5].detach()).sum())
-    torch.testing.assert_close(out_k[:, :5], out_p[:, :5].detach(), rtol=1e-4, atol=1e-5)
-
+    packed = bins.packed
+    start, count, ids = blend_rows(bins, binning, tiles_x, tiles_y, compact)
+    kid = ids if compact else None
+    out_k = tile_blend_fwd_cuda(packed, start, count, tiles_x, tiles_y, kid)
     rng = np.random.default_rng(seed)
     g_np = rng.normal(size=tuple(out_k.shape)).astype(np.float32)
     g_np[:, 5:] = 0.0  # residual rows carry no gradient
     g_out = torch.as_tensor(g_np, device=packed.device)
-    dp_k = tile_blend_bwd_cuda(packed, start, count, out_k, g_out, tiles_x, tiles_y)
-    (dp_p,) = torch.autograd.grad(out_p, packed_p, g_out)
+    out_p, dp_p = plain_blend(packed, start, count, tiles_x, tiles_y, ids, g_out)
+    torch.cuda.synchronize()
+    # A pixel whose transmittance lands within rounding of the 1e-4 stop in
+    # one operation order (the kernel's sequential product, the plain
+    # version's cumprod scan) stops one entry apart in the two: its last
+    # contributor differs. Such pixels are counted (at most one per million)
+    # and the tolerance holds on every other pixel. On them, T_final differs
+    # by the weight of the entries one side blends and the other does not:
+    # at most 1e-4 / (1 - 0.99), the largest T at which one entry can cross
+    # the stop; rgb and depth differ by at most that weight times the
+    # largest feature, beyond the usual tolerance.
+    flip = out_k[:, 5] != out_p[:, 5]
+    term_diff = int(flip.sum())
+    if term_diff > max(1, flip.numel() // 10**6):
+        raise AssertionError(f"{label}: {term_diff} of {flip.numel()} pixels stop at another entry")
+    same = ~flip[:, None, :]
+    diff = (out_k[:, :5] - out_p[:, :5]).abs()
+    fwd_err = float(torch.where(same, diff, 0.0).max())
+    flip_err = float(torch.where(same, 0.0, diff).max())
+    torch.testing.assert_close(
+        torch.where(same, out_k[:, :5], 0.0), torch.where(same, out_p[:, :5], 0.0), rtol=1e-4, atol=1e-5
+    )
+    if term_diff:
+        d_t = diff[:, 4][flip]
+        feat = float(packed[8:12].abs().max())  # rgb and depth rows of the packed entries
+        slack = 1e-5 + 1e-4 * out_p[:, :4].abs().permute(0, 2, 1)[flip]
+        d_c = diff[:, :4].permute(0, 2, 1)[flip]
+        if float(d_t.max()) > TRANSMITTANCE_MIN / (1 - ALPHA_MAX) * (1 + 1e-3) or bool(
+            (d_c > d_t[:, None] * feat + slack).any()
+        ):
+            raise AssertionError(
+                f"{label}: a pixel that stops one entry apart differs by more than that entry's weight: "
+                f"T_final {float(d_t.max()):.3e}, rgb/depth {float(d_c.max()):.3e} (max |feature| {feat:.3e})"
+            )
+
+    dp_k = tile_blend_bwd_cuda(packed, start, count, out_k, g_out, tiles_x, tiles_y, kid)
     rows = list(FIELD_ROWS)
-    gk = fold_entry_grads(dp_k[rows, : binning.sorted_gid.shape[0]], binning.entry_valid, binning.inv_positions)
-    gp = fold_entry_grads(dp_p[rows, : binning.sorted_gid.shape[0]], binning.entry_valid, binning.inv_positions)
+    e = binning.sorted_gid.shape[0]
+    gk = fold_entry_grads(dp_k[rows, :e], binning.entry_valid, binning.inv_positions)
+    gp = fold_entry_grads(dp_p[rows, :e], binning.entry_valid, binning.inv_positions)
     scale = float(gp.abs().max().clamp(min=1e-8))
     bwd_err = float((gk - gp).abs().max())
     torch.testing.assert_close(gk / scale, gp / scale, rtol=2e-3, atol=2e-5)
+    extra = ""
+    if compact:
+        t = tiles_x * tiles_y
+        full = tile_blend_fwd_cuda(packed, bins.tile_start, bins.tile_count, tiles_x, tiles_y)
+        canvas = torch.zeros((t + 1, 8, PX), device=packed.device)
+        canvas[:, 4] = 1.0
+        canvas.index_copy_(0, ids.long(), out_k)
+        if not torch.equal(canvas[:t, :6], full[:, :6]):
+            raise AssertionError(f"{label}: compact rows differ from the full-canvas blend")
+        g_full = torch.zeros_like(full)
+        valid = ids < t
+        g_full[ids[valid].long()] = g_out[valid]
+        dp_full = tile_blend_bwd_cuda(packed, bins.tile_start, bins.tile_count, full, g_full, tiles_x, tiles_y)
+        if not torch.equal(dp_full, dp_k):
+            raise AssertionError(f"{label}: compact K2 differs from the full-canvas K2")
+        extra = f"; compact == full canvas bit for bit ({int(valid.sum())} of {ids.shape[0]} rows used, {t} tiles)"
     log(
-        f"{label}: E_pad {packed.shape[1]}, tiles {tiles_x * tiles_y}, max count "
+        f"{label}: E_pad {packed.shape[1]}, rows {start.shape[0]}, max count "
         f"{int(count.max())}: K1 max|err| {fwd_err:.3e} (rows 0-4), pixels whose "
-        f"last contributor differs {term_diff}; K2 max|err| {bwd_err:.3e} of the "
-        f"Gaussian gradients, max|grad| {scale:.3e}, ratio {bwd_err / scale:.3e}"
+        f"last contributor differs {term_diff} (max|err| there {flip_err:.3e}); K2 max|err| {bwd_err:.3e} of the "
+        f"Gaussian gradients, max|grad| {scale:.3e}, ratio {bwd_err / scale:.3e}{extra}"
     )
     return fwd_err, bwd_err
 
 
-def phase_kernels():
-    from topo4d_tpu_torch.convert import params_from_numpy
-    from topo4d_tpu_torch.testing import make_head_fixture, make_synthetic_camera
+def compare_blur(shape, seed):
+    """K5 forward and backward against the plain version; returns max |err|."""
+    from topo4d_tpu_torch.losses.blur import SelfAdjointBlur, gauss_blur_cuda, gauss_blur_plain
 
-    params_np, cams, _ = make_head_fixture(device=DEVICE)
-    params = params_from_numpy(params_np, DEVICE)
-    errs = {}
-    for span in (4, 2):
-        bins, binning, tx, ty = pack_view(params, cams[0], span)
-        errs[span] = compare_kernels(bins, binning, tx, ty, f"head scale, max_span {span}", seed=span)
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    x = torch.rand(shape, device=DEVICE, generator=g).requires_grad_(True)
+    cot = torch.randn(shape, device=DEVICE, generator=g)
+    yk = SelfAdjointBlur.apply(x, gauss_blur_cuda)
+    yp = gauss_blur_plain(x)
+    (dk,) = torch.autograd.grad(yk, x, cot)
+    (dp,) = torch.autograd.grad(yp, x, cot)
+    yk, yp = yk.detach(), yp.detach()
+    torch.cuda.synchronize()
+    fwd_err = float((yk - yp).abs().max())
+    bwd_err = float((dk - dp).abs().max())
+    torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-6)
+    log(
+        f"K5 {tuple(shape)}: forward max|err| {fwd_err:.3e} (bit for bit: {bool(torch.equal(yk, yp))}), "
+        f"backward (kernel on the cotangent vs autograd of the plain version) max|err| {bwd_err:.3e}"
+    )
+    return max(fwd_err, bwd_err)
 
-    # >80 nats of opacity inside one tile (tests/test_rasterizer_pallas.py:160)
+
+def saturated_scene():
+    """>80 nats of opacity inside one tile (tests/test_rasterizer_pallas.py:160)."""
     n = 64
     rng = np.random.default_rng(5)
-    sat = {
+    return {
         "means3D": rng.normal(0, 0.003, (n, 3)).astype(np.float32),
         "rgb_colors": rng.uniform(0.2, 0.8, (n, 3)).astype(np.float32),
         "unnorm_rotations": np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1)),
         "logit_opacities": np.full((n, 1), 8.0, np.float32),
         "log_scales": np.full((n, 3), np.log(0.05), np.float32),
     }
-    cam = make_synthetic_camera(width=32, height=32, device=DEVICE)
-    bins, binning, tx, ty = pack_view(params_from_numpy(sat, DEVICE), cam, 8)
+
+
+def phase_kernels():
+    from topo4d_tpu_torch.convert import params_from_numpy
+    from topo4d_tpu_torch.core.gaussian import activate_params
+    from topo4d_tpu_torch.testing import make_head_fixture, make_synthetic_camera
+
+    params_np, cams, _ = make_head_fixture(device=DEVICE)
+    rv = activate_params(params_from_numpy(params_np, DEVICE))
+    errs = {}
+    for span in (4, 2):
+        bins, binning, tx, ty = pack_view(rv, cams[0], span)
+        errs[span] = compare_kernels(bins, binning, tx, ty, f"head scale, max_span {span}", seed=span)
+    counts = pack_view(rv, cams[0], 4)[0].tile_count
+    occ = int((counts > 0).sum())
+    bins, binning, tx, ty = pack_view(rv, cams[0], 4, capacity=(occ + counts.shape[0]) // 2)  # padded, below the canvas
+    errs["compact"] = compare_kernels(bins, binning, tx, ty, "head scale, compact", seed=11, compact=True)
+
+    cam = make_synthetic_camera(width=64, height=48, device=DEVICE)
+    rv_sat = activate_params(params_from_numpy(saturated_scene(), DEVICE))
+    bins, binning, tx, ty = pack_view(rv_sat, cam, 8)
     compare_kernels(bins, binning, tx, ty, "saturated windows", seed=6)
+    bins, binning, tx, ty = pack_view(rv_sat, cam, 8, capacity=int((bins.tile_count > 0).sum()) + 2)
+    compare_kernels(bins, binning, tx, ty, "saturated windows, compact", seed=7, compact=True)
+
+    errs["blur"] = max(compare_blur((15, FULL_H, FULL_W), 1), compare_blur((15, 512, 375), 2))
     return errs
 
 
@@ -164,7 +318,7 @@ def build_main_path():
     from topo4d_tpu_torch.pipeline.data import SyntheticSequence
     from topo4d_tpu_torch.pipeline.scene import build_scene
     from topo4d_tpu_torch.pipeline.trainer import Trainer
-    from topo4d_tpu_torch.testing import make_grid_mesh, make_head_fixture, make_synthetic_regions
+    from topo4d_tpu_torch.testing import make_camera_ring, make_grid_mesh, make_head_fixture, make_synthetic_regions
     from topo4d_tpu_torch.topology.obj_io import MeshObj
 
     rows, cols = 92, 90
@@ -176,71 +330,145 @@ def build_main_path():
     regions = make_synthetic_regions(verts.shape[0], faces)
     cfg = Config()
     cfg.schedule.init_opt_num = INIT_ITERS
+    cfg.texture.gen_tex = True
+    cfg.texture.density = DENSITY
+    t0 = time.perf_counter()
     params_np, statics = build_scene(mesh, regions, cfg, num_views=24)
+    nd = statics.dense.topo.dense_vertices.shape[0]
+    log(
+        f"scene: {verts.shape[0]} Gaussians, dense mesh at density {DENSITY}: {nd} dense Gaussians over "
+        f"{statics.dense.topo.quad_faces.shape[0]} frontal quads, {statics.dense.tri_faces.shape[0]} dense "
+        f"triangles ({time.perf_counter() - t0:.2f} s on the host)"
+    )
     # the sequence's ground truth is the head fixture on the same mesh
     # (random colors, other scales and opacities), so the fit has work to do
     gt_params, cams, _ = make_head_fixture(device=DEVICE)
-    src = SyntheticSequence(params=gt_params, cameras=cams, num_frames=1)
+    cams_full = make_camera_ring(24, width=FULL_W, height=FULL_H, distance=2.0, device=DEVICE)
+    src = SyntheticSequence(params=gt_params, cameras=cams, num_frames=1, cameras_full=cams_full)
     trainer = Trainer(cfg, src, params_np, statics, device=DEVICE)
-    return cfg, src, trainer
+    return cfg, src, trainer, (mesh, regions, gt_params)
 
 
-def phase_main_path(cfg, src, trainer):
-    from topo4d_tpu_torch.rasterizer.blend import LAUNCHES, reset_launches
-
-    frames = [src.frame(0), src.frame(1)]  # targets rendered before the counted run
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    m0 = trainer.fit_frame_geometry(0, frames[0])
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    m1 = trainer.fit_frame_geometry(1, frames[1])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    counts = dict(LAUNCHES)
-    steps = cfg.schedule.init_opt_num + cfg.schedule.opt_num
-    rows = trainer.metrics_log
+def check_rows(rows):
     for r in rows:
         for k, v in r.items():
             if not np.isfinite(v):
                 raise AssertionError(f"non-finite metric {k}={v} in {r}")
-    track = [r for r in rows if r["frame"] == 1]
+
+
+def check_counts(counts, name, expected):
+    for k, n in expected.items():
+        if counts[k] != n:
+            raise AssertionError(f"{name}: {k} launched {counts[k]} times, expected {n} ({counts})")
+
+
+def phase_geometry(cfg, trainer, t, frame):
+    """Geometry fit of frame ``t``, counted: K1/K2 once and K5 twice per
+    step, no plain version."""
+    steps = cfg.schedule.init_opt_num if t == 0 else cfg.schedule.opt_num
+    n_rows = len(trainer.metrics_log)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = trainer.fit_frame_geometry(t, frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rows = trainer.metrics_log[n_rows:]
+    check_rows(rows)
     log(
-        "main path: frame 0 init {} steps {:.3f} s (loss {:.6f} -> {:.6f}), frame 1 track {} steps "
-        "{:.3f} s (loss {:.6f} -> {:.6f}, psnr {:.3f}); launches {}".format(
-            cfg.schedule.init_opt_num, t1 - t0, rows[0]["loss_total"], m0["loss_total"],
-            cfg.schedule.opt_num, t2 - t1, track[0]["loss_total"], m1["loss_total"],
-            m1["psnr"], counts,
-        )
+        f"geometry frame {t} ({'init' if t == 0 else 'track'}, {steps} steps): {wall:.3f} s, "
+        f"{wall / steps * 1e3:.3f} ms/step; loss {rows[0]['loss_total']:.6f} -> {m['loss_total']:.6f}, "
+        f"psnr {m['psnr']:.3f}; launches {counts}"
     )
-    if not track[-1]["loss_total"] < track[0]["loss_total"]:
-        raise AssertionError(f"tracked frame's loss did not fall: {track[0]} -> {track[-1]}")
-    for name in ("tile_blend_fwd", "tile_blend_bwd"):
-        if counts[name] != steps:
-            raise AssertionError(f"{name} launched {counts[name]} times in {steps} steps")
-    if counts["tile_blend_plain"] != 0:
-        raise AssertionError("the plain blend ran on the main path")
-    return counts, (t2 - t0) / steps, t2 - t1, frames
+    if t > 0 and not rows[-1]["loss_total"] < rows[0]["loss_total"]:
+        raise AssertionError(f"tracked frame's loss did not fall: {rows[0]} -> {rows[-1]}")
+    check_counts(counts, f"geometry frame {t}", {
+        "tile_blend_fwd": steps, "tile_blend_bwd": steps, "gauss_blur": 2 * steps,
+        "tile_blend_plain": 0, "gauss_blur_plain": 0,
+    })
+    return counts, wall, steps
 
 
-def phase_card_vs_cpu(cfg, trainer, frames):
-    """Five track steps from the same state and view order, card vs CPU."""
+def phase_texture(cfg, trainer, frame_full):
+    """The dense texture phase of frame 0, counted: K1/K2 once and K5 twice
+    per step, K1 once more per eval render, no plain version, no tile
+    dropped by compact mode."""
+    steps = cfg.schedule.dense_opt_num
+    n_rows = len(trainer.metrics_log)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = trainer.fit_frame_texture(0, frame_full)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rows = trainer.metrics_log[n_rows:]
+    check_rows(rows)
+    evals = sum("tex_psnr_fixed" in r for r in rows)
+    check_counts(counts, "texture frame 0", {
+        "tile_blend_fwd": steps + evals, "tile_blend_bwd": steps, "gauss_blur": 2 * steps,
+        "tile_blend_plain": 0, "gauss_blur_plain": 0,
+    })
+    overflow = [r["tex_num_tile_overflow"] for r in rows if "tex_num_tile_overflow" in r]
+    bs = trainer.dense_binnings(0)
+    occ = [int((b.tile_count > 0).sum()) for b in bs]
+    cap = bs[0].compact.ids.shape[0] if bs[0].compact is not None else None
+    drops = sum(int(b.compact.overflow) for b in bs if b.compact is not None)
+    if any(overflow) or drops or cap is None:
+        raise AssertionError(f"compact mode off or dropping tiles: capacity {cap}, overflow {overflow}, {drops} dropped")
+    e_pad = bs[0].static_rows.shape[1]
+    nd = trainer.texture_state.params["dense_rgb_colors"].shape[0]
+    log(
+        f"texture frame 0: {nd} dense Gaussians x {len(bs)} views at {FULL_W}x{FULL_H}, {steps} steps: "
+        f"{wall:.3f} s per dense frame, {wall / steps * 1e3:.3f} ms per dense step (the frame's wall over its "
+        f"steps: binnings and {evals} eval renders included); non-empty tiles per view {min(occ)}-{max(occ)} of "
+        f"{bs[0].tile_count.shape[0]} (view 0: {occ[0]}), capacity {cap}, tiles dropped 0, E_pad {e_pad}; "
+        f"tex_psnr_fixed {rows[0]['tex_psnr_fixed']:.3f} -> {m['tex_psnr_fixed']:.3f}, loss "
+        f"{rows[0]['tex_loss_total']:.6f} -> {rows[-2]['tex_loss_total']:.6f} (iteration {rows[-2]['iter']}); "
+        f"launches {counts}"
+    )
+    if not m["tex_psnr_fixed"] > rows[0]["tex_psnr_fixed"]:
+        raise AssertionError(f"dense fit did not improve view 0: {rows[0]} -> {m}")
+    return counts, wall, steps, {"occupancy": occ, "capacity": cap, "e_pad": e_pad, "psnr_fixed": m["tex_psnr_fixed"]}
+
+
+def to_device(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, dev) for v in x))
+    return x
+
+
+def camera_to(cams, dev):
     from topo4d_tpu_torch.core.camera import Camera
+
+    return Camera(
+        w2c=cams.w2c.to(dev), fx=cams.fx.to(dev), fy=cams.fy.to(dev), cx=cams.cx.to(dev), cy=cams.cy.to(dev),
+        width=cams.width, height=cams.height, near=cams.near, far=cams.far,
+    )
+
+
+def assert_leaf_close(name, a, b, bound):
+    """Every element within ``bound``, 99.9% within 1e-6 -> summary."""
+    d = (a - b).abs()
+    within = float((d <= 1e-6).float().mean())
+    msg = f"{name} max|d| {float(d.max()):.2e} (bound {bound:.1e}) {within * 100:.3f}% within 1e-6"
+    if float(d.max()) > bound + 1e-6 or within < 0.999:
+        raise AssertionError(f"card vs CPU: {msg}")
+    return msg
+
+
+def phase_card_vs_cpu(cfg, trainer, frame):
+    """Five track steps from the same state and view order, card vs CPU."""
     from topo4d_tpu_torch.opt.adam import AdamState
     from topo4d_tpu_torch.opt.step import TrainState, make_geometry_step
     from topo4d_tpu_torch.pipeline.data import view_order
     from topo4d_tpu_torch.pipeline.scene import build_constraints
     from topo4d_tpu_torch.pipeline.trainer import make_render_fn
-
-    def to(x, dev):
-        if isinstance(x, torch.Tensor):
-            return x.to(dev)
-        if isinstance(x, dict):
-            return {k: to(v, dev) for k, v in x.items()}
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(to(v, dev) for v in x))
-        return x
 
     st = trainer.statics
     n = trainer.state.params["means3D"].shape[0]
@@ -249,23 +477,19 @@ def phase_card_vs_cpu(cfg, trainer, frames):
         ring_indices=st.ring.indices, device="cpu",
     )
     cams = trainer.source.cameras
-    cams_cpu = Camera(
-        w2c=cams.w2c.cpu(), fx=cams.fx.cpu(), fy=cams.fy.cpu(), cx=cams.cx.cpu(), cy=cams.cy.cpu(),
-        width=cams.width, height=cams.height, near=cams.near, far=cams.far,
-    )
-    images = torch.as_tensor(frames[1].images)
+    images = torch.as_tensor(frame.images)
     runs = {}
     for dev, step, cm, con in (
         (DEVICE, trainer.step, cams, trainer._constraints("track")),
-        ("cpu", cpu_step, cams_cpu,
+        ("cpu", cpu_step, camera_to(cams, "cpu"),
          build_constraints("track", trainer.params0, st.regions, trainer.first_frame_attrs, "cpu")),
     ):
         state = TrainState(
-            params=to(trainer.state.params, dev),
-            opt=AdamState(dict(trainer.state.opt.step), to(trainer.state.opt.mu, dev), to(trainer.state.opt.nu, dev)),
-            max_2d_radius=to(trainer.state.max_2d_radius, dev),
+            params=to_device(trainer.state.params, dev),
+            opt=AdamState(dict(trainer.state.opt.step), to_device(trainer.state.opt.mu, dev), to_device(trainer.state.opt.nu, dev)),
+            max_2d_radius=to_device(trainer.state.max_2d_radius, dev),
         )
-        priors = to(trainer.priors, dev)
+        priors = to_device(trainer.priors, dev)
         imgs = images.to(dev)
         lr = trainer.lrs_for("track")
         losses = []
@@ -279,52 +503,226 @@ def phase_card_vs_cpu(cfg, trainer, frames):
     lc, lg = np.array(runs["cpu"][0]), np.array(runs[DEVICE][0])
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     lr = trainer.lrs_for("track")
-    worst = []
-    for k, pc in runs["cpu"][1].items():
-        d = (runs[DEVICE][1][k] - pc).abs()
-        bound = 2 * lr[k] * 5
-        within = float((d <= 1e-6).float().mean())
-        worst.append(f"{k} max|d| {float(d.max()):.2e} (bound {bound:.1e}) {within * 100:.3f}% within 1e-6")
-        if float(d.max()) > bound + 1e-6 or within < 0.999:
-            raise AssertionError(f"card vs CPU: {worst[-1]}")
+    worst = [assert_leaf_close(k, runs[DEVICE][1][k], pc, 2 * lr[k] * 5) for k, pc in runs["cpu"][1].items()]
     log(f"card vs CPU, 5 track steps: loss rel err {float(np.max(np.abs(lg - lc) / np.abs(lc))):.2e}; " + "; ".join(worst))
 
 
-def phase_profile(trainer, frames, steps: int = 10):
-    """Device busy share and kernel launches of track steps.
+def phase_texture_card_vs_cpu(cfg, trainer, scene, steps: int = 3):
+    """Three texture steps at 480x270 on a density-1 dense mesh of the same
+    head grid, card vs CPU, from the same state and views. Colors: every
+    entry within 2 lr steps, 99.9% within 1e-6. The dense Gaussians are
+    isotropic, so their rotations' gradients are rounding noise and are
+    compared through the conics they give."""
+    import copy
 
-    The same ``steps`` views run twice from the same state: once without the
-    profiler, for the wall time, and once under ``torch.profiler``, for the
-    device time of each kernel (CUPTI's device timestamps, which the
-    profiler's host overhead does not stretch). The busy share is the
-    profiled device time over the unprofiled wall time.
+    from topo4d_tpu_torch.core.gaussian import activate_params, project_gaussians
+    from topo4d_tpu_torch.opt.adam import adam_init
+    from topo4d_tpu_torch.pipeline.scene import build_dense_pre_constraints, build_scene, init_dense_params
+    from topo4d_tpu_torch.pipeline.trainer import make_dense_render_fn
+    from topo4d_tpu_torch.rasterizer.render import attach_compact, binning_for, render_gaussians
+    from topo4d_tpu_torch.testing import make_camera_ring
+    from topo4d_tpu_torch.texture.dense import TextureState, dense_rendervars, make_texture_step
+    from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
+
+    mesh, regions, gt_params = scene
+    cfg1 = copy.deepcopy(cfg)
+    cfg1.texture.density = 1
+    _, st1 = build_scene(mesh, regions, cfg1, num_views=24)
+    geo = {k: v.detach().cpu().numpy() for k, v in trainer.state.params.items()}
+    dense_np = init_dense_params(geo, st1, 24)
+    topo = st1.dense.topo
+    views = (0, 1, 2)
+    cams = make_camera_ring(24, width=480, height=270, distance=2.0, device=DEVICE)
+    with torch.no_grad():
+        rv_gt = activate_params({k: torch.as_tensor(v, device=DEVICE) for k, v in gt_params.items()})
+        targets = {v: render_gaussians(rv_gt, cams[v], max_span=4).image for v in views}
+    cap = None
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        cm = camera_to(cams, dev)
+        params = {k: torch.as_tensor(v, device=dev) for k, v in dense_np.items()}
+        means = interpolate_dense_attribute(
+            torch.as_tensor(geo["means3D"], device=dev),
+            *(torch.as_tensor(a, device=dev) for a in (topo.quad_faces, topo.father_face, topo.weights)),
+        )
+        rv = dense_rendervars(params, means)
+        bs = {v: binning_for(rv, cm[v], cfg.raster.max_span, with_static=True) for v in views}
+        if cap is None:  # the trainer's auto capacity (quantum 64 below 8,192 tiles), from the card's binnings
+            occ = max(int((b.tile_count > 0).sum()) for b in bs.values())
+            cap = -(-int(occ * 1.2) // 64) * 64
+        bs = {v: attach_compact(b, cap) for v, b in bs.items()}
+        step = make_texture_step(make_dense_render_fn(cfg, dev))
+        state = TextureState(params=params, opt=adam_init(params))
+        anchor = params["dense_rgb_colors"]
+        pre = build_dense_pre_constraints(dense_np, regions, dev)
+        losses = []
+        for v in views:
+            state, m = step(state, means, targets[v].to(dev), cm, v, anchor, pre, dict(cfg.lrs.dense),
+                            cfg.dense_weights.as_dict(), bs[v], with_metrics=False)
+            losses.append(float(m["loss_total"]))
+        runs[dev] = (losses, {k: v.cpu() for k, v in state.params.items()}, means.cpu())
+    lc, lg = np.array(runs["cpu"][0]), np.array(runs[DEVICE][0])
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    lr = cfg.lrs.dense
+    msgs = [assert_leaf_close(k, runs[DEVICE][1][k], runs["cpu"][1][k], 2 * lr[k] * steps)
+            for k in ("dense_rgb_colors", "dense_logit_opacities", "dense_log_scales")]
+    cam0 = camera_to(cams, "cpu")[0]
+    conics = []
+    for dev in (DEVICE, "cpu"):
+        with torch.no_grad():
+            conics.append(project_gaussians(dense_rendervars(runs[dev][1], runs["cpu"][2]), cam0).conics)
+    cerr = float(((conics[0] - conics[1]).abs() / conics[1].abs().clamp(min=1e-3)).max())
+    torch.testing.assert_close(conics[0], conics[1], rtol=1e-4, atol=1e-5)
+    log(
+        f"card vs CPU, {steps} texture steps at 480x270 ({dense_np['dense_rgb_colors'].shape[0]} dense Gaussians, "
+        f"views {views}, capacity {cap}): loss rel err {float(np.max(np.abs(lg - lc) / np.abs(lc))):.2e}; "
+        + "; ".join(msgs) + f"; conics of the learned rotations max rel err {cerr:.2e}"
+    )
+
+
+def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, plain_iters: int, seed: int):
+    """K1 and K2 on one view's rows (every tile of the canvas, or the
+    compact list): the kernels' times, K2's wrapper with its dpacked
+    zero-fill and the fill alone, the plain version's forward and forward
+    plus autograd backward, and this run's bounds -> {"fwd": ..., "bwd": ...}."""
+    from topo4d_tpu_torch import kernels
+    from topo4d_tpu_torch.rasterizer.blend import tile_blend_bwd_cuda, tile_blend_fwd_cuda
+
+    packed = bins.packed
+    start, count, ids = blend_rows(bins, binning, tx, ty, compact)
+    kid = ids if compact else None
+    out = tile_blend_fwd_cuda(packed, start, count, tx, ty, kid)
+    g_out = torch.randn(out.shape, device=out.device, generator=torch.Generator("cuda").manual_seed(seed))
+    ms_fwd = cuda_ms(lambda: tile_blend_fwd_cuda(packed, start, count, tx, ty, kid), iters=iters)
+    # K2 alone, on a dpacked allocated and zeroed once; the wrapper's
+    # zero-fill of the whole (16, E_pad) dpacked is timed on its own
+    k2 = kernels.kernel("tile_blend_bwd")
+    dpacked = torch.zeros_like(packed)
+    stream = torch.cuda.current_stream().cuda_stream
+    k2_args = (
+        packed.data_ptr(), packed.shape[1], start.data_ptr(), count.data_ptr(),
+        None if kid is None else kid.data_ptr(), tx, start.shape[0],
+        out.data_ptr(), g_out.data_ptr(), dpacked.data_ptr(), stream,
+    )
+    ms_bwd = cuda_ms(lambda: kernels.check(k2(*k2_args), "tile_blend_bwd"), iters=iters)
+    ms_zero = cuda_ms(lambda: torch.zeros_like(packed), iters=iters)
+    ms_bwd_wrapper = cuda_ms(lambda: tile_blend_bwd_cuda(packed, start, count, out, g_out, tx, ty, kid), iters=iters)
+    ms_plain_fwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids), iters=plain_iters, warmup=1)
+    ms_plain_bwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids, g_out), iters=plain_iters, warmup=1)
+    bf, byf, bb, byb = blend_bounds(packed, start, count, tx, ids, out, compact)
+    log(
+        f"timing, {label} ({int((count > 0).sum())} non-empty of {start.shape[0]} rows, {tx * ty} tiles; "
+        f"E_pad {packed.shape[1]}, entries in ranges {int(count.sum())}): K1 {ms_fwd:.4f} ms (bound {bf:.4f} ms, "
+        f"{byf}, {100 * bf / ms_fwd:.1f}%), K2 {ms_bwd:.4f} ms (bound {bb:.4f} ms, {byb}, {100 * bb / ms_bwd:.1f}%); "
+        f"K2 wrapper with its dpacked zero-fill {ms_bwd_wrapper:.4f} ms, zero-fill alone ({packed.numel() * 4} B) "
+        f"{ms_zero:.4f} ms; plain fwd {ms_plain_fwd:.3f} ms, plain fwd+bwd {ms_plain_bwd:.3f} ms "
+        f"({ROWS_PER_CHUNK} rows per call)"
+    )
+    return {
+        "fwd": {"ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf},
+        "bwd": {"ms": ms_bwd, "plain_ms": ms_plain_bwd, "bound_ms": bb, "bound_by": byb,
+                "wrapper_ms": ms_bwd_wrapper, "zero_fill_ms": ms_zero},
+    }
+
+
+def phase_timing(trainer):
+    """K1/K2 at the geometry main path's shapes (view 0 of the trained
+    state, full canvas)."""
+    from topo4d_tpu_torch.core.gaussian import activate_params
+
+    cam = trainer.source.cameras[0]
+    bins, binning, tx, ty = pack_view(activate_params(trainer.state.params), cam, trainer.cfg.raster.max_span)
+    label = "geometry shapes (view 0, trained params)"
+    compare_kernels(bins, binning, tx, ty, label, seed=9)
+    return time_blend(bins, binning, tx, ty, False, label, iters=50, plain_iters=5, seed=0)
+
+
+def blend_bounds(packed, start, count, tx, ids, out, compact: bool):
+    """K1's and K2's bounds from what this run's data needs them to move and
+    compute -> (K1 ms, by, K2 ms, by)."""
+    from topo4d_tpu_torch.rasterizer.blend import PX
+
+    evaluated, contributing, k1_entries = pair_counts(packed, start, count, tx, ids)
+    last = out[:, 5].long()  # entries up to each pixel's last contributor
+    last_total = int(last.sum())  # pairs K2 visits
+    k2_entries = int(last.amax(-1).sum())  # entries K2 reads and writes: per tile, up to its furthest pixel
+    rows = start.shape[0]
+    f4 = 4
+    entry_b = 10 * f4  # the ten field rows (0-5, 8-11) of one entry
+    ranges_b = (3 if compact else 2) * rows * f4  # start, count, and the tile map in compact mode
+    row_b = rows * PX * f4  # one row of an (R, 8, 256) tile buffer
+    fwd_bytes = k1_entries * entry_b + ranges_b + 8 * row_b  # writes all 8 rows
+    # reads fwd rows 4-5 and g_out rows 0-4, writes the ten rows of the entries it visits
+    bwd_bytes = 2 * k2_entries * entry_b + ranges_b + (2 + 5) * row_b
+    # FP32 operations per (pixel, entry) pair, counted from the kernel sources
+    fwd_ops = 16 * evaluated + 11 * contributing
+    bwd_ops = 16 * (last_total - contributing) + 55 * contributing
+    return (*bound(fwd_bytes, fwd_ops), *bound(bwd_bytes, bwd_ops))
+
+
+def phase_texture_timing(trainer, errs):
+    """K1/K2 at one 4K dense view (view 0 of the fitted dense state):
+    compact against the plain version, then the times and bounds of the
+    compact rows and of the full canvas; K5, its plain version and cuDNN's
+    depthwise convolution at both blur shapes."""
+    import torch.nn.functional as F
+
+    from topo4d_tpu_torch.losses.blur import _gaussian_1d, gauss_blur_cuda, gauss_blur_plain
+    from topo4d_tpu_torch.texture.dense import dense_rendervars
+
+    rv = dense_rendervars(trainer.texture_state.params, trainer.dense_means3d)
+    cam = trainer.source.cameras_full[0]
+    bins, binning, tx, ty = pack_view(rv, cam, trainer.cfg.raster.max_span, trainer._auto_tile_cap, with_static=True)
+    errs["dense"] = compare_kernels(bins, binning, tx, ty, "4K dense view 0, compact", seed=12, compact=True)
+    blend = time_blend(bins, binning, tx, ty, True, "4K dense view 0, compact", iters=20, plain_iters=2, seed=1)
+    time_blend(bins, binning, tx, ty, False, "4K dense view 0, full canvas", iters=20, plain_iters=2, seed=1)
+
+    taps = torch.as_tensor(_gaussian_1d(11, 1.5), device=DEVICE)
+    blur = {}
+    for shape in ((15, FULL_H, FULL_W), (15, 512, 375)):
+        ch = shape[0]
+        x = torch.rand(shape, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(3))
+        wv = taps.view(1, 1, 11, 1).expand(ch, 1, 11, 1).contiguous()
+        wh = taps.view(1, 1, 1, 11).expand(ch, 1, 1, 11).contiguous()
+
+        def cudnn(x=x, wv=wv, wh=wh, ch=ch):
+            return F.conv2d(F.conv2d(x[None], wv, padding=(5, 0), groups=ch), wh, padding=(0, 5), groups=ch)[0]
+
+        torch.testing.assert_close(cudnn(), gauss_blur_plain(x), rtol=1e-5, atol=1e-6)
+        ms = cuda_ms(lambda: gauss_blur_cuda(x), iters=20)
+        ms_plain = cuda_ms(lambda: gauss_blur_plain(x), iters=5, warmup=1)
+        ms_lib = cuda_ms(cudnn, iters=20)
+        b, by = bound(2 * x.numel() * 4, 42 * x.numel())
+        blur[shape] = {"ms": ms, "plain_ms": ms_plain, "library_ms": ms_lib, "bound_ms": b, "bound_by": by}
+        log(
+            f"K5 {shape}: {ms:.4f} ms (bound {b:.4f} ms, {by}, {100 * b / ms:.1f}%), plain {ms_plain:.3f} ms, "
+            f"cuDNN depthwise conv2d (vertical then horizontal, TF32 off) {ms_lib:.4f} ms"
+        )
+    return blend, blur
+
+
+def device_profile(run, steps: int, label: str, symbols):
+    """Device busy share and kernel time of ``run()`` (``steps`` steps).
+
+    ``run`` goes twice: once without the profiler, for the wall time, and
+    once under ``torch.profiler``, for the device time of each kernel
+    (CUPTI's device timestamps, which the profiler's host overhead does not
+    stretch). The busy share is the profiled device time over the
+    unprofiled wall time.
     """
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from topo4d_tpu_torch.pipeline.data import view_order
-
-    images = torch.as_tensor(frames[1].images, device=DEVICE)
-    args = (trainer._constraints("track"), trainer.lrs_for("track"), trainer.weights_for("track"), "track")
-    cams = trainer.source.cameras
-    order = [int(v) for v in view_order(24, steps + 2, seed=3)]
-
-    def run(views):
-        state, priors = trainer.state, trainer.priors
-        for vid in views:
-            state, priors, _ = trainer.step(state, images[vid], cams, vid, priors, *args, with_metrics=False)
-
-    run(order[:2])  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(order[2:])
+    run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(order[2:])
+        run()
         torch.cuda.synchronize()
         wall_prof_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -336,105 +734,99 @@ def phase_profile(trainer, frames, steps: int = 10):
     def kernel_ms(symbol):
         return sum(e.time_range.elapsed_us() for e in kernels if symbol in e.name) / 1e3 / steps
 
-    top = ", ".join(f"{n} {t / steps:.3f}" for n, t in by_name.most_common(6))
-    k1, k2 = kernel_ms("tile_blend_fwd_kernel"), kernel_ms("tile_blend_bwd_kernel")
+    top = ", ".join(f"{n} {t / steps:.3f}" for n, t in by_name.most_common(8))
+    ks = {s: kernel_ms(s) for s in symbols}
+    ours = sum(ks.values())
     log(
-        f"profile of {steps} track steps: {wall_ms / steps:.3f} ms/step wall without the profiler "
+        f"profile of {steps} {label} steps: {wall_ms / steps:.3f} ms/step wall without the profiler "
         f"({wall_prof_ms / steps:.3f} with it); device busy {busy_ms / steps:.3f} ms/step, "
         f"{100 * busy_ms / wall_ms:.1f}% of the unprofiled wall (idle {100 - 100 * busy_ms / wall_ms:.1f}%); "
-        f"{len(kernels) / steps:.0f} device activities/step; K1 {k1:.4f} + K2 {k2:.4f} ms/step "
-        f"({100 * (k1 + k2) * steps / busy_ms:.1f}% of busy, {100 * (k1 + k2) * steps / wall_ms:.2f}% of wall); "
+        f"{len(kernels) / steps:.0f} device activities/step; "
+        + ", ".join(f"{s} {v:.4f}" for s, v in ks.items())
+        + f" ms/step ({100 * ours * steps / busy_ms:.1f}% of busy, {100 * ours * steps / wall_ms:.2f}% of wall); "
         f"top ms/step: {top}"
     )
+    return wall_ms / steps, busy_ms / steps
 
 
-def phase_timing(trainer, counts, ms_step, s_frame, errs):
-    from topo4d_tpu_torch import kernels
-    from topo4d_tpu_torch.rasterizer.blend import (
-        PX,
-        tile_blend_bwd_cuda,
-        tile_blend_fwd_cuda,
-        tile_blend_plain,
-    )
+def phase_profile(trainer, frame, steps: int = 10):
+    """Ten track steps from the trained state (discarded)."""
+    from topo4d_tpu_torch.pipeline.data import view_order
 
-    cam = trainer.source.cameras[0]
-    bins, binning, tx, ty = pack_view(trainer.state.params, cam, trainer.cfg.raster.max_span)
-    compare_kernels(bins, binning, tx, ty, "main path shapes (view 0, trained params)", seed=9)
-    packed, start, count = bins.packed, bins.tile_start, bins.tile_count
-    t = tx * ty
-    out = tile_blend_fwd_cuda(packed, start, count, tx, ty)
-    g_out = torch.randn(out.shape, device=out.device, generator=torch.Generator("cuda").manual_seed(0))
-    ms_fwd = cuda_ms(lambda: tile_blend_fwd_cuda(packed, start, count, tx, ty), iters=50)
-    # K2 alone, on a dpacked allocated and zeroed once; the wrapper's
-    # zero-fill of the whole (16, E_pad) dpacked is timed on its own
-    k2 = kernels.kernel("tile_blend_bwd")
-    dpacked = torch.zeros_like(packed)
-    stream = torch.cuda.current_stream().cuda_stream
-    k2_args = (
-        packed.data_ptr(), packed.shape[1], start.data_ptr(), count.data_ptr(), tx, t,
-        out.data_ptr(), g_out.data_ptr(), dpacked.data_ptr(), stream,
-    )
-    ms_bwd = cuda_ms(lambda: kernels.check(k2(*k2_args), "tile_blend_bwd"), iters=50)
-    ms_zero = cuda_ms(lambda: torch.zeros_like(packed), iters=50)
-    ms_bwd_wrapper = cuda_ms(lambda: tile_blend_bwd_cuda(packed, start, count, out, g_out, tx, ty), iters=50)
-    packed_p = packed.clone().requires_grad_(True)
-    ms_plain_fwd = cuda_ms(lambda: tile_blend_plain(packed, start, count, tx, ty), iters=5, warmup=1)
-    out_p = tile_blend_plain(packed_p, start, count, tx, ty)
-    ms_plain_bwd = cuda_ms(
-        lambda: torch.autograd.grad(out_p, packed_p, g_out, retain_graph=True), iters=5, warmup=1
-    )
+    images = torch.as_tensor(frame.images, device=DEVICE)
+    args = (trainer._constraints("track"), trainer.lrs_for("track"), trainer.weights_for("track"), "track")
+    cams = trainer.source.cameras
+    order = [int(v) for v in view_order(24, steps + 2, seed=3)]
 
-    # What this run's data needs each kernel to move and compute
-    evaluated, contributing, k1_entries = pair_counts(packed, start, count, tx)
-    last = out[:, 5].long()  # entries up to each pixel's last contributor
-    last_total = int(last.sum())  # pairs K2 visits
-    k2_entries = int(last.amax(-1).sum())  # entries K2 reads and writes: per tile, up to its furthest pixel
-    f4 = 4
-    entry_b = 10 * f4  # the ten field rows (0-5, 8-11) of one entry
-    ranges_b = 2 * t * f4
-    row_b = t * PX * f4  # one row of a (T, 8, 256) tile buffer
-    fwd_bytes = k1_entries * entry_b + ranges_b + 8 * row_b  # writes all 8 rows
-    # reads fwd rows 4-5 and g_out rows 0-4, writes the ten rows of the entries it visits
-    bwd_bytes = k2_entries * entry_b + ranges_b + (2 + 5) * row_b + k2_entries * entry_b
-    # FP32 operations per (pixel, entry) pair, counted from the kernel sources
-    fwd_ops = 16 * evaluated + 11 * contributing
-    bwd_ops = 16 * (last_total - contributing) + 55 * contributing
+    def run(views):
+        state, priors = trainer.state, trainer.priors
+        for vid in views:
+            state, priors, _ = trainer.step(state, images[vid], cams, vid, priors, *args, with_metrics=False)
 
-    def bound(nbytes, ops):
-        tb = nbytes / H100_BYTES_PER_S * 1e3
-        to = ops / H100_FP32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
+    run(order[:2])  # warm
+    device_profile(lambda: run(order[2:]), steps, "track",
+                   ("tile_blend_fwd_kernel", "tile_blend_bwd_kernel", "gauss_blur_kernel"))
 
-    bf, byf = bound(fwd_bytes, fwd_ops)
-    bb, byb = bound(bwd_bytes, bwd_ops)
-    log(
-        f"timing at main path shapes (E_pad {packed.shape[1]}, {t} tiles, entries in ranges "
-        f"{int(count.sum())}, K1 must read {k1_entries}, K2 visits {k2_entries}; pairs K1 evaluates "
-        f"{evaluated}, contributing {contributing}, K2 visits {last_total}; bytes K1 {fwd_bytes}, "
-        f"K2 {bwd_bytes}; ops K1 {fwd_ops}, K2 {bwd_ops}): K1 {ms_fwd:.4f} ms (bound {bf:.4f} ms, "
-        f"{byf}, {100 * bf / ms_fwd:.1f}%), K2 {ms_bwd:.4f} ms (bound {bb:.4f} ms, {byb}, "
-        f"{100 * bb / ms_bwd:.1f}%); K2 wrapper with its dpacked zero-fill {ms_bwd_wrapper:.4f} ms, "
-        f"zero-fill alone {ms_zero:.4f} ms; plain fwd {ms_plain_fwd:.3f} ms, plain bwd {ms_plain_bwd:.3f} ms"
-    )
-    log(f"ms per geometry step {ms_step * 1e3:.3f}; s per tracked frame (1,100 steps) {s_frame:.3f}")
-    return [
-        {
-            "name": "tile_blend_fwd", "route": "cuda",
-            "source": "topo4d_tpu_torch/csrc/blend_fwd.cu",
-            "replaces": "topo4d_tpu/rasterizer/pallas_blend.py:317",
-            "launches": counts["tile_blend_fwd"], "max_abs_err": errs[4][0],
-            "ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf,
-            "library_ms": None,
-        },
-        {
-            "name": "tile_blend_bwd", "route": "cuda",
-            "source": "topo4d_tpu_torch/csrc/blend_bwd.cu",
-            "replaces": "topo4d_tpu/rasterizer/pallas_blend.py:942",
-            "launches": counts["tile_blend_bwd"], "max_abs_err": errs[4][1],
-            "ms": ms_bwd, "plain_ms": ms_plain_bwd, "bound_ms": bb, "bound_by": byb,
-            "library_ms": None,
-        },
-    ]
+
+def phase_profile_dense(trainer, frame_full, steps: int = 10):
+    """Ten dense steps from the fitted dense state (discarded), with the
+    frozen compact tile lists and then with the same binnings on the full
+    canvas (what ``texture.tile_capacity = 0`` runs) -> {mode: (wall ms,
+    busy ms) per step}."""
+    from topo4d_tpu_torch.pipeline.data import view_order
+
+    cfg = trainer.cfg
+    images = torch.as_tensor(frame_full.images, device=DEVICE)
+    cams = trainer.source.cameras_full
+    bs = trainer.dense_binnings(0)
+    modes = {"compact": bs, "full canvas": [b._replace(compact=None) for b in bs]}
+    order = [int(v) for v in view_order(24, steps + 2, seed=4)]
+    lr, w = dict(cfg.lrs.dense), cfg.dense_weights.as_dict()
+
+    def run(views, binnings):
+        state = trainer.texture_state
+        for v in views:
+            state, _ = trainer.texture_step(state, trainer.dense_means3d, images[v], cams, v, trainer.dense_anchor,
+                                            trainer._dense_pre, lr, w, binnings[v], with_metrics=False)
+
+    out = {}
+    for mode, binnings in modes.items():
+        run(order[:2], binnings)  # warm
+        out[mode] = device_profile(lambda b=binnings: run(order[2:], b), steps, f"dense ({mode})",
+                                   ("tile_blend_fwd_kernel", "tile_blend_bwd_kernel", "gauss_blur_kernel"))
+    return out
+
+
+def kernel_rows(counts, errs, geo_timing, blend4k, blur):
+    """The ``kernels`` line: times, bounds and plain times at the dense
+    phase's 4K shapes (the largest the main path gives each kernel), the
+    geometry shapes' numbers beside them; launches over the whole main path."""
+    launches = {k: sum(c[k] for c in counts.values()) for k in ("tile_blend_fwd", "tile_blend_bwd", "gauss_blur")}
+    by_path = {k: {p: c[k] for p, c in counts.items()} for k in launches}
+    big, small = blur[(15, FULL_H, FULL_W)], blur[(15, 512, 375)]
+    rows = []
+    for name, key, src, tpu in (
+        ("tile_blend_fwd", "fwd", "blend_fwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:317"),
+        ("tile_blend_bwd", "bwd", "blend_bwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:942"),
+    ):
+        i = 0 if key == "fwd" else 1
+        t = blend4k[key]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"topo4d_tpu_torch/csrc/{src}", "replaces": tpu,
+            "launches": launches[name], "launches_by_path": by_path[name],
+            "max_abs_err": max(errs[4][i], errs[2][i], errs["compact"][i], errs["dense"][i]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": "4K dense view 0, compact", "geometry_shape": geo_timing[key],
+        })
+    rows.append({
+        "name": "gauss_blur", "route": "cuda", "source": "topo4d_tpu_torch/csrc/blur.cu",
+        "replaces": "topo4d_tpu/losses/blur_pallas.py:52",
+        "launches": launches["gauss_blur"], "launches_by_path": by_path["gauss_blur"],
+        "max_abs_err": errs["blur"], "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"], "library_ms": big["library_ms"], "shape": [15, FULL_H, FULL_W],
+        "geometry_shape": small,
+    })
+    return rows
 
 
 def main() -> int:
@@ -444,6 +836,7 @@ def main() -> int:
         return 1
     from topo4d_tpu_torch import kernels  # the package import turns TF32 off
 
+    t_start = time.perf_counter()
     CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -453,13 +846,36 @@ def main() -> int:
 
     log(f"kernels built in {kernels.build_all(verbose=True):.2f} s")
     errs = phase_kernels()
-    cfg, src, trainer = build_main_path()
-    counts, ms_step, s_frame, frames = phase_main_path(cfg, src, trainer)
-    phase_card_vs_cpu(cfg, trainer, frames)
-    kernel_rows = phase_timing(trainer, counts, ms_step, s_frame, errs)
-    phase_profile(trainer, frames)
+    cfg, src, trainer, scene = build_main_path()
+    t0 = time.perf_counter()
+    frames = [src.frame(0), src.frame(1)]
+    frame_full = src.frame(0, full_res=True)
+    torch.cuda.synchronize()
+    log(f"targets: 2 frames x 24 views at 375x512, 24 views at {FULL_W}x{FULL_H} ({time.perf_counter() - t0:.2f} s)")
 
-    print(json.dumps({"kernels": kernel_rows}))
+    counts = {}
+    counts["geometry frame 0"], wall0, steps0 = phase_geometry(cfg, trainer, 0, frames[0])
+    counts["texture frame 0"], tex_wall, tex_steps, tex_info = phase_texture(cfg, trainer, frame_full)
+    counts["geometry frame 1"], wall1, steps1 = phase_geometry(cfg, trainer, 1, frames[1])
+    log(
+        f"ms per geometry step {(wall0 + wall1) / (steps0 + steps1) * 1e3:.3f}; s per tracked frame "
+        f"({steps1} steps) {wall1:.3f}; s per dense frame ({tex_steps} steps) {tex_wall:.3f}"
+    )
+    phase_card_vs_cpu(cfg, trainer, frames[1])
+    phase_texture_card_vs_cpu(cfg, trainer, scene)
+    geo_timing = phase_timing(trainer)
+    blend4k, blur = phase_texture_timing(trainer, errs)
+    phase_profile(trainer, frames[1])
+    dense = phase_profile_dense(trainer, frame_full)
+    log(
+        f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
+        f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
+        f"s per dense frame {tex_wall:.3f} "
+        f"({tex_steps} iterations), final tex_psnr_fixed {tex_info['psnr_fixed']:.3f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
+    )
+
+    print(json.dumps({"kernels": kernel_rows(counts, errs, geo_timing, blend4k, blur)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -1,15 +1,16 @@
-"""PyTorch + CUDA port of ``topo4d_tpu`` (slice 1: parity-mode geometry tracking).
+"""PyTorch + CUDA port of ``topo4d_tpu`` (slices 1-2: parity-mode geometry
+tracking and the dense texture phase).
 
 The JAX package beside this one is the reference; this package mirrors its
 layout (``core/``, ``rasterizer/``, ``losses/``, ``opt/``, ``topology/``,
-``pipeline/``) and keeps its public layouts (images (C, H, W), packed
+``texture/``, ``pipeline/``) and keeps its public layouts (images (C, H, W), packed
 entries (16, E_pad), one-ring tables (K, N)) so that tests compare like with
 like. It imports neither JAX nor the JAX package.
 
 Device rule: every entry point takes ``device`` and defaults to ``"cuda"``;
 it raises when no card is present and never falls back to the CPU. The tile
-blend runs the hand-written CUDA kernels (``csrc/``) on CUDA tensors and its
-plain PyTorch version only on CPU tensors.
+blend and the SSIM blur run the hand-written CUDA kernels (``csrc/``) on CUDA
+tensors and their plain PyTorch versions only on CPU tensors.
 
 Contract paths run in float32 with TF32 off (cuBLAS and cuDNN).
 """

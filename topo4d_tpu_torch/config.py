@@ -1,4 +1,5 @@
-"""The subset of ``topo4d_tpu.config`` that the geometry tracking path reads.
+"""The subset of ``topo4d_tpu.config`` that the geometry tracking path and
+the dense texture phase read.
 
 Same field names and defaults as the reference's dataclasses; learning rates
 and loss weights stay host floats (they are passed to the step as Python
@@ -42,9 +43,21 @@ class LossWeights:
 
 
 @dataclasses.dataclass
+class DenseLossWeights:
+    """Texture-phase weights (reference train.py:541-543)."""
+
+    im: float = 1.0
+    soft_color: float = 0.02
+
+    def as_dict(self) -> Dict[str, float]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
 class LearningRates:
     """Per-parameter Adam LRs: init (frame 0), track (frames > 0), polish
-    (the last ``polish_iters`` iterations of a tracked frame)."""
+    (the last ``polish_iters`` iterations of a tracked frame), dense (the
+    texture phase: only colors and rotations learn)."""
 
     init: Dict[str, float] = dataclasses.field(default_factory=lambda: {
         "means3D": 0.0, "rgb_colors": 2.5e-3, "unnorm_rotations": 1e-3,
@@ -61,6 +74,10 @@ class LearningRates:
         "logit_opacities": 0.0, "log_scales": 0.0,
         "cam_m": 0.0, "cam_c": 0.0,
     })
+    dense: Dict[str, float] = dataclasses.field(default_factory=lambda: {
+        "dense_rgb_colors": 2.5e-3, "dense_unnorm_rotations": 1e-3,
+        "dense_logit_opacities": 0.0, "dense_log_scales": 0.0,
+    })
 
 
 @dataclasses.dataclass
@@ -75,10 +92,32 @@ class ScheduleConfig:
 
     init_opt_num: int = 7000
     opt_num: int = 1100
+    dense_opt_num: int = 301
+    dense_opt_num_tracked: int = -1  # texture iterations of frames > 0; -1 = dense_opt_num
     polish_iters: int = 100
     eye_freeze_frac: float = 0.7
     log_freq: int = 500
+    dense_log_freq: int = 300
     views_per_step: int = 1  # 1 = reference parity (the only mode ported)
+
+
+@dataclasses.dataclass
+class TextureConfig:
+    """The dense texture phase (reference train.py:209-267, 715-743)."""
+
+    gen_tex: bool = False  # build the dense UV-densified Gaussians
+    density: int = 30  # interior subdivision points per quad edge
+    # frozen per-view binning: 0 = once per (frame, view), the only
+    # cadence ported (dense means3D are fixed within a frame)
+    rebin_freq: int = 0
+    # non-empty tiles a dense render blends: -1 = auto (the frame's
+    # occupancy x 1.2, rounded up, never shrinking), 0 = off (full canvas),
+    # > 0 = manual (tiles past it dropped and counted in num_overflow)
+    tile_capacity: int = -1
+    # gather only the learned packed rows per step; the frame-constant rows
+    # are captured with the frozen binning
+    split_pack: bool = True
+    allview_eval: bool = False  # log the mean PSNR over all views per log row
 
 
 @dataclasses.dataclass
@@ -86,7 +125,9 @@ class Config:
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     raster: RasterizerConfig = dataclasses.field(default_factory=RasterizerConfig)
     weights: LossWeights = dataclasses.field(default_factory=LossWeights)
+    dense_weights: DenseLossWeights = dataclasses.field(default_factory=DenseLossWeights)
     lrs: LearningRates = dataclasses.field(default_factory=LearningRates)
+    texture: TextureConfig = dataclasses.field(default_factory=TextureConfig)
     iso_region_multipliers: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict(ISO_REGION_MULTIPLIERS)
     )

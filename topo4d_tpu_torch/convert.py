@@ -8,6 +8,7 @@ copied: a tensor never aliases a buffer the caller's framework owns.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -20,7 +21,9 @@ from topo4d_tpu_torch.losses.temporal import TemporalPriors
 from topo4d_tpu_torch.opt.adam import AdamState
 from topo4d_tpu_torch.opt.step import GeometryPriors
 from topo4d_tpu_torch.pipeline.scene import SceneStatics
+from topo4d_tpu_torch.texture.dense import TextureState
 from topo4d_tpu_torch.topology.adjacency import OneRing
+from topo4d_tpu_torch.topology.densify_uv import DenseMesh, DenseTopology
 from topo4d_tpu_torch.topology.regions import FacialRegions
 
 
@@ -83,8 +86,24 @@ def regions_from_numpy(r) -> FacialRegions:
     )
 
 
+def texture_state_from_numpy(ts, device="cuda") -> TextureState:
+    """A reference TextureState (dense params, AdamState)."""
+    return TextureState(params=params_from_numpy(ts.params, device), opt=adam_state_from_numpy(ts.opt, device))
+
+
+def dense_mesh_from_numpy(d) -> DenseMesh:
+    """A reference DenseMesh (its DenseTopology and triangulated faces)."""
+    topo = DenseTopology(**{
+        f.name: np.array(getattr(d.topo, f.name)) if isinstance(getattr(d.topo, f.name), np.ndarray)
+        else getattr(d.topo, f.name)
+        for f in dataclasses.fields(DenseTopology)
+    })
+    return DenseMesh(topo=topo, tri_faces=np.array(d.tri_faces), tri_uv_faces=np.array(d.tri_uv_faces))
+
+
 def statics_from_numpy(s) -> SceneStatics:
-    """A reference SceneStatics (geometry fields) as this package's statics."""
+    """A reference SceneStatics (geometry, UV and dense-mesh fields) as this
+    package's statics."""
     return SceneStatics(
         ring=OneRing(
             indices=np.asarray(s.ring.indices), dist=np.asarray(s.ring.dist),
@@ -100,4 +119,7 @@ def statics_from_numpy(s) -> SceneStatics:
         faces=[list(f) for f in s.faces],
         tri_faces=np.asarray(s.tri_faces),
         trans_g=np.asarray(s.trans_g),
+        uvs=None if s.uvs is None else np.asarray(s.uvs),
+        uv_faces=None if s.uv_faces is None else [list(f) for f in s.uv_faces],
+        dense=None if s.dense is None else dense_mesh_from_numpy(s.dense),
     )

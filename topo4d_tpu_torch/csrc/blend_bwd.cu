@@ -13,6 +13,9 @@
 // every range and past every pixel's last contributor stay zero. The 0.99
 // alpha clamp passes the gradient straight through (dalpha/dG = opacity
 // even when clamped), as the reference's rasterizer backward does.
+// Compact mode (tile_ids not null): block b walks the range tile_start[b],
+// tile_count[b] of global tile tile_ids[b], with rows b of fwd and g; a
+// padding row (count 0) writes nothing.
 //
 // Math, per pixel, back to front over its contributors i (those K1 blended):
 //   T_i = T_{i+1} / (1 - alpha_i)          (T before entry i; T_last+1 = T_final)
@@ -70,20 +73,22 @@ __device__ __forceinline__ int grad_row(int f) { return f < 6 ? f : f + 2; }
 __global__ void __launch_bounds__(PX) tile_blend_bwd_kernel(
     const float* __restrict__ packed, int64_t e_pad,
     const int32_t* __restrict__ tile_start,
-    const int32_t* __restrict__ tile_count, int tiles_x,
+    const int32_t* __restrict__ tile_count,
+    const int32_t* __restrict__ tile_ids, int tiles_x,
     const float* __restrict__ fwd, const float* __restrict__ g_out,
     float* __restrict__ dpacked) {
-  const int tile = blockIdx.x;
+  const int row = blockIdx.x;
+  const int tile = tile_ids ? tile_ids[row] : row;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
   const float px = (float)((tile % tiles_x) * TILE + (p % TILE));
   const float py = (float)((tile / tiles_x) * TILE + (p / TILE));
-  const int64_t start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int64_t start = tile_start[row];
+  const int count = tile_count[row];
 
-  const float* fo = fwd + (int64_t)tile * 8 * PX + p;
-  const float* go = g_out + (int64_t)tile * 8 * PX + p;
+  const float* fo = fwd + (int64_t)row * 8 * PX + p;
+  const float* go = g_out + (int64_t)row * 8 * PX + p;
   const float t_final = fo[4 * PX];
   const int last = min((int)fo[5 * PX], count);
   const float g_r = go[0 * PX], g_g = go[1 * PX], g_b = go[2 * PX];
@@ -189,17 +194,18 @@ __global__ void __launch_bounds__(PX) tile_blend_bwd_kernel(
 
 }  // namespace
 
-// Launches K2 on ``stream``; returns cudaGetLastError() (0 = launched).
+// Launches K2 over ``num_rows`` rows on ``stream`` (``tile_ids`` null:
+// row r is tile r); returns cudaGetLastError() (0 = launched).
 extern "C" int tile_blend_bwd(const void* packed, int64_t e_pad,
                               const void* tile_start, const void* tile_count,
-                              int tiles_x, int num_tiles, const void* fwd,
-                              const void* g_out, void* dpacked,
-                              void* stream) {
-  if (num_tiles > 0) {
-    tile_blend_bwd_kernel<<<num_tiles, PX, 0, (cudaStream_t)stream>>>(
+                              const void* tile_ids, int tiles_x, int num_rows,
+                              const void* fwd, const void* g_out,
+                              void* dpacked, void* stream) {
+  if (num_rows > 0) {
+    tile_blend_bwd_kernel<<<num_rows, PX, 0, (cudaStream_t)stream>>>(
         (const float*)packed, e_pad, (const int32_t*)tile_start,
-        (const int32_t*)tile_count, tiles_x, (const float*)fwd,
-        (const float*)g_out, (float*)dpacked);
+        (const int32_t*)tile_count, (const int32_t*)tile_ids, tiles_x,
+        (const float*)fwd, (const float*)g_out, (float*)dpacked);
   }
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,11 @@
 // Output (T, 8, 256) float32: rows 0-2 rgb, 3 depth, 4 T_final, 5 the
 // number of entries up to and including the pixel's last contributor (the
 // backward's starting point; exact in float32 below 2^24), rows 6-7 zero.
+// Compact mode (tile_ids not null, rasterizer/pallas.py:73-94): block b
+// blends global tile tile_ids[b], which sets its pixel coordinates, over
+// the range tile_start[b], tile_count[b], into output row b; padding rows
+// carry the sentinel id tiles_x * tiles_y and count 0 and come out as
+// T_final 1, all else 0.
 //
 // Bound on an H100 SXM. The kernel must read the ten field rows (40 B) of
 // each entry of a tile's range up to where every pixel of the tile has
@@ -57,14 +62,16 @@ constexpr float T_MIN = 1e-4f;
 __global__ void __launch_bounds__(PX) tile_blend_fwd_kernel(
     const float* __restrict__ packed, int64_t e_pad,
     const int32_t* __restrict__ tile_start,
-    const int32_t* __restrict__ tile_count, int tiles_x,
+    const int32_t* __restrict__ tile_count,
+    const int32_t* __restrict__ tile_ids, int tiles_x,
     float* __restrict__ out) {
-  const int tile = blockIdx.x;
+  const int row = blockIdx.x;
+  const int tile = tile_ids ? tile_ids[row] : row;
   const int p = threadIdx.x;
   const float px = (float)((tile % tiles_x) * TILE + (p % TILE));
   const float py = (float)((tile / tiles_x) * TILE + (p / TILE));
-  const int64_t start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int64_t start = tile_start[row];
+  const int count = tile_count[row];
 
   __shared__ float s_x[BATCH], s_y[BATCH], s_a[BATCH], s_b[BATCH];
   __shared__ float s_c[BATCH], s_o[BATCH];
@@ -117,7 +124,7 @@ __global__ void __launch_bounds__(PX) tile_blend_fwd_kernel(
     }
   }
 
-  float* o = out + (int64_t)tile * 8 * PX + p;
+  float* o = out + (int64_t)row * 8 * PX + p;
   o[0 * PX] = acc_r;
   o[1 * PX] = acc_g;
   o[2 * PX] = acc_b;
@@ -130,15 +137,17 @@ __global__ void __launch_bounds__(PX) tile_blend_fwd_kernel(
 
 }  // namespace
 
-// Launches K1 on ``stream``; returns cudaGetLastError() (0 = launched).
+// Launches K1 over ``num_rows`` output rows on ``stream`` (``tile_ids``
+// null: row r is tile r); returns cudaGetLastError() (0 = launched).
 extern "C" int tile_blend_fwd(const void* packed, int64_t e_pad,
                               const void* tile_start, const void* tile_count,
-                              int tiles_x, int num_tiles, void* out,
-                              void* stream) {
-  if (num_tiles > 0) {
-    tile_blend_fwd_kernel<<<num_tiles, PX, 0, (cudaStream_t)stream>>>(
+                              const void* tile_ids, int tiles_x, int num_rows,
+                              void* out, void* stream) {
+  if (num_rows > 0) {
+    tile_blend_fwd_kernel<<<num_rows, PX, 0, (cudaStream_t)stream>>>(
         (const float*)packed, e_pad, (const int32_t*)tile_start,
-        (const int32_t*)tile_count, tiles_x, (float*)out);
+        (const int32_t*)tile_count, (const int32_t*)tile_ids, tiles_x,
+        (float*)out);
   }
   return (int)cudaGetLastError();
 }

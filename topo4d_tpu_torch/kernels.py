@@ -36,8 +36,9 @@ I32 = ctypes.c_int
 
 # C symbol -> (source file, argtypes); pointers and the stream are c_void_p
 KERNELS: Dict[str, tuple] = {
-    "tile_blend_fwd": ("blend_fwd.cu", [P, I64, P, P, I32, I32, P, P]),
-    "tile_blend_bwd": ("blend_bwd.cu", [P, I64, P, P, I32, I32, P, P, P, P]),
+    "tile_blend_fwd": ("blend_fwd.cu", [P, I64, P, P, P, I32, I32, P, P]),
+    "tile_blend_bwd": ("blend_bwd.cu", [P, I64, P, P, P, I32, I32, P, P, P, P]),
+    "gauss_blur": ("blur.cu", [P, P, I32, I32, I32, P, P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -1,22 +1,25 @@
 """Photometric losses: L1, SSIM, PSNR on (C, H, W) images (losses/image.py).
 
-The SSIM window is the separable 11-tap Gaussian as tap-weighted shifted
-slices (``_shift_pass``): exact float32 on every device, no convolution
-library, no TF32.
+The SSIM window is the separable 11-tap Gaussian of ``losses/blur.py``:
+kernel K5 on CUDA tensors, the tap-weighted shifted slices (``_shift_pass``)
+on CPU tensors; exact float32 either way, no convolution library, no TF32.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
-import torch.nn.functional as F
+
+from topo4d_tpu_torch.losses.blur import _shift_pass, gauss_blur  # noqa: F401 (_shift_pass: the plain form)
 
 
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """mean |x - y| (reference ``l1_loss_v1``)."""
     return torch.mean(torch.abs(x - y))
+
+
+def l1_loss_sum_last(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """mean over the leading dims of sum_last |x - y| (reference ``l1_loss_v2``)."""
+    return torch.mean(torch.sum(torch.abs(x - y), dim=-1))
 
 
 def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
@@ -30,34 +33,10 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse(img1, img2)))
 
 
-@functools.lru_cache(maxsize=8)
-def _gaussian_1d(window_size: int, sigma: float) -> np.ndarray:
-    """Normalized 1-D Gaussian taps (reference external.py:73-75)."""
-    xs = np.arange(window_size) - window_size // 2
-    g = np.exp(-(xs**2) / (2.0 * sigma**2))
-    return (g / g.sum()).astype(np.float32)
-
-
-def _shift_pass(x: torch.Tensor, axis: int, window_size: int, sigma: float) -> torch.Tensor:
-    """'same' zero-padded 1-D Gaussian conv along ``axis`` as shifted slices."""
-    g = _gaussian_1d(window_size, sigma)
-    half = window_size // 2
-    pads = [0, 0] * x.dim()
-    # F.pad lists (left, right) pairs from the LAST axis backwards
-    pads[2 * (x.dim() - 1 - axis)] = half
-    pads[2 * (x.dim() - 1 - axis) + 1] = half
-    xp = F.pad(x, pads)
-    n = x.shape[axis]
-    out = None
-    for k in range(window_size):
-        term = float(g[k]) * xp.narrow(axis, k, n)
-        out = term if out is None else out + term
-    return out
-
-
 def _window_conv(img: torch.Tensor, window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
-    """Depthwise 'same' Gaussian window of (C, H, W): rows, then columns."""
-    return _shift_pass(_shift_pass(img, 1, window_size, sigma), 2, window_size, sigma)
+    """Depthwise 'same' Gaussian window of (C, H, W): K5 on the card at every
+    size (one launch forward, one backward), the shifted slices on the CPU."""
+    return gauss_blur(img, window_size, sigma)
 
 
 def ssim(

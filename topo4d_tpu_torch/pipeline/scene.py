@@ -1,8 +1,9 @@
-"""Scene assembly, geometry part: startup mesh -> params, statics, constraints.
+"""Scene assembly: startup mesh -> params, statics, constraints.
 
-Counterpart of ``pipeline/scene.py`` (``build_scene`` :62-235 without the
-dense texture mesh, ``build_constraints`` :325, ``cache_first_frame_attrs``
-:416). Host NumPy throughout; the trainer moves the results to the device.
+Counterpart of ``pipeline/scene.py`` (``build_scene`` :62-235 with the dense
+texture mesh, ``init_dense_params`` :237, ``build_constraints`` :325,
+``cache_first_frame_attrs`` :416, ``build_dense_pre_constraints`` :432).
+Host NumPy throughout; the trainer moves the results to the device.
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ from topo4d_tpu_torch.opt.constraints import (
     inverse_sigmoid,
 )
 from topo4d_tpu_torch.topology.adjacency import OneRing, build_one_ring, triangulate_faces
+from topo4d_tpu_torch.topology.densify_uv import DenseMesh, build_dense_topology
+from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
 from topo4d_tpu_torch.topology.knn import mean_knn_sq_dist
 from topo4d_tpu_torch.topology.normals import vertex_normals_np
-from topo4d_tpu_torch.topology.obj_io import MeshObj
+from topo4d_tpu_torch.topology.obj_io import MeshObj, vertex_uv_multiplicity
 from topo4d_tpu_torch.topology.regions import FacialRegions, build_region_weight_matrix
 
 
@@ -49,6 +52,9 @@ class SceneStatics:
     faces: List[List[int]]
     tri_faces: np.ndarray
     trans_g: np.ndarray  # (4, 4) global transform (applied inverse at init)
+    uvs: Optional[np.ndarray] = None  # (T, 2) texture coordinates
+    uv_faces: Optional[List[List[int]]] = None
+    dense: Optional[DenseMesh] = None  # the texture phase's mesh (gen_tex)
 
 
 def build_scene(
@@ -137,12 +143,54 @@ def build_scene(
         faces=mesh.faces,
         tri_faces=tri_faces,
         trans_g=trans_g,
+        uvs=mesh.uvs,
+        uv_faces=mesh.uv_faces,
     )
+
+    # dense (texture) topology (train.py:209-267)
+    if cfg.texture.gen_tex:
+        mult = [len(m) for m in vertex_uv_multiplicity(n, mesh.faces, mesh.uv_faces, mesh.uvs)]
+        statics.dense = build_dense_topology(
+            vertices.astype(np.float32), mesh.uvs, mesh.faces, mesh.uv_faces,
+            regions.masks["face_masks"], cfg.texture.density, mult,
+        )
 
     # pre-loop writes (train.py:622-623): mouth region black, eye region white
     params["rgb_colors"][regions.masks["dynamic_mouth_masks"]] = 0.0
     params["rgb_colors"][regions.masks["dynamic_eye_masks"]] = 1.0
     return params, statics
+
+
+def init_dense_params(
+    params: Dict[str, np.ndarray],
+    statics: SceneStatics,
+    num_views: int,
+) -> Dict[str, np.ndarray]:
+    """Dense Gaussian attributes (train.py:244-263): colors interpolated from
+    the geometry's (static, dynamic and inner-mouth regions black), opacity
+    0.9999, isotropic scales sqrt(mean 4-NN squared distance), identity
+    rotations. ``num_views`` is kept for the reference's signature."""
+    if statics.dense is None:
+        raise ValueError("the scene has no dense mesh (build it with texture.gen_tex)")
+    topo = statics.dense.topo
+    dense_v = topo.dense_vertices
+    nd = dense_v.shape[0]
+    mean_sq = mean_knn_sq_dist(dense_v, 4)
+    m = statics.regions.masks
+    aux = np.array(params["rgb_colors"], np.float32)
+    aux[m["static_masks"]] = 0.0
+    aux[m["dynamic_masks"]] = 0.0
+    aux[m["mouth_inner_masks"]] = 0.0
+    colors = interpolate_dense_attribute(
+        torch.as_tensor(aux), torch.as_tensor(topo.quad_faces),
+        torch.as_tensor(topo.father_face), torch.as_tensor(topo.weights),
+    ).numpy()
+    return {
+        "dense_rgb_colors": colors.astype(np.float32),
+        "dense_logit_opacities": np.full((nd, 1), inverse_sigmoid(0.9999), np.float32),
+        "dense_log_scales": np.tile(np.log(np.sqrt(mean_sq))[:, None], (1, 3)).astype(np.float32),
+        "dense_unnorm_rotations": np.tile(np.array([1.0, 0, 0, 0], np.float32), (nd, 1)),
+    }
 
 
 def _const(param, idx, value, like):
@@ -225,3 +273,17 @@ def cache_first_frame_attrs(params, regions: FacialRegions) -> Dict[str, np.ndar
         "mouth_around_colors": rgb[m["mouth_around_masks"]],
         "face_bottom_colors": rgb[m["face_bottom_masks"]],
     }
+
+
+def build_dense_pre_constraints(
+    params0_dense: Dict[str, np.ndarray], regions: FacialRegions, device="cuda"
+) -> List[DenseConstraint]:
+    """Texture-phase color zeroing before every step (train.py:731-734)."""
+    m = regions.masks
+    like = params0_dense["dense_rgb_colors"]
+    cons = [
+        _const("dense_rgb_colors", m["static_masks"], 0.0, like),
+        _const("dense_rgb_colors", m["dynamic_masks"], 0.0, like),
+        _const("dense_rgb_colors", m["mouth_inner_masks"], 0.0, like),
+    ]
+    return compile_dense_constraints(params0_dense, cons, device)

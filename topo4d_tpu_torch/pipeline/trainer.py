@@ -1,9 +1,11 @@
-"""Geometry-only sequence trainer, parity mode (pipeline/trainer.py).
+"""Sequence trainer, parity mode (pipeline/trainer.py).
 
-Per frame: warm start from the previous frame, then one view per Adam step
-with a fresh binning every render (``schedule.views_per_step == 1``, the
-reference's semantics). The batched all-views mode, frozen binnings, masks,
-the texture phase, export and checkpoints are later slices.
+Per frame: the geometry fit (warm start from the previous frame, then one
+view per Adam step with a fresh binning every render,
+``schedule.views_per_step == 1``, the reference's semantics), and the dense
+texture fit (one full-resolution view per step through frozen per-view
+binnings, compact tiles and the split pack). The batched all-views mode,
+masks, export and checkpoints are later slices.
 """
 
 from __future__ import annotations
@@ -30,9 +32,19 @@ from topo4d_tpu_torch.pipeline.data import view_order
 from topo4d_tpu_torch.pipeline.scene import (
     SceneStatics,
     build_constraints,
+    build_dense_pre_constraints,
     cache_first_frame_attrs,
+    init_dense_params,
 )
-from topo4d_tpu_torch.rasterizer.render import render_gaussians
+from topo4d_tpu_torch.rasterizer.render import attach_compact, binning_for, render_gaussians
+from topo4d_tpu_torch.rasterizer.tiles import Binning
+from topo4d_tpu_torch.texture.dense import (
+    TextureState,
+    dense_rendervars,
+    make_texture_eval,
+    make_texture_step,
+)
+from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
 
 
 def make_render_fn(cfg: Config, device):
@@ -40,8 +52,21 @@ def make_render_fn(cfg: Config, device):
     return lambda rv, cam: render_gaussians(rv, cam, bg=bg, max_span=cfg.raster.max_span)
 
 
+def make_dense_render_fn(cfg: Config, device):
+    """Dense-loop renderer ``(rv, cam, binning)``: a manual
+    ``texture.tile_capacity`` (> 0) rides every render; the auto capacity
+    (-1) rides the compact list the trainer attaches to each frozen
+    binning."""
+    bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=device)
+    cap = cfg.texture.tile_capacity if cfg.texture.tile_capacity > 0 else None
+    return lambda rv, cam, binning: render_gaussians(
+        rv, cam, bg=bg, max_span=cfg.raster.max_span, binning=binning, tile_capacity=cap
+    )
+
+
 class Trainer:
-    """Fits the geometry of a sequence frame by frame on ``device``."""
+    """Fits a sequence frame by frame on ``device``: geometry, then the
+    dense texture phase."""
 
     def __init__(
         self,
@@ -91,6 +116,12 @@ class Trainer:
         self.first_frame_attrs: Optional[Dict[str, np.ndarray]] = None
         self.metrics_log: List[Dict] = []
         self._con_cache: Dict[str, tuple] = {}
+        # the texture phase, built at its first frame
+        self.texture_step = self.texture_eval = None
+        self.texture_state: Optional[TextureState] = None
+        self.dense_means3d: Optional[torch.Tensor] = None
+        self.dense_anchor: Optional[torch.Tensor] = None
+        self._auto_tile_cap = 0
 
     def weights_for(self, phase: str) -> Dict[str, float]:
         return self.cfg.weights.as_dict()
@@ -166,3 +197,122 @@ class Trainer:
         if is_init:
             self.first_frame_attrs = cache_first_frame_attrs(self.state.params, self.statics.regions)
         return metrics
+
+    def _auto_tile_capacity(self, occ: int, total_tiles: int) -> int:
+        """Sticky auto tile capacity (``texture.tile_capacity = -1``):
+        occupancy x 1.2 rounded up to 2048 on canvases above 8,192 tiles (64
+        below), never shrinking across frames, at most the canvas (where
+        ``attach_compact`` leaves compact mode off)."""
+        quantum = 2048 if total_tiles > 8192 else 64
+        cap = -(-int(occ * 1.2) // quantum) * quantum
+        self._auto_tile_cap = max(cap, self._auto_tile_cap)
+        return min(self._auto_tile_cap, total_tiles)
+
+    def dense_binnings(self, t: int) -> List[Binning]:
+        """Each full-resolution view's frozen binning of the current dense
+        state for frame ``t``: with the split pack's static rows, and the
+        compact tile list of a manual ``texture.tile_capacity`` or, under the
+        auto capacity, one list sized from the largest occupancy over the
+        views (one read back from the card)."""
+        cfg = self.cfg
+        cap_cfg = cfg.texture.tile_capacity
+        rv = dense_rendervars(self.texture_state.params, self.dense_means3d)
+        cams = self.source.cameras_full
+        binnings = [
+            binning_for(
+                rv, cams[v], max_span=cfg.raster.max_span, with_static=cfg.texture.split_pack,
+                tile_capacity=cap_cfg if cap_cfg > 0 else None,
+            )
+            for v in range(int(cams.fx.shape[0]))
+        ]
+        if cap_cfg == 0:
+            return binnings
+        occ = int(torch.max(torch.stack([torch.sum(b.tile_count > 0) for b in binnings])))
+        if cap_cfg < 0:
+            cap = self._auto_tile_capacity(occ, int(binnings[0].tile_count.shape[0]))
+            return [attach_compact(b, cap) for b in binnings]
+        if occ > cap_cfg:
+            print(
+                f"[topo4d_tpu_torch] WARNING frame {t}: {occ - cap_cfg} occupied tiles beyond "
+                f"texture.tile_capacity={cap_cfg} are dropped; raise the capacity"
+            )
+        return binnings
+
+    def fit_frame_texture(self, t: int, frame_data) -> Dict[str, float]:
+        """Fit the dense colors and rotations of frame ``t`` on the
+        full-resolution views (``source.cameras_full``). Returns the last
+        metrics row (also appended to ``metrics_log``): a row every
+        ``dense_log_freq`` iterations (the step's own metrics with the
+        "tex_" prefix, the fixed-view PSNR of view 0, optionally the mean
+        PSNR over all views), then a terminal row after the last step.
+
+        Each view's binning is frozen for the frame (the dense means3D do not
+        move within it), with the split pack's static rows and, under the
+        auto capacity, one compact tile list sized from the frame's largest
+        occupancy: one read back from the card per frame.
+        """
+        cfg = self.cfg
+        dev = self.device
+        if cfg.texture.rebin_freq != 0:
+            raise NotImplementedError("only texture.rebin_freq == 0 (one binning per frame and view) is ported")
+        if self.texture_state is None:
+            dense_np = init_dense_params(
+                {k: v.detach().cpu().numpy() for k, v in self.state.params.items()},
+                self.statics, self.source.num_views,
+            )
+            dense = {k: torch.as_tensor(v, device=dev) for k, v in dense_np.items()}
+            self.texture_state = TextureState(params=dense, opt=adam_init(dense))
+            self.dense_anchor = dense["dense_rgb_colors"]
+            render = make_dense_render_fn(cfg, dev)
+            self.texture_step = make_texture_step(render)
+            self.texture_eval = make_texture_eval(render)
+            self._dense_pre = build_dense_pre_constraints(dense_np, self.statics.regions, dev)
+            topo = self.statics.dense.topo
+            self._dense_interp = tuple(
+                torch.as_tensor(a, device=dev) for a in (topo.quad_faces, topo.father_face, topo.weights)
+            )
+        else:
+            # update_dense_states (train.py:498-508)
+            self.dense_anchor = self.texture_state.params["dense_rgb_colors"]
+        with torch.no_grad():
+            self.dense_means3d = interpolate_dense_attribute(self.state.params["means3D"], *self._dense_interp)
+        images = torch.as_tensor(np.asarray(frame_data.images, np.float32), device=dev)
+        cams = self.source.cameras_full
+        num_views = images.shape[0]
+        sched = cfg.schedule
+        num_iters = sched.dense_opt_num
+        if t > 0 and sched.dense_opt_num_tracked >= 0:
+            num_iters = sched.dense_opt_num_tracked
+        order = view_order(num_views, num_iters, seed=10_000 + t)
+        lr = dict(cfg.lrs.dense)
+        weights = cfg.dense_weights.as_dict()
+
+        binnings = self.dense_binnings(t)
+
+        def eval_row(i: int) -> Dict[str, float]:
+            state, means = self.texture_state, self.dense_means3d
+            row = {"tex_psnr_fixed": float(self.texture_eval(state, means, images[0], cams, 0, binnings[0]))}
+            if cfg.texture.allview_eval:
+                row["tex_psnr_allview"] = float(torch.mean(torch.stack([
+                    self.texture_eval(state, means, images[v], cams, v, binnings[v]) for v in range(num_views)
+                ])))
+            row["iter"] = i
+            row["frame"] = t
+            return row
+
+        log_freq = sched.dense_log_freq
+        for i in range(num_iters):
+            v = int(order[i])
+            log_this = i % log_freq == 0
+            self.texture_state, m = self.texture_step(
+                self.texture_state, self.dense_means3d, images[v], cams, v, self.dense_anchor,
+                self._dense_pre, lr, weights, binnings[v], with_metrics=log_this,
+            )
+            if log_this:
+                row = {("tex_" + k): float(val) for k, val in m.items()}
+                row.update(eval_row(i))
+                self.metrics_log.append(row)
+        # terminal row: the final state's quality (log rows miss the last step)
+        row = eval_row(num_iters)
+        self.metrics_log.append(row)
+        return row

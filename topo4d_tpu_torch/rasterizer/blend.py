@@ -7,6 +7,12 @@ tiles_x, tiles_y)`` blends (tile, depth)-sorted packed entries into
 JAX), row 5 the count of entries up to each pixel's last contributor (the
 backward's residual), rows 6-7 zero.
 
+Compact mode: with ``tile_ids`` ((R,) int32), row r blends global tile
+``tile_ids[r]`` (which sets its pixel coordinates) over the range
+``tile_start[r]``, ``tile_count[r]``, and the output has R rows. Padding
+rows carry the sentinel id T = tiles_x * tiles_y and count 0. Without
+``tile_ids``, row r is tile r.
+
 Dispatch: a CUDA tensor goes to the kernels ``csrc/blend_fwd.cu`` (K1) and
 ``csrc/blend_bwd.cu`` (K2) or raises; a CPU tensor goes to
 ``tile_blend_plain``, which is also each kernel's oracle on the card.
@@ -93,8 +99,8 @@ def _pixel_coords(tile_ids: torch.Tensor, tiles_x: int):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def tile_alpha(packed, tile_start, tile_count, tiles_x):
-    """Per (tile, pixel, entry) alphas with the CUDA skip rules -> ((T, 256, M), entries).
+def tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids=None):
+    """Per (row, pixel, entry) alphas with the CUDA skip rules -> ((R, 256, M), entries).
 
     Each tile's range padded to the largest count M as a dense batch;
     ``entries`` is the gathered (16, T, M) packed data (padding zeroed).
@@ -108,7 +114,7 @@ def tile_alpha(packed, tile_start, tile_count, tiles_x):
     valid = j[None, :] < tile_count[:, None].to(torch.int64)
     idx = torch.where(valid, tile_start[:, None].to(torch.int64) + j[None, :], 0)
     ent = packed[:, idx] * valid  # (16, T, M)
-    px, py = _pixel_coords(torch.arange(t, device=dev), tiles_x)
+    px, py = _pixel_coords(torch.arange(t, device=dev) if tile_ids is None else tile_ids, tiles_x)
     dx = ent[0][:, None, :] - px[:, :, None]  # (T, 256, M)
     dy = ent[1][:, None, :] - py[:, :, None]
     ca, cb, cc, op = (ent[k][:, None, :] for k in (2, 3, 4, 5))
@@ -119,10 +125,10 @@ def tile_alpha(packed, tile_start, tile_count, tiles_x):
     return torch.where(keep, alpha, torch.zeros_like(alpha)), ent
 
 
-def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int):
-    """Plain PyTorch tile blend, differentiable by autograd -> (T, 8, 256)."""
+def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
+    """Plain PyTorch tile blend, differentiable by autograd -> (R, 8, 256)."""
     LAUNCHES["tile_blend_plain"] += 1
-    alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x)
+    alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids)
     w, t_final = blend_weights(alpha)  # (T, 256, M), (T, 256)
     feat = ent[8:12].permute(1, 2, 0)  # (T, M, 4): r, g, b, depth
     acc = torch.matmul(w, feat).transpose(1, 2)  # (T, 4, 256)
@@ -140,44 +146,51 @@ def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int)
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y):
-    t = tiles_x * tiles_y
+def _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids) -> int:
+    """Validate the kernels' inputs -> the number of output rows R."""
+    rows = tiles_x * tiles_y if tile_ids is None else tile_ids.shape[0]
     if packed.device.type != "cuda":
         raise ValueError(f"tile blend kernel needs CUDA tensors, got {packed.device}")
     if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != PACK_FIELDS:
         raise ValueError(f"packed must be float32 ({PACK_FIELDS}, E_pad), got {packed.dtype} {tuple(packed.shape)}")
-    for name, r in (("tile_start", tile_start), ("tile_count", tile_count)):
-        if r.dtype != torch.int32 or r.shape != (t,) or r.device != packed.device:
-            raise ValueError(f"{name} must be int32 ({t},) on {packed.device}, got {r.dtype} {tuple(r.shape)} {r.device}")
+    named = [("tile_start", tile_start), ("tile_count", tile_count)]
+    if tile_ids is not None:
+        named.append(("tile_ids", tile_ids))
+    for name, r in named:
+        if r.dtype != torch.int32 or r.shape != (rows,) or r.device != packed.device:
+            raise ValueError(f"{name} must be int32 ({rows},) on {packed.device}, got {r.dtype} {tuple(r.shape)} {r.device}")
         if not r.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not packed.is_contiguous():
         raise ValueError("packed must be contiguous")
+    return rows
 
 
-def tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: int):
-    """Launch K1 -> (T, 8, 256) float32."""
-    _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y)
-    t = tiles_x * tiles_y
-    out = torch.empty((t, 8, PX), dtype=torch.float32, device=packed.device)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
+    """Launch K1 -> (R, 8, 256) float32."""
+    rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+    out = torch.empty((rows, 8, PX), dtype=torch.float32, device=packed.device)
     fn = kernels.kernel("tile_blend_fwd")
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     status = fn(
         packed.data_ptr(), packed.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-        tiles_x, t, out.data_ptr(), stream,
+        _ptr(tile_ids), tiles_x, rows, out.data_ptr(), stream,
     )
     kernels.check(status, "tile_blend_fwd")
     LAUNCHES["tile_blend_fwd"] += 1
     return out
 
 
-def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x: int, tiles_y: int):
+def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x: int, tiles_y: int, tile_ids=None):
     """Launch K2 -> dpacked (16, E_pad) float32 (zero outside the tile ranges)."""
-    _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y)
-    t = tiles_x * tiles_y
+    rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
     for name, a in (("fwd_out", fwd_out), ("g_out", g_out)):
-        if a.dtype != torch.float32 or a.shape != (t, 8, PX) or a.device != packed.device:
-            raise ValueError(f"{name} must be float32 ({t}, 8, {PX}) on {packed.device}")
+        if a.dtype != torch.float32 or a.shape != (rows, 8, PX) or a.device != packed.device:
+            raise ValueError(f"{name} must be float32 ({rows}, 8, {PX}) on {packed.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     dpacked = torch.zeros_like(packed)
@@ -185,7 +198,7 @@ def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x:
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     status = fn(
         packed.data_ptr(), packed.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-        tiles_x, t, fwd_out.data_ptr(), g_out.data_ptr(), dpacked.data_ptr(), stream,
+        _ptr(tile_ids), tiles_x, rows, fwd_out.data_ptr(), g_out.data_ptr(), dpacked.data_ptr(), stream,
     )
     kernels.check(status, "tile_blend_bwd")
     LAUNCHES["tile_blend_bwd"] += 1
@@ -194,9 +207,10 @@ def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x:
 
 class _TileBlendCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, packed, tile_start, tile_count, tiles_x, tiles_y):
-        out = tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x, tiles_y)
+    def forward(ctx, packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids):
+        out = tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
         ctx.save_for_backward(packed, tile_start, tile_count, out)
+        ctx.tile_ids = tile_ids
         ctx.tiles = (tiles_x, tiles_y)
         return out
 
@@ -204,13 +218,13 @@ class _TileBlendCUDA(torch.autograd.Function):
     def backward(ctx, g_out):
         packed, tile_start, tile_count, out = ctx.saved_tensors
         dpacked = tile_blend_bwd_cuda(
-            packed, tile_start, tile_count, out, g_out.contiguous(), *ctx.tiles
+            packed, tile_start, tile_count, out, g_out.contiguous(), *ctx.tiles, ctx.tile_ids
         )
-        return dpacked, None, None, None, None
+        return dpacked, None, None, None, None, None
 
 
-def tile_blend(packed, tile_start, tile_count, tiles_x: int, tiles_y: int):
-    """Blend packed entries -> (T, 8, 256); kernels on CUDA, plain version on CPU."""
+def tile_blend(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
+    """Blend packed entries -> (R, 8, 256); kernels on CUDA, plain version on CPU."""
     if packed.device.type == "cpu":
-        return tile_blend_plain(packed, tile_start, tile_count, tiles_x, tiles_y)
-    return _TileBlendCUDA.apply(packed, tile_start, tile_count, tiles_x, tiles_y)
+        return tile_blend_plain(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+    return _TileBlendCUDA.apply(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)

@@ -1,9 +1,15 @@
 """The renderer front end (counterpart of ``rasterizer/pallas.py``).
 
-project -> bin (fresh, on detached inputs) -> pack -> tile blend ->
-composite the background -> untile, for one full-canvas view. The binning
-is not differentiated; gradients reach the Gaussians through the pack's
-inverse gather and the projection.
+project -> bin (fresh, on detached inputs) or take a frozen binning ->
+pack -> tile blend -> composite the background -> untile, for one view.
+The binning is not differentiated; gradients reach the Gaussians through
+the pack's inverse gather and the projection.
+
+Compact mode (``tile_capacity``, or a frozen binning that carries a compact
+tile list): only the non-empty tiles are blended, and their rows are
+scattered into a background template whose other rows composite to the
+background (T_final 1). Non-empty tiles past the capacity are dropped and
+counted in ``num_overflow``.
 """
 
 from __future__ import annotations
@@ -14,11 +20,14 @@ import torch
 
 from topo4d_tpu_torch.core.camera import Camera
 from topo4d_tpu_torch.core.gaussian import GaussianRenderVars, project_gaussians
-from topo4d_tpu_torch.rasterizer.blend import tile_blend
+from topo4d_tpu_torch.rasterizer.blend import PX, tile_blend
 from topo4d_tpu_torch.rasterizer.tiles import (
     TILE,
+    Binning,
+    compact_nonempty_tiles,
     compute_binning,
     num_tiles,
+    pack_static_rows,
     pack_with_binning,
 )
 
@@ -29,6 +38,31 @@ class RenderOutput(NamedTuple):
     depth: torch.Tensor  # (1, H, W)
     alpha: torch.Tensor  # (1, H, W)
     num_cropped: torch.Tensor  # () int32 Gaussians cropped to max_span^2 tiles
+    num_overflow: Optional[torch.Tensor] = None  # () int32 tiles dropped by compact mode
+
+
+class _ScatterTiles(torch.autograd.Function):
+    """Compact rows (R, 8, 256) -> the full (T, 8, 256) canvas.
+
+    Rows of global tile ids[r] < T are copied into a template whose other
+    rows read T_final 1 (pure background, ``pallas.py:93``); padding rows
+    (id T) land on a spare row that is cut off. The backward gathers the
+    cotangent's rows back, zero for padding rows.
+    """
+
+    @staticmethod
+    def forward(ctx, rows, ids, t: int):
+        template = rows.new_zeros((t + 1, 8, PX))
+        template[:, 4, :] = 1.0
+        template.index_copy_(0, ids.long(), rows)
+        ctx.save_for_backward(ids)
+        return template[:t]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        g_pad = torch.cat([g, g.new_zeros((1,) + g.shape[1:])], dim=0)
+        return g_pad[ids.long()].contiguous(), None, None
 
 
 def render_gaussians(
@@ -37,20 +71,39 @@ def render_gaussians(
     bg: Optional[torch.Tensor] = None,
     means2d_offset: Optional[torch.Tensor] = None,
     max_span: int = 4,
+    binning: Optional[Binning] = None,
+    tile_capacity: Optional[int] = None,
 ) -> RenderOutput:
     """Render one view (the contract of ``render_gaussians_pallas``).
 
-    Runs where ``rv``'s tensors live: the CUDA kernels on the card, the
-    plain blend on the CPU.
+    ``binning``: a frozen permutation from ``binning_for`` (its static rows
+    and compact tile list are used when present). ``tile_capacity``: blend
+    at most this many non-empty tiles (compact mode; implied by a frozen
+    compact list). Runs where ``rv``'s tensors live: the CUDA kernels on
+    the card, the plain blend on the CPU.
     """
+    dev = rv.means3d.device
     if bg is None:
-        bg = torch.zeros(3, dtype=torch.float32, device=rv.means3d.device)
+        bg = torch.zeros(3, dtype=torch.float32, device=dev)
     width, height = cam.width, cam.height
     proj = project_gaussians(rv, cam, means2d_offset)
-    binning = compute_binning(proj.detach(), width, height, max_span)
+    if binning is None:
+        binning = compute_binning(proj.detach(), width, height, max_span)
     bins = pack_with_binning(proj, rv.colors, rv.opacities, binning)
     tiles_x, tiles_y = num_tiles(width, height)
-    out = tile_blend(bins.packed, bins.tile_start, bins.tile_count, tiles_x, tiles_y)
+    t = tiles_x * tiles_y
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if tile_capacity is None and binning.compact is not None:
+        tile_capacity = binning.compact.ids.shape[0]
+    if tile_capacity is not None and tile_capacity < t:
+        compact = binning.compact
+        if compact is None or compact.ids.shape[0] != tile_capacity:
+            compact = compact_nonempty_tiles(bins.tile_start, bins.tile_count, tile_capacity)
+        overflow = compact.overflow
+        out_c = tile_blend(bins.packed, compact.start, compact.count, tiles_x, tiles_y, compact.ids)
+        out = _ScatterTiles.apply(out_c, compact.ids, t)
+    else:
+        out = tile_blend(bins.packed, bins.tile_start, bins.tile_count, tiles_x, tiles_y)
 
     def untile(x):
         """(T, C, 256) -> (C, H, W)."""
@@ -65,4 +118,39 @@ def render_gaussians(
         depth=untile(out[:, 3:4, :]),
         alpha=untile(1.0 - out[:, 4:5, :]),
         num_cropped=bins.num_cropped,
+        num_overflow=overflow,
     )
+
+
+@torch.no_grad()
+def attach_compact(binning: Binning, capacity: int) -> Binning:
+    """Freeze a compact tile list of ``capacity`` rows onto ``binning``
+    (the trainer's auto capacity); at or above the canvas size compact mode
+    stays off and the binning is returned as it is."""
+    if capacity >= binning.tile_count.shape[0]:
+        return binning
+    return binning._replace(compact=compact_nonempty_tiles(binning.tile_start, binning.tile_count, capacity))
+
+
+@torch.no_grad()
+def binning_for(
+    rv: GaussianRenderVars,
+    cam: Camera,
+    max_span: int = 4,
+    with_static: bool = False,
+    tile_capacity: Optional[int] = None,
+) -> Binning:
+    """The reusable frozen binning of the current geometry for one view.
+
+    ``with_static`` (dense texture loop): also capture the frame-constant
+    packed rows (``pack_static_rows``), so each step gathers only the
+    learned conic and color rows. ``tile_capacity``: also freeze the
+    compact list of non-empty tiles (below the canvas size).
+    """
+    proj = project_gaussians(rv, cam).detach()
+    b = compute_binning(proj, cam.width, cam.height, max_span)
+    if with_static:
+        b = b._replace(static_rows=pack_static_rows(proj, rv.opacities.detach(), b))
+    if tile_capacity is not None:
+        b = attach_compact(b, tile_capacity)
+    return b

@@ -4,11 +4,16 @@ Each Gaussian is duplicated into ``max_span``^2 (tile, depth-rank) entries
 (cropped to its top-left ``max_span`` x ``max_span`` tile sub-rect and
 counted in ``num_cropped`` when its rect is larger), entries are sorted by
 (tile, stable depth rank), and each tile blends its contiguous range.
+
+The dense texture loop freezes a view's binning for a frame: the packed
+rows that stay constant there can be captured once (``pack_static_rows``,
+the split pack), and so can the list of non-empty tiles that compact mode
+blends (``compact_nonempty_tiles``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -17,6 +22,15 @@ from topo4d_tpu_torch.core.gaussian import Projected
 TILE = 16  # pixels per tile side
 PACK_FIELDS = 16  # rows of the transposed packed-entry layout
 PACK_CHUNK = 128  # tail padding quantum of the packed layout
+
+
+class CompactTiles(NamedTuple):
+    """The non-empty tiles of a frozen binning (``compact_nonempty_tiles``)."""
+
+    ids: torch.Tensor  # (capacity,) int32 global tile ids (T = padding row)
+    start: torch.Tensor  # (capacity,) int32
+    count: torch.Tensor  # (capacity,) int32
+    overflow: torch.Tensor  # () int32 non-empty tiles past the capacity
 
 
 class Binning(NamedTuple):
@@ -29,6 +43,11 @@ class Binning(NamedTuple):
     tile_count: torch.Tensor  # (T,) int32
     num_cropped: torch.Tensor  # () int32
     inv_positions: torch.Tensor  # (N, R) int64: each gaussian's R entry slots
+    # split pack: the frame-constant packed rows [x, y, opacity, tile, depth,
+    # zero], captured at binning time (``pack_static_rows``)
+    static_rows: Optional[torch.Tensor] = None  # (6, E_pad) float32
+    # frozen compact-mode tile list; its length is the capacity
+    compact: Optional[CompactTiles] = None
 
 
 class PackedBins(NamedTuple):
@@ -170,13 +189,59 @@ def fold_entry_grads(g: torch.Tensor, entry_valid: torch.Tensor, inv: torch.Tens
 FIELD_ROWS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11)
 
 
+def _pad_entries(rows: torch.Tensor) -> torch.Tensor:
+    """Tail-pad (C, E) entry rows with -1 to the packed layout's E_pad."""
+    e = rows.shape[1]
+    return torch.nn.functional.pad(rows, (0, (-e) % PACK_CHUNK + PACK_CHUNK), value=-1.0)
+
+
+@torch.no_grad()
+def pack_static_rows(proj: Projected, opacities: torch.Tensor, binning: Binning) -> torch.Tensor:
+    """The frame-constant packed rows of the dense split pack -> (6, E_pad).
+
+    In the texture loop only colors and rotations learn (train.py:281-286):
+    means2d, depth and opacity are frame constants, like the frozen binning
+    itself. Rows [x, y, opacity, tile, depth, zero], padded like the full
+    pack; captured from the binning's own projection, so they may differ
+    from a step's by an ulp.
+    """
+    fields = torch.stack([proj.means2d[:, 0], proj.means2d[:, 1], opacities, proj.depths], dim=0)
+    rows = fields[:, binning.sorted_gid]
+    rows = torch.where(binning.entry_valid[None, :], rows, torch.zeros_like(rows))
+    tile_row = binning.sorted_tile.to(torch.float32)[None, :]
+    zero = rows.new_zeros((1, rows.shape[1]))
+    return _pad_entries(torch.cat([rows[0:2], rows[2:3], tile_row, rows[3:4], zero], dim=0))
+
+
 def pack_with_binning(
     proj: Projected,
     colors: torch.Tensor,
     opacities: torch.Tensor,
     binning: Binning,
 ) -> PackedBins:
-    """Pack the current values along ``binning``'s permutation: one gather."""
+    """Pack the current values along ``binning``'s permutation: one gather.
+
+    With ``binning.static_rows`` (the dense split pack) only the six learned
+    rows, conics and colors, are gathered; the frozen fields take no
+    gradient.
+    """
+    if binning.static_rows is not None:
+        learned = torch.stack(
+            [proj.conics[:, 0], proj.conics[:, 1], proj.conics[:, 2], colors[:, 0], colors[:, 1], colors[:, 2]],
+            dim=0,
+        )  # (6, N)
+        rows6 = _pad_entries(
+            _GatherEntries.apply(learned, binning.sorted_gid, binning.entry_valid, binning.inv_positions)
+        )
+        s = binning.static_rows
+        zero = s[5:6]
+        packed = torch.cat(
+            [s[0:2], rows6[0:3], s[2:3], s[3:4], zero, rows6[3:6], s[4:5], zero, zero, zero, zero], dim=0
+        )  # (16, E_pad)
+        return PackedBins(
+            packed=packed, tile_start=binning.tile_start, tile_count=binning.tile_count,
+            num_cropped=binning.num_cropped,
+        )
     fields = torch.stack(
         [
             proj.means2d[:, 0], proj.means2d[:, 1],
@@ -202,11 +267,35 @@ def pack_with_binning(
         ],
         dim=0,
     )  # (16, E)
-    pad = (-e) % PACK_CHUNK + PACK_CHUNK
-    packed = torch.nn.functional.pad(packed, (0, pad), value=-1.0)
+    packed = _pad_entries(packed)
     return PackedBins(
         packed=packed,
         tile_start=binning.tile_start,
         tile_count=binning.tile_count,
         num_cropped=binning.num_cropped,
+    )
+
+
+@torch.no_grad()
+def compact_nonempty_tiles(tile_start: torch.Tensor, tile_count: torch.Tensor, capacity: int) -> CompactTiles:
+    """The non-empty tiles in ascending id order, at most ``capacity`` of them.
+
+    Row i describes global tile ids[i]; padding rows carry the sentinel id
+    T and count 0. Non-empty tiles past the capacity are dropped and
+    counted in ``overflow`` (the caller must surface it).
+    """
+    t = tile_count.shape[0]
+    if not 0 < capacity <= t:
+        raise ValueError(f"capacity must be in [1, {t}], got {capacity}")
+    nonempty = tile_count > 0
+    m = torch.sum(nonempty.to(torch.int32))
+    # a stable sort on the "empty" flag keeps the non-empty ids ascending in front
+    order = torch.argsort((~nonempty).to(torch.int32), stable=True)[:capacity]
+    valid = torch.arange(capacity, device=tile_count.device) < m
+    zero = torch.zeros_like(tile_start[order])
+    return CompactTiles(
+        ids=torch.where(valid, order, torch.full_like(order, t)).to(torch.int32),
+        start=torch.where(valid, tile_start[order], zero).to(torch.int32),
+        count=torch.where(valid, tile_count[order], zero).to(torch.int32),
+        overflow=torch.clamp(m - capacity, min=0).to(torch.int32),
     )

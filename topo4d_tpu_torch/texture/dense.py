@@ -1,0 +1,112 @@
+"""Dense-Gaussian texture optimization (texture/dense.py).
+
+The reference's texture loop (train.py:381-417, 715-743): a second, denser
+Gaussian set sampled in UV space renders the full-resolution views; only
+``dense_rgb_colors`` and ``dense_unnorm_rotations`` learn; the loss is
+0.8 L1 + 0.2 (1 - SSIM) plus 0.02 times a soft L1 anchor to the previous
+frame's colors; the static, dynamic and inner-mouth colors are zeroed
+before every step. The dense means3D follow the tracked geometry each frame
+(``topology.interpolate``) and take no gradient.
+
+One step is eager PyTorch; the JAX package's scanned multi-step is the
+trainer's plain loop over this step. The masked dense loss
+(``use_mask_dense``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from topo4d_tpu_torch.core.camera import Camera
+from topo4d_tpu_torch.core.gaussian import GaussianRenderVars
+from topo4d_tpu_torch.core.quaternion import quat_normalize
+from topo4d_tpu_torch.losses.image import l1_loss_sum_last, photometric_loss, psnr
+from topo4d_tpu_torch.opt.adam import AdamState, adam_update
+from topo4d_tpu_torch.opt.constraints import DenseConstraint, apply_constraints
+from topo4d_tpu_torch.rasterizer.tiles import Binning
+
+
+class TextureState(NamedTuple):
+    params: Dict[str, torch.Tensor]  # dense_* parameters
+    opt: AdamState
+
+
+def dense_rendervars(params: Dict[str, torch.Tensor], dense_means3d: torch.Tensor) -> GaussianRenderVars:
+    """params2rendervar_dense (reference helpers.py:102-112): means frozen."""
+    return GaussianRenderVars(
+        means3d=dense_means3d.detach(),
+        colors=params["dense_rgb_colors"],
+        rotations=quat_normalize(params["dense_unnorm_rotations"]),
+        opacities=torch.sigmoid(params["dense_logit_opacities"]).reshape(-1),
+        scales=torch.exp(params["dense_log_scales"]),
+    )
+
+
+def make_texture_step(render_fn: Callable) -> Callable:
+    """The single texture iteration: pre-step color zeroing -> render ->
+    loss -> Adam (train.py:729-741).
+
+    ``render_fn(rv, cam, binning) -> RenderOutput``; ``binning`` is a frozen
+    per-view binning (``rasterizer.render.binning_for``) or None. Returns
+    ``step(state, dense_means3d, gt, cams, view_id, anchor_colors,
+    pre_constraints, lr, weights, binning, with_metrics) -> (state,
+    metrics)``; metrics are detached 0-d tensors (PSNR only
+    ``with_metrics``), so a step reads nothing back from the card.
+    """
+
+    def step(
+        state: TextureState,
+        dense_means3d: torch.Tensor,
+        gt: torch.Tensor,  # (3, H, W)
+        cams: Camera,
+        view_id: int,
+        anchor_colors: torch.Tensor,  # the previous frame's dense colors
+        pre_constraints: Sequence[DenseConstraint],
+        lr: Dict[str, float],
+        weights: Dict[str, float],
+        binning: Optional[Binning] = None,
+        with_metrics: bool = True,
+    ) -> Tuple[TextureState, Dict[str, torch.Tensor]]:
+        params = apply_constraints(state.params, pre_constraints)
+        keys = list(params)
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        out = render_fn(dense_rendervars(p, dense_means3d), cams[view_id], binning)
+        losses = {
+            "im": photometric_loss(out.image, gt),
+            "soft_color": l1_loss_sum_last(p["dense_rgb_colors"], anchor_colors),
+        }
+        total = sum(weights[k] * v for k, v in losses.items() if k in weights)
+        g = torch.autograd.grad(total, [p[k] for k in keys], allow_unused=True)
+        grads = {k: torch.zeros_like(p[k]) if gk is None else gk for k, gk in zip(keys, g)}
+        new_params, new_opt = adam_update(params, grads, state.opt, lr)
+        with torch.no_grad():
+            metrics = {("loss_" + k): v.detach() for k, v in losses.items()}
+            metrics["loss_total"] = total.detach()
+            # tiles dropped by a manual compact capacity (0 when sized right)
+            metrics["num_tile_overflow"] = out.num_overflow
+            if with_metrics:
+                metrics["psnr"] = torch.mean(psnr(out.image.detach(), gt))
+        return TextureState(params=new_params, opt=new_opt), metrics
+
+    return step
+
+
+def make_texture_eval(render_fn: Callable) -> Callable:
+    """Mean PSNR of one view at the current dense params, without a step
+    (the trainer's fixed-view ``tex_psnr_fixed``)."""
+
+    @torch.no_grad()
+    def eval_psnr(
+        state: TextureState,
+        dense_means3d: torch.Tensor,
+        gt: torch.Tensor,
+        cams: Camera,
+        view_id: int,
+        binning: Optional[Binning] = None,
+    ) -> torch.Tensor:
+        out = render_fn(dense_rendervars(state.params, dense_means3d), cams[view_id], binning)
+        return torch.mean(psnr(out.image, gt))
+
+    return eval_psnr

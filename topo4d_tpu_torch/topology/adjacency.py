@@ -86,3 +86,33 @@ def triangulate_faces(faces: Sequence[Sequence[int]]) -> List[List[int]]:
         elif len(face) == 3:
             out.append(list(face))
     return out
+
+
+def split_faces_by_mask(faces: np.ndarray, face_idx: np.ndarray, mask: Sequence[int]):
+    """(faces touching the mask, their ids, the others, their ids): the
+    reference's ``get_face_faces`` (helpers.py:361-378), which picks the
+    frontal quads for UV densification (train.py:222-224)."""
+    faces = np.asarray(faces)
+    face_idx = np.asarray(face_idx)
+    touching = _to_bool(faces, mask).any(axis=1)
+    return (
+        faces[touching],
+        face_idx[touching].astype(np.int32),
+        faces[~touching],
+        face_idx[~touching].astype(np.int32),
+    )
+
+
+def _to_bool(faces: np.ndarray, mask: Sequence[int]) -> np.ndarray:
+    """Per face corner: is its vertex in ``mask``."""
+    faces = np.asarray(faces)
+    mask_ids = np.asarray(list(mask), np.int64)
+    if faces.size == 0:
+        return np.zeros(faces.shape, bool)
+    # size by both: a masked id may exceed every id of this face subset
+    n = int(faces.max()) + 1
+    if mask_ids.size:
+        n = max(n, int(mask_ids.max()) + 1)
+    lut = np.zeros(n, bool)
+    lut[mask_ids] = True
+    return lut[faces]

@@ -1,28 +1,36 @@
-"""Brute-force nearest-neighbor distances for the init scale (topology/knn.py:59)."""
+"""Nearest-neighbor distances for the init scales (topology/knn.py:59).
+
+Exact float64 distances from a KD-tree (``scipy.spatial.cKDTree``): k = 1
+for the ~8k geometry vertices, k = 4 for the ~280k dense texture points,
+where a brute-force (N, N) pass would compare ~8e10 pairs.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+from scipy.spatial import cKDTree
 
 
-def knn_sq_dists(points: np.ndarray, k: int, block: int = 512) -> np.ndarray:
+def knn_sq_dists(points: np.ndarray, k: int) -> np.ndarray:
     """Squared distances to each point's k nearest OTHER points -> (N, k).
 
-    Exact float64 differences (no expanded-form cancellation); the query
-    point is excluded by index, as the reference's KD-tree query does.
+    The query point is excluded by index, as the reference's KD-tree query
+    (helpers.py:154) drops it; a coincident duplicate is another point and
+    stays.
     """
     pts = np.asarray(points, np.float64)
     n = pts.shape[0]
     k_eff = min(k, n - 1)
-    out = np.empty((n, k_eff), np.float64)
-    for start in range(0, n, block):
-        q = pts[start : start + block]
-        d = np.sum((q[:, None, :] - pts[None, :, :]) ** 2, axis=-1)
-        d[np.arange(q.shape[0]), np.arange(start, start + q.shape[0])] = np.inf
-        out[start : start + q.shape[0]] = np.sort(
-            np.partition(d, k_eff - 1, axis=1)[:, :k_eff], axis=1
-        )
-    return out
+    dist, idx = cKDTree(pts).query(pts, k=k_eff + 1)
+    dist = dist.reshape(n, k_eff + 1)
+    idx = idx.reshape(n, k_eff + 1)
+    # drop the query's own column; where a duplicate displaced it from the
+    # k + 1 results, drop the farthest instead
+    own = idx == np.arange(n)[:, None]
+    drop = np.where(own.any(axis=1), own.argmax(axis=1), k_eff)
+    keep = np.ones_like(own)
+    keep[np.arange(n), drop] = False
+    return dist[keep].reshape(n, k_eff) ** 2
 
 
 def mean_knn_sq_dist(points: np.ndarray, k: int) -> np.ndarray:

@@ -1,9 +1,10 @@
-"""The startup mesh record (topology/obj_io.py ``MeshObj``)."""
+"""The startup mesh record and its UV bookkeeping (topology/obj_io.py
+``MeshObj``, ``vertex_uv_multiplicity``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -15,3 +16,22 @@ class MeshObj:
     faces: List[List[int]]  # vertex indices, 0-based, len 3 or 4
     uv_faces: List[List[int]]  # uv indices, aligned with faces
     normals: Optional[np.ndarray] = None
+
+
+def vertex_uv_multiplicity(
+    num_vertices: int,
+    faces: Sequence[Sequence[int]],
+    uv_faces: Sequence[Sequence[int]],
+    uvs: np.ndarray,
+) -> List[List[tuple]]:
+    """Distinct UV coordinates per vertex (reference ``get_vertex_uvs``).
+
+    Seam vertices map to more than one UV coordinate; the UV densifier shares
+    subdivision points only across edges with a single-UV endpoint
+    (helpers.py:436-467).
+    """
+    per_vertex: List[set] = [set() for _ in range(num_vertices)]
+    for face, uv_face in zip(faces, uv_faces):
+        for v, t in zip(face, uv_face):
+            per_vertex[v].add(tuple(np.round(uvs[t], 8)))
+    return [sorted(s) for s in per_vertex]
