@@ -8,25 +8,37 @@ order; any failure raises and exits non-zero:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: every kernel of ``topo4d_tpu_torch/csrc`` with nvcc, in parallel;
+   the scene: the head grid and its dense mesh at density 5 (277,780 dense
+   Gaussians, 546,028 dense triangles);
 3. kernels vs their plain PyTorch versions: K1/K2 at head scale (8,280
    Gaussians, 375x512, one view) at max_span 4 and 2, full canvas and
    compact, plus a saturated-window case in both modes; K5 at the dense
    phase's (15, 2160, 3840) and the geometry phase's (15, 512, 375),
-   forward and backward;
-4. the main path, as ``Trainer.run`` orders it, each part with the launch
-   counters set to 0 just before it and read just after:
-   a. geometry, frame 0 ("init", init_opt_num cut to 100) of a synthetic
-      24-view sequence at 375x512;
-   b. the dense texture phase of frame 0 (``Trainer.fit_frame_texture``):
-      277,780 dense Gaussians (the head grid densified at density 5), 24
-      views at 3840x2160, the full 301 iterations, compact tiles;
-   c. geometry, frame 1 ("track", the full opt_num of 1,100);
-   K1/K2 run once per step and K5 twice, the plain versions never;
+   forward and backward; K6, the UV bake, at 8192x8192 on the dense mesh's
+   UVs, on coplanar overlapping triangles (first wins) and on a triangle
+   that spans many tiles;
+4. the main path, ``Trainer.run(resume=False)`` over 2 frames of a
+   synthetic 24-view sequence into a directory under ``build/``, with the
+   launch counters set to 0 just before it and read just after, and each
+   part's own launches read around it:
+   a. frame 0: geometry ("init", init_opt_num cut to 100 steps at 375x512),
+      then the dense texture phase (24 views at 3840x2160, the full 301
+      iterations, compact tiles), then its checkpoint and export (the OBJ
+      and the 8192x8192 bake through K6, on the export worker);
+   b. frame 1: geometry ("track", the full opt_num of 1,100), texture (301
+      iterations), checkpoint and export;
+   K1/K2 run once per step and K5 twice, K6 once per frame, the plain
+   versions never. Then the outputs: OBJ topology byte-identical across
+   frames, each PNG decoded and equal to K6's bytes for that frame's
+   colors, params.npz keys and shapes, resume.pkl at frame 2, and a second
+   ``run(resume=True)`` that does nothing;
 5. card against CPU: five "track" steps, and three texture steps at
    480x270 on a density-1 dense mesh;
 6. timings: K1, K2 and the plain blend at the geometry shapes and at one
    4K dense view, there both compact and on the full canvas; K5, its plain
-   version and cuDNN's depthwise convolution at both blur shapes; each
+   version and cuDNN's depthwise convolution at both blur shapes; K6 and its
+   plain version at 8192x8192 and the export's parts (host binning, the
+   uint8 conversion and copy to the host, PNG encode, OBJ write); each
    kernel's bound; profiles of ten track steps and of ten dense steps,
    compact and on the full canvas (device busy share, activities per step,
    top kernels).
@@ -38,9 +50,13 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -48,9 +64,14 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 INIT_ITERS = 100  # frame 0 cut from the reference's 7,000 to fit the time limit
+FRAMES = 2  # frames of the main path's run (the reference's sequences run hundreds)
 DENSITY = 5  # dense points per quad edge: 277,780 dense Gaussians on the head grid
 FULL_W, FULL_H = 3840, 2160  # the texture phase's full-resolution views
+TEX_RES = 8192  # the baked texture's side (the config default)
 ROWS_PER_CHUNK = 1024  # the plain blend's rows per call at 4K (memory)
+BAKE_OPS_PER_PAIR = 32  # FP32 operations (compares included) per (pixel, entry) pair, from csrc/bake.cu
+BAKE_OPS_PER_ENTRY = 30  # the per-entry terms a block stages
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_run")
 DEVICE = "cuda"
 CARD = ""
 
@@ -84,16 +105,19 @@ def bound(nbytes, ops):
 def reset_counts():
     from topo4d_tpu_torch.losses import blur
     from topo4d_tpu_torch.rasterizer import blend
+    from topo4d_tpu_torch.texture import bake_tiled
 
     blend.reset_launches()
     blur.reset_launches()
+    bake_tiled.reset_launches()
 
 
 def read_counts():
     from topo4d_tpu_torch.losses import blur
     from topo4d_tpu_torch.rasterizer import blend
+    from topo4d_tpu_torch.texture import bake_tiled
 
-    return {**blend.LAUNCHES, **blur.LAUNCHES}
+    return {**blend.LAUNCHES, **blur.LAUNCHES, **bake_tiled.LAUNCHES}
 
 
 def pack_view(rv, cam, max_span, capacity=None, with_static=False):
@@ -273,6 +297,165 @@ def compare_blur(shape, seed):
     return max(fwd_err, bwd_err)
 
 
+def bake_bound(binning, colors, height, width):
+    """K6's bound from what this input needs it to move and compute -> (ms,
+    by, pairs): the entries' ten geometry rows and three corner ids, the
+    tile map, each color row read once, the (H, W, 3) canvas written once;
+    the (pixel, entry) pairs of every tile's range on the canvas."""
+    e, m = binning.geom.shape[1], binning.tile_ids.shape[0]
+    tx = binning.tiles_x
+    ids = binning.tile_ids.long()
+    on_w = (width - (ids % tx) * 16).clamp(max=16)
+    on_h = (height - (ids // tx) * 16).clamp(max=16)
+    pairs = int((binning.count.long() * on_w * on_h).sum())
+    nbytes = 13 * 4 * e + 3 * 4 * m + colors.numel() * 4 + height * width * 3 * 4
+    return (*bound(nbytes, BAKE_OPS_PER_PAIR * pairs + BAKE_OPS_PER_ENTRY * e), pairs)
+
+
+def compare_bake(binning, colors, height, width, label):
+    """K6 against its plain version on the same inputs: the JAX suite's
+    bake tolerance (rtol 2e-4, atol 2e-5; bit for bit expected) -> (kernel
+    canvas, max |err|)."""
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda, bake_canvas_plain
+
+    out_k = bake_canvas_cuda(binning, colors, height, width)
+    out_p = bake_canvas_plain(binning, colors, height, width)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    differ = int((out_k != out_p).any(-1).sum())
+    torch.testing.assert_close(out_k, out_p, rtol=2e-4, atol=2e-5)
+    covered = int((out_p != 0).any(-1).sum())
+    log(
+        f"K6 {label}: {binning.geom.shape[1]} entries in {binning.tile_ids.shape[0]} occupied tiles of "
+        f"{binning.tiles_x * binning.tiles_y}, {covered} of {height * width} pixels covered; max|err| {err:.3e}, "
+        f"pixels that differ {differ} (bit for bit: {bool(torch.equal(out_k, out_p))})"
+    )
+    return out_k, err
+
+
+def read_png(path):
+    """An 8-bit RGB PNG with filter type 0 on every row (what the port
+    writes) -> (H, W, 3) uint8."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if zlib.crc32(kind + body) != struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])[0]:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = header
+    if (depth, ctype, interlace) != (8, 2, 0):
+        raise AssertionError(f"{path}: not 8-bit RGB without interlace: {header}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: a row uses a filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def phase_bake(statics):
+    """K6 against its plain version: the 8192^2 bake of the density-5 dense
+    mesh's UVs with seeded colors (the main path's shapes), coplanar
+    overlapping triangles (the first wins), a triangle over many tiles, and
+    the wrapper that bins for itself on a canvas whose sides are no multiple
+    of 16 -> (max |err|, the 8K inputs for the timings)."""
+    from topo4d_tpu_torch.pipeline.export import build_bake_binning
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_plain, bake_texture_tiled, compute_bake_binning
+
+    nd = statics.dense.topo.dense_vertices.shape[0]
+    t0 = time.perf_counter()
+    binning = build_bake_binning(statics, TEX_RES, DEVICE)
+    torch.cuda.synchronize()
+    binning_s = time.perf_counter() - t0
+    colors = torch.rand((nd, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(21))
+    _, err = compare_bake(binning, colors, TEX_RES, TEX_RES, f"{TEX_RES}x{TEX_RES}, density-{DENSITY} dense mesh")
+
+    # coplanar overlap: the first triangle (red) keeps the tie
+    verts = np.array([[2.3, 2.3, 0], [20.3, 2.3, 0], [2.3, 20.3, 0], [3.3, 3.3, 0], [21.3, 3.3, 0], [3.3, 21.3, 0]],
+                     np.float32)
+    b = compute_bake_binning(verts, np.array([[0, 1, 2], [3, 4, 5]]), 24, 24, device=DEVICE)
+    tie_colors = torch.tensor([[1.0, 0, 0]] * 3 + [[0, 1.0, 0]] * 3, device=DEVICE)
+    out, e2 = compare_bake(b, tie_colors, 24, 24, "coplanar overlap, 24x24")
+    if not torch.equal(out[10, 10], tie_colors[0]):
+        raise AssertionError(f"K6: the first of two coplanar triangles did not keep the tie: {out[10, 10]}")
+    # one triangle over many 16-pixel tiles
+    verts2 = np.array([[1.2, 1.2, 0.5], [61.7, 2.1, 0.5], [2.4, 60.8, 0.5]], np.float32)
+    b2 = compute_bake_binning(verts2, np.array([[0, 1, 2]]), 64, 64, device=DEVICE)
+    if b2.tile_ids.shape[0] != 16:
+        raise AssertionError(f"the big triangle binned into {b2.tile_ids.shape[0]} tiles, not 16")
+    _, e3 = compare_bake(b2, torch.tensor([[0.2, 0.4, 0.8]] * 3, device=DEVICE), 64, 64, "one triangle over 16 tiles")
+    # the wrapper that bins for itself, 93x91
+    rng = np.random.default_rng(3)
+    v3 = np.hstack([rng.uniform(0, 90, (30, 2)), rng.uniform(-1, 1, (30, 1))]).astype(np.float32)
+    t3 = np.arange(30).reshape(10, 3)
+    c3 = torch.rand((30, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+    got = bake_texture_tiled(v3, t3, c3, 93, 91, device=DEVICE)
+    want = bake_canvas_plain(compute_bake_binning(v3, t3, 93, 91, device=DEVICE), c3, 93, 91)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    return max(err, e2, e3), (binning, binning_s)
+
+
+def phase_bake_timing(trainer, bake_inputs):
+    """K6 and its plain version at 8192^2 on the fitted dense colors, K6's
+    bound, and the export's parts on the same canvas: its uint8 conversion
+    and copy to the host, the PNG encode, the OBJ write."""
+    from topo4d_tpu_torch import kernels
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda, bake_canvas_plain
+    from topo4d_tpu_torch.topology.obj_io import write_obj_with_uv
+    from topo4d_tpu_torch.utils.png import encode_png
+
+    binning, binning_s = bake_inputs
+    colors = torch.clamp(trainer.texture_state.params["dense_rgb_colors"], 0.0, 1.0).contiguous()
+    canvas = bake_canvas_cuda(binning, colors, TEX_RES, TEX_RES)
+    ms_wrapper = cuda_ms(lambda: bake_canvas_cuda(binning, colors, TEX_RES, TEX_RES), iters=10)
+    # the kernel alone, on a canvas allocated and zeroed once (it writes every
+    # pixel of the occupied tiles), and the wrapper's zero-fill alone
+    out = torch.zeros_like(canvas)
+    fn = kernels.kernel("uv_bake")
+    args = (
+        binning.geom.data_ptr(), binning.corner_idx.data_ptr(), binning.geom.shape[1], colors.data_ptr(),
+        colors.shape[1], binning.tile_ids.data_ptr(), binning.start.data_ptr(), binning.count.data_ptr(),
+        binning.tile_ids.shape[0], binning.tiles_x, TEX_RES, TEX_RES, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    ms = cuda_ms(lambda: kernels.check(fn(*args), "uv_bake"), iters=10)
+    if not torch.equal(out, canvas):
+        raise AssertionError("K6 through its C entry point differs from its wrapper")
+    ms_fill = cuda_ms(lambda: torch.zeros_like(canvas), iters=10)
+    ms_plain = cuda_ms(lambda: bake_canvas_plain(binning, colors, TEX_RES, TEX_RES), iters=2, warmup=1)
+    b_ms, by, pairs = bake_bound(binning, colors, TEX_RES, TEX_RES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = (canvas * 255).to(torch.uint8).cpu().numpy()
+    to_host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    png = encode_png(img)
+    png_s = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    st = trainer.statics
+    write_obj_with_uv(os.path.join(OUT_DIR, "timing.obj"), trainer.state.params["means3D"].cpu().numpy(), st.faces,
+                      st.uvs, st.uv_faces)
+    obj_s = time.perf_counter() - t0
+    log(
+        f"K6 {TEX_RES}x{TEX_RES}: {ms:.4f} ms (bound {b_ms:.4f} ms, {by}, {100 * b_ms / ms:.1f}%; {pairs} pixel-entry "
+        f"pairs); its wrapper with the canvas zero-fill {ms_wrapper:.4f} ms, the fill alone ({canvas.numel() * 4} B) "
+        f"{ms_fill:.4f} ms; plain {ms_plain:.3f} ms; host binning {binning_s:.3f} s (once per sequence); uint8 "
+        f"conversion and copy to the host {to_host_ms:.3f} ms; PNG encode {png_s:.3f} s ({len(png)} bytes); OBJ "
+        f"write {obj_s:.4f} s"
+    )
+    return {"ms": ms, "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": by, "wrapper_ms": ms_wrapper,
+            "zero_fill_ms": ms_fill, "binning_s": binning_s, "to_host_ms": to_host_ms, "png_s": png_s,
+            "obj_s": obj_s, "pairs": pairs}
+
+
 def saturated_scene():
     """>80 nats of opacity inside one tile (tests/test_rasterizer_pallas.py:160)."""
     n = 64
@@ -313,7 +496,7 @@ def phase_kernels():
     return errs
 
 
-def build_main_path():
+def build_main_path(grid=(92, 90), size=(375, 512)):
     from topo4d_tpu_torch.config import Config
     from topo4d_tpu_torch.pipeline.data import SyntheticSequence
     from topo4d_tpu_torch.pipeline.scene import build_scene
@@ -321,7 +504,7 @@ def build_main_path():
     from topo4d_tpu_torch.testing import make_camera_ring, make_grid_mesh, make_head_fixture, make_synthetic_regions
     from topo4d_tpu_torch.topology.obj_io import MeshObj
 
-    rows, cols = 92, 90
+    rows, cols = grid
     verts, faces = make_grid_mesh(rows, cols, extent=0.5)
     uvs = np.stack(
         np.meshgrid(np.linspace(0.05, 0.95, cols), np.linspace(0.05, 0.95, rows), indexing="xy"), -1
@@ -329,9 +512,13 @@ def build_main_path():
     mesh = MeshObj(vertices=verts, uvs=uvs, faces=faces, uv_faces=[list(f) for f in faces])
     regions = make_synthetic_regions(verts.shape[0], faces)
     cfg = Config()
+    cfg.data.output_dir = OUT_DIR
+    cfg.schedule.frame_num = FRAMES
     cfg.schedule.init_opt_num = INIT_ITERS
+    cfg.schedule.ckp_freq = 1
     cfg.texture.gen_tex = True
     cfg.texture.density = DENSITY
+    cfg.texture.tex_res = TEX_RES
     t0 = time.perf_counter()
     params_np, statics = build_scene(mesh, regions, cfg, num_views=24)
     nd = statics.dense.topo.dense_vertices.shape[0]
@@ -342,17 +529,17 @@ def build_main_path():
     )
     # the sequence's ground truth is the head fixture on the same mesh
     # (random colors, other scales and opacities), so the fit has work to do
-    gt_params, cams, _ = make_head_fixture(device=DEVICE)
+    gt_params, cams, _ = make_head_fixture(rows, cols, width=size[0], height=size[1], device=DEVICE)
     cams_full = make_camera_ring(24, width=FULL_W, height=FULL_H, distance=2.0, device=DEVICE)
-    src = SyntheticSequence(params=gt_params, cameras=cams, num_frames=1, cameras_full=cams_full)
+    src = SyntheticSequence(params=gt_params, cameras=cams, num_frames=FRAMES, cameras_full=cams_full)
     trainer = Trainer(cfg, src, params_np, statics, device=DEVICE)
-    return cfg, src, trainer, (mesh, regions, gt_params)
+    return cfg, src, trainer, (mesh, regions, gt_params, params_np)
 
 
 def check_rows(rows):
     for r in rows:
         for k, v in r.items():
-            if not np.isfinite(v):
+            if isinstance(v, (int, float)) and not np.isfinite(v):
                 raise AssertionError(f"non-finite metric {k}={v} in {r}")
 
 
@@ -362,23 +549,43 @@ def check_counts(counts, name, expected):
             raise AssertionError(f"{name}: {k} launched {counts[k]} times, expected {n} ({counts})")
 
 
-def phase_geometry(cfg, trainer, t, frame):
-    """Geometry fit of frame ``t``, counted: K1/K2 once and K5 twice per
-    step, no plain version."""
+def instrument(trainer):
+    """Wrap the trainer's geometry and texture fits so that ``run`` records
+    each part: its frame, wall seconds (to a synchronize), its own launches,
+    its metric rows and, after a texture fit, a copy of the dense colors
+    that frame's export bakes. -> the list the parts are appended to."""
+    parts = []
+    for kind in ("geometry", "texture"):
+        fit = getattr(trainer, f"fit_frame_{kind}")
+
+        def wrapped(t, frame, fit=fit, kind=kind):
+            torch.cuda.synchronize()
+            before, n_rows = read_counts(), len(trainer.metrics_log)
+            t0 = time.perf_counter()
+            m = fit(t, frame)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = read_counts()
+            part = {"kind": kind, "frame": t, "wall": wall, "counts": {k: after[k] - before[k] for k in after},
+                    "rows": trainer.metrics_log[n_rows:], "last": m}
+            if kind == "texture":
+                part["colors"] = trainer.texture_state.params["dense_rgb_colors"].clone()
+            parts.append(part)
+            return m
+
+        setattr(trainer, f"fit_frame_{kind}", wrapped)
+    return parts
+
+
+def check_geometry_part(cfg, part):
+    """A geometry fit: K1/K2 once and K5 twice per step, no plain version; a
+    tracked frame's loss falls."""
+    t, rows, m, counts = part["frame"], part["rows"], part["last"], part["counts"]
     steps = cfg.schedule.init_opt_num if t == 0 else cfg.schedule.opt_num
-    n_rows = len(trainer.metrics_log)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    m = trainer.fit_frame_geometry(t, frame)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    rows = trainer.metrics_log[n_rows:]
     check_rows(rows)
     log(
-        f"geometry frame {t} ({'init' if t == 0 else 'track'}, {steps} steps): {wall:.3f} s, "
-        f"{wall / steps * 1e3:.3f} ms/step; loss {rows[0]['loss_total']:.6f} -> {m['loss_total']:.6f}, "
+        f"geometry frame {t} ({'init' if t == 0 else 'track'}, {steps} steps): {part['wall']:.3f} s, "
+        f"{part['wall'] / steps * 1e3:.3f} ms/step; loss {rows[0]['loss_total']:.6f} -> {m['loss_total']:.6f}, "
         f"psnr {m['psnr']:.3f}; launches {counts}"
     )
     if t > 0 and not rows[-1]["loss_total"] < rows[0]["loss_total"]:
@@ -387,50 +594,129 @@ def phase_geometry(cfg, trainer, t, frame):
         "tile_blend_fwd": steps, "tile_blend_bwd": steps, "gauss_blur": 2 * steps,
         "tile_blend_plain": 0, "gauss_blur_plain": 0,
     })
-    return counts, wall, steps
+    return steps
 
 
-def phase_texture(cfg, trainer, frame_full):
-    """The dense texture phase of frame 0, counted: K1/K2 once and K5 twice
-    per step, K1 once more per eval render, no plain version, no tile
-    dropped by compact mode."""
+def check_texture_part(cfg, part):
+    """A dense texture fit: K1/K2 once and K5 twice per step, K1 once more
+    per eval render, no plain version, no tile dropped; view 0's PSNR
+    rises."""
+    t, rows, m, counts = part["frame"], part["rows"], part["last"], part["counts"]
     steps = cfg.schedule.dense_opt_num
-    n_rows = len(trainer.metrics_log)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    m = trainer.fit_frame_texture(0, frame_full)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    rows = trainer.metrics_log[n_rows:]
+    if t > 0 and cfg.schedule.dense_opt_num_tracked >= 0:
+        steps = cfg.schedule.dense_opt_num_tracked
     check_rows(rows)
     evals = sum("tex_psnr_fixed" in r for r in rows)
-    check_counts(counts, "texture frame 0", {
+    check_counts(counts, f"texture frame {t}", {
         "tile_blend_fwd": steps + evals, "tile_blend_bwd": steps, "gauss_blur": 2 * steps,
         "tile_blend_plain": 0, "gauss_blur_plain": 0,
     })
     overflow = [r["tex_num_tile_overflow"] for r in rows if "tex_num_tile_overflow" in r]
-    bs = trainer.dense_binnings(0)
-    occ = [int((b.tile_count > 0).sum()) for b in bs]
-    cap = bs[0].compact.ids.shape[0] if bs[0].compact is not None else None
-    drops = sum(int(b.compact.overflow) for b in bs if b.compact is not None)
-    if any(overflow) or drops or cap is None:
-        raise AssertionError(f"compact mode off or dropping tiles: capacity {cap}, overflow {overflow}, {drops} dropped")
-    e_pad = bs[0].static_rows.shape[1]
-    nd = trainer.texture_state.params["dense_rgb_colors"].shape[0]
+    if any(overflow):
+        raise AssertionError(f"texture frame {t}: compact mode dropped tiles: {overflow}")
     log(
-        f"texture frame 0: {nd} dense Gaussians x {len(bs)} views at {FULL_W}x{FULL_H}, {steps} steps: "
-        f"{wall:.3f} s per dense frame, {wall / steps * 1e3:.3f} ms per dense step (the frame's wall over its "
-        f"steps: binnings and {evals} eval renders included); non-empty tiles per view {min(occ)}-{max(occ)} of "
-        f"{bs[0].tile_count.shape[0]} (view 0: {occ[0]}), capacity {cap}, tiles dropped 0, E_pad {e_pad}; "
-        f"tex_psnr_fixed {rows[0]['tex_psnr_fixed']:.3f} -> {m['tex_psnr_fixed']:.3f}, loss "
+        f"texture frame {t}: {steps} steps at {FULL_W}x{FULL_H}: {part['wall']:.3f} s per dense frame, "
+        f"{part['wall'] / steps * 1e3:.3f} ms per dense step (the frame's wall over its steps: binnings and {evals} "
+        f"eval renders included); tex_psnr_fixed {rows[0]['tex_psnr_fixed']:.3f} -> {m['tex_psnr_fixed']:.3f}, loss "
         f"{rows[0]['tex_loss_total']:.6f} -> {rows[-2]['tex_loss_total']:.6f} (iteration {rows[-2]['iter']}); "
         f"launches {counts}"
     )
     if not m["tex_psnr_fixed"] > rows[0]["tex_psnr_fixed"]:
-        raise AssertionError(f"dense fit did not improve view 0: {rows[0]} -> {m}")
-    return counts, wall, steps, {"occupancy": occ, "capacity": cap, "e_pad": e_pad, "psnr_fixed": m["tex_psnr_fixed"]}
+        raise AssertionError(f"dense fit of frame {t} did not improve view 0: {rows[0]} -> {m}")
+    return steps
+
+
+def phase_run(cfg, src, trainer, scene):
+    """The main path: ``Trainer.run(resume=False)`` over ``FRAMES`` frames,
+    the launches of the whole run and of each part, then its outputs and a
+    second ``run(resume=True)`` that must do nothing."""
+    from topo4d_tpu_torch.pipeline.checkpoint import load_params, load_resume
+    from topo4d_tpu_torch.pipeline.trainer import Trainer
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda
+
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    parts = instrument(trainer)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = os.path.join(cfg.data.output_dir, cfg.data.exp, cfg.data.seq)
+    with open(os.path.join(out, "timings.json")) as fh:
+        timings = json.load(fh)
+    steps = {"geometry": [], "texture": []}
+    for part in parts:
+        check = check_geometry_part if part["kind"] == "geometry" else check_texture_part
+        steps[part["kind"]].append(check(cfg, part))
+    if [p["frame"] for p in parts] != [t for t in range(FRAMES) for _ in (0, 1)]:
+        raise AssertionError(f"the run's parts: {[(p['kind'], p['frame']) for p in parts]}")
+    n_steps = sum(steps["geometry"]) + sum(steps["texture"])
+    evals = sum("tex_psnr_fixed" in r for p in parts if p["kind"] == "texture" for r in p["rows"])
+    check_counts(counts, "Trainer.run", {
+        "tile_blend_fwd": n_steps + evals, "tile_blend_bwd": n_steps, "gauss_blur": 2 * n_steps,
+        "uv_bake": FRAMES, "tile_blend_plain": 0, "gauss_blur_plain": 0, "uv_bake_plain": 0,
+    })
+    log(
+        f"Trainer.run, {FRAMES} frames: {wall:.3f} s; launches {counts}; timings.json "
+        + ", ".join(f"{k} {v['seconds']:.3f} s over {v['count']}" for k, v in timings.items())
+    )
+
+    # the outputs
+    def f_lines(t):
+        with open(os.path.join(out, "%06d" % (t + 1), "face.obj")) as fh:
+            return [line for line in fh if line.startswith("f ")]
+
+    topo = [f_lines(t) for t in range(FRAMES)]
+    if not topo[0] or any(x != topo[0] for x in topo):
+        raise AssertionError("face.obj topology differs between frames")
+    texture_parts = [p for p in parts if p["kind"] == "texture"]
+    for part in texture_parts:
+        t = part["frame"]
+        png = read_png(os.path.join(out, "%06d" % (t + 1), "face.png"))
+        colors = torch.clamp(part["colors"], 0.0, 1.0)
+        want = (bake_canvas_cuda(trainer._bake_binning, colors, TEX_RES, TEX_RES) * 255).to(torch.uint8).cpu().numpy()
+        if not np.array_equal(png, want):
+            raise AssertionError(f"frame {t}: face.png differs from K6's bytes in {int((png != want).sum())} values")
+    params = load_params(os.path.join(out, "params.npz"))
+    state = trainer.state.params
+    for k, v in state.items():
+        shape = ((FRAMES,) if k in ("means3D", "rgb_colors", "unnorm_rotations") else ()) + tuple(v.shape)
+        if params[k].shape != shape or params[k].dtype != np.float32:
+            raise AssertionError(f"params.npz {k}: {params[k].shape} {params[k].dtype}, expected {shape} float32")
+    if set(params) != set(state):
+        raise AssertionError(f"params.npz keys {sorted(params)} against {sorted(state)}")
+    if load_resume(out)["frame"] != FRAMES:
+        raise AssertionError("resume.pkl does not point past the last frame")
+    stamps = {f: os.path.getmtime(os.path.join(out, "%06d" % (t + 1), f)) for t in range(FRAMES)
+              for f in ("face.obj", "face.png")}
+
+    # a second run resumes past the last frame and does nothing
+    _, _, _, params_np = scene
+    again = Trainer(cfg, src, params_np, trainer.statics, device=DEVICE)
+    reset_counts()
+    again.run(resume=True)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError(f"the resumed run launched kernels: {read_counts()}")
+    if {f: os.path.getmtime(os.path.join(out, "%06d" % (t + 1), f)) for t in range(FRAMES)
+            for f in ("face.obj", "face.png")} != stamps:
+        raise AssertionError("the resumed run rewrote a frame's export")
+    if any(not torch.equal(again.state.params[k], v) for k, v in state.items()):
+        raise AssertionError("the resumed run's state differs from the checkpointed one")
+    log(
+        f"outputs: face.obj f-lines identical over {FRAMES} frames ({len(topo[0])} faces); each face.png equals "
+        f"K6's bytes for its frame; params.npz keys and shapes as the JAX package writes them; resume.pkl at frame "
+        f"{FRAMES}; a second run(resume=True) restored the state and launched nothing"
+    )
+    geo = [p for p in parts if p["kind"] == "geometry"]
+    return {
+        "counts": counts, "timings": timings, "wall": wall, "parts": parts,
+        "geo_ms_per_step": sum(p["wall"] for p in geo) / sum(steps["geometry"]) * 1e3,
+        "tracked_frame_s": geo[-1]["wall"], "dense_frame_s": [p["wall"] for p in texture_parts],
+        "psnr_fixed": texture_parts[-1]["last"]["tex_psnr_fixed"],
+    }
 
 
 def to_device(x, dev):
@@ -524,7 +810,7 @@ def phase_texture_card_vs_cpu(cfg, trainer, scene, steps: int = 3):
     from topo4d_tpu_torch.texture.dense import TextureState, dense_rendervars, make_texture_step
     from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
 
-    mesh, regions, gt_params = scene
+    mesh, regions, gt_params, _ = scene
     cfg1 = copy.deepcopy(cfg)
     cfg1.texture.density = 1
     _, st1 = build_scene(mesh, regions, cfg1, num_views=24)
@@ -797,12 +1083,17 @@ def phase_profile_dense(trainer, frame_full, steps: int = 10):
     return out
 
 
-def kernel_rows(counts, errs, geo_timing, blend4k, blur):
-    """The ``kernels`` line: times, bounds and plain times at the dense
-    phase's 4K shapes (the largest the main path gives each kernel), the
-    geometry shapes' numbers beside them; launches over the whole main path."""
-    launches = {k: sum(c[k] for c in counts.values()) for k in ("tile_blend_fwd", "tile_blend_bwd", "gauss_blur")}
-    by_path = {k: {p: c[k] for p, c in counts.items()} for k in launches}
+def kernel_rows(run, errs, geo_timing, blend4k, blur, bake):
+    """The ``kernels`` line: times, bounds and plain times at the shapes the
+    main path gives each kernel (the largest: the 4K dense view, the 8K
+    bake), the geometry shapes' numbers beside them; launches over the whole
+    ``Trainer.run``, and by part (the export's K6 launches are the run's)."""
+    counts = run["counts"]
+    by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
+
+    def by_path(name):
+        return {part: c[name] for part, c in by_part.items()}
+
     big, small = blur[(15, FULL_H, FULL_W)], blur[(15, 512, 375)]
     rows = []
     for name, key, src, tpu in (
@@ -813,7 +1104,7 @@ def kernel_rows(counts, errs, geo_timing, blend4k, blur):
         t = blend4k[key]
         rows.append({
             "name": name, "route": "cuda", "source": f"topo4d_tpu_torch/csrc/{src}", "replaces": tpu,
-            "launches": launches[name], "launches_by_path": by_path[name],
+            "launches": counts[name], "launches_by_path": by_path(name),
             "max_abs_err": max(errs[4][i], errs[2][i], errs["compact"][i], errs["dense"][i]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": "4K dense view 0, compact", "geometry_shape": geo_timing[key],
@@ -821,10 +1112,18 @@ def kernel_rows(counts, errs, geo_timing, blend4k, blur):
     rows.append({
         "name": "gauss_blur", "route": "cuda", "source": "topo4d_tpu_torch/csrc/blur.cu",
         "replaces": "topo4d_tpu/losses/blur_pallas.py:52",
-        "launches": launches["gauss_blur"], "launches_by_path": by_path["gauss_blur"],
+        "launches": counts["gauss_blur"], "launches_by_path": by_path("gauss_blur"),
         "max_abs_err": errs["blur"], "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": big["library_ms"], "shape": [15, FULL_H, FULL_W],
         "geometry_shape": small,
+    })
+    rows.append({
+        "name": "uv_bake", "route": "cuda", "source": "topo4d_tpu_torch/csrc/bake.cu",
+        "replaces": "topo4d_tpu/texture/bake_pallas.py:216",
+        "launches": counts["uv_bake"], "launches_by_path": {"export": counts["uv_bake"]},
+        "max_abs_err": errs["bake"], "ms": bake["ms"], "plain_ms": bake["plain_ms"], "bound_ms": bake["bound_ms"],
+        "bound_by": bake["bound_by"], "library_ms": None, "shape": [TEX_RES, TEX_RES, 3],
+        "wrapper_ms": bake["wrapper_ms"],
     })
     return rows
 
@@ -845,37 +1144,42 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     log(f"kernels built in {kernels.build_all(verbose=True):.2f} s")
-    errs = phase_kernels()
     cfg, src, trainer, scene = build_main_path()
+    errs = phase_kernels()
+    errs["bake"], bake_inputs = phase_bake(trainer.statics)
     t0 = time.perf_counter()
-    frames = [src.frame(0), src.frame(1)]
-    frame_full = src.frame(0, full_res=True)
+    # the run's frame t reads the source's frame t + 1; rendered here, so the
+    # run's read-ahead finds them and launches nothing
+    frames = {t: (src.frame(t), src.frame(t, full_res=True)) for t in range(1, FRAMES + 1)}
     torch.cuda.synchronize()
-    log(f"targets: 2 frames x 24 views at 375x512, 24 views at {FULL_W}x{FULL_H} ({time.perf_counter() - t0:.2f} s)")
+    log(f"targets: {FRAMES} frames x 24 views at 375x512 and at {FULL_W}x{FULL_H} ({time.perf_counter() - t0:.2f} s)")
 
-    counts = {}
-    counts["geometry frame 0"], wall0, steps0 = phase_geometry(cfg, trainer, 0, frames[0])
-    counts["texture frame 0"], tex_wall, tex_steps, tex_info = phase_texture(cfg, trainer, frame_full)
-    counts["geometry frame 1"], wall1, steps1 = phase_geometry(cfg, trainer, 1, frames[1])
+    run = phase_run(cfg, src, trainer, scene)
+    tm = run["timings"]
     log(
-        f"ms per geometry step {(wall0 + wall1) / (steps0 + steps1) * 1e3:.3f}; s per tracked frame "
-        f"({steps1} steps) {wall1:.3f}; s per dense frame ({tex_steps} steps) {tex_wall:.3f}"
+        f"ms per geometry step {run['geo_ms_per_step']:.3f}; s per tracked frame ({cfg.schedule.opt_num} steps) "
+        f"{run['tracked_frame_s']:.3f}; s per dense frame ({cfg.schedule.dense_opt_num} steps) "
+        + ", ".join(f"{s:.3f}" for s in run["dense_frame_s"])
+        + f"; export s per frame {tm['export']['mean_seconds']:.3f} (frame 0's with the binning), checkpoint s per "
+        f"frame {tm['checkpoint']['mean_seconds']:.3f}; s per frame through run {run['wall'] / FRAMES:.3f}"
     )
-    phase_card_vs_cpu(cfg, trainer, frames[1])
+    last_geo, last_tex = frames[FRAMES]
+    phase_card_vs_cpu(cfg, trainer, last_geo)
     phase_texture_card_vs_cpu(cfg, trainer, scene)
     geo_timing = phase_timing(trainer)
     blend4k, blur = phase_texture_timing(trainer, errs)
-    phase_profile(trainer, frames[1])
-    dense = phase_profile_dense(trainer, frame_full)
+    bake = phase_bake_timing(trainer, bake_inputs)
+    phase_profile(trainer, last_geo)
+    dense = phase_profile_dense(trainer, last_tex)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
-        f"s per dense frame {tex_wall:.3f} "
-        f"({tex_steps} iterations), final tex_psnr_fixed {tex_info['psnr_fixed']:.3f}; peak device memory "
+        f"final tex_psnr_fixed {run['psnr_fixed']:.3f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(counts, errs, geo_timing, blend4k, blur)}))
+    print(json.dumps({"kernels": kernel_rows(run, errs, geo_timing, blend4k, blur, bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

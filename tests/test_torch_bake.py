@@ -1,0 +1,376 @@
+"""The UV texture bakes of the PyTorch port against the JAX package on the
+CPU.
+
+- ``process_uv`` equal; the host bake binning (tile map, ranges, corner ids
+  integer-equal, geometry rows bit-equal on the port's exact ``E`` / ``M``
+  entries, which JAX pads for its kernel) with and without a corner map;
+- K6's plain version against JAX's Pallas z-buffer bake in interpret mode
+  at the JAX suite's bake tolerance (rtol 2e-4 / atol 2e-5,
+  ``tests/test_texture.py:298``); against JAX the colors differ in the last
+  bits where XLA orders the interpolation's products and sums otherwise;
+- a second, independent oracle: this file's torch copy of JAX's banded
+  three-pass scatter bake (``topo4d_tpu/texture/bake.py``), held against
+  JAX's at that tolerance and against K6's plain version bit for bit. It
+  lives here, not in the package: the port bakes through K6 alone;
+- K6's plain version against the C++ scanline oracle on a seam-heavy
+  layout (fewer than 1e-4 of the pixels differ, ``tests/test_texture.py:394``).
+
+The CUDA kernel runs only on the card: the ``cuda`` test compares it with
+the plain version (bit for bit: the same operation order, no fused
+multiply-add) and skips here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from topo4d_tpu.config import Config as JConfig
+from topo4d_tpu.native import render_colors as native_render
+from topo4d_tpu.pipeline.scene import build_scene as j_build_scene
+from topo4d_tpu.testing import make_grid_mesh as j_grid
+from topo4d_tpu.testing import make_synthetic_regions as j_regions
+from topo4d_tpu.texture.bake import bake_texture as j_bake_texture
+from topo4d_tpu.texture.bake import process_uv as j_process_uv
+from topo4d_tpu.texture.bake_pallas import bake_texture_pallas
+from topo4d_tpu.texture.bake_pallas import compute_bake_binning as j_compute_bake_binning
+from topo4d_tpu.topology.obj_io import MeshObj as JMesh
+
+from topo4d_tpu_torch.texture.bake_tiled import (
+    LAUNCHES,
+    bake_canvas,
+    bake_canvas_cuda,
+    bake_canvas_plain,
+    bake_texture_tiled,
+    compute_bake_binning,
+    process_uv,
+    reset_launches,
+)
+
+CPU = "cpu"
+TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def random_mesh(h, w, n_tris=40, seed=0, max_size=6.0):
+    """Separate random triangles with random depths and vertex colors
+    (``tests/test_texture.py:63``)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(5, min(h, w) - 5, (n_tris, 2))
+    offsets = rng.uniform(-max_size / 2, max_size / 2, (n_tris, 3, 2))
+    verts = (centers[:, None, :] + offsets).reshape(-1, 2)
+    z = rng.uniform(-1, 1, (verts.shape[0], 1))
+    verts = np.hstack([verts, z]).astype(np.float32)
+    tris = np.arange(n_tris * 3).reshape(n_tris, 3).astype(np.int32)
+    colors = rng.uniform(0, 1, (verts.shape[0], 3)).astype(np.float32)
+    return verts, tris, colors
+
+
+def tie_mesh():
+    """Two coplanar overlapping triangles, red first, off the pixel grid."""
+    verts = np.array(
+        [[2.3, 2.3, 0], [20.3, 2.3, 0], [2.3, 20.3, 0], [3.3, 3.3, 0], [21.3, 3.3, 0], [3.3, 21.3, 0]], np.float32
+    )
+    colors = np.array([[1, 0, 0]] * 3 + [[0, 1, 0]] * 3, np.float32)
+    return verts, np.array([[0, 1, 2], [3, 4, 5]], np.int32), colors
+
+
+def dense_mesh_layout(res, density=2):
+    """The UV-densified dense mesh of a 10x10 grid head: (uv_px, tri_uv_faces,
+    uv -> vertex map, vertex count)."""
+    rows = cols = 10
+    verts, faces = j_grid(rows, cols, extent=0.5)
+    uvs = np.stack(
+        np.meshgrid(np.linspace(0.05, 0.95, cols), np.linspace(0.05, 0.95, rows), indexing="xy"), -1
+    ).reshape(-1, 2).astype(np.float32)
+    cfg = JConfig()
+    cfg.texture.gen_tex = True
+    cfg.texture.density = density
+    _, st = j_build_scene(
+        JMesh(vertices=verts, uvs=uvs, faces=faces, uv_faces=[list(f) for f in faces]),
+        j_regions(verts.shape[0], faces), cfg, num_views=4,
+    )
+    uv2vert = np.zeros(st.dense.topo.dense_uvs.shape[0], np.int64)
+    uv2vert[st.dense.tri_uv_faces.reshape(-1)] = st.dense.tri_faces.reshape(-1)
+    uv_px = j_process_uv(st.dense.topo.dense_uvs.copy(), res, res)
+    return uv_px, np.asarray(st.dense.tri_uv_faces), uv2vert, st.dense.topo.dense_vertices.shape[0]
+
+
+def test_process_uv_matches_jax():
+    uv = np.random.default_rng(0).uniform(0, 1, (50, 2))
+    for h, w in ((256, 256), (93, 64)):
+        np.testing.assert_array_equal(process_uv(uv, h, w), j_process_uv(uv, h, w))
+
+
+def _assert_binning_equal(b, jb, corner_map=None):
+    e, m = b.geom.shape[1], b.tile_ids.shape[0]
+    pk = np.asarray(jb.packed_geom)
+    assert e > 0 and m == jb.m
+    # the exact counts: JAX pads past them, with sentinels
+    assert np.all(pk[18, e:] == -1.0) and np.all(np.asarray(jb.count)[m:] == 0)
+    np.testing.assert_array_equal(b.geom[:9].numpy(), pk[0:9, :e])
+    np.testing.assert_array_equal(b.geom[9].numpy(), pk[18, :e])
+    np.testing.assert_array_equal(b.tile_ids.numpy(), np.asarray(jb.tmap)[:m])
+    np.testing.assert_array_equal(b.start.numpy(), np.asarray(jb.start)[:m])
+    np.testing.assert_array_equal(b.count.numpy(), np.asarray(jb.count)[:m])
+    np.testing.assert_array_equal(b.corner_idx.numpy(), np.asarray(jb.corner_idx)[:, :e])
+    assert (b.tiles_x, b.tiles_y) == (jb.tiles_x, jb.tiles_y)
+
+
+@pytest.mark.parametrize("corner_map", [False, True])
+@pytest.mark.parametrize("seed,h,w,max_size", [(3, 96, 80, 20.0), (7, 64, 64, 12.0), (11, 93, 77, 6.0)])
+def test_bake_binning_matches_jax(seed, h, w, max_size, corner_map):
+    verts, tris, _ = random_mesh(min(h, w), min(h, w), n_tris=50, seed=seed, max_size=max_size)
+    cmap = np.random.default_rng(seed).integers(0, 40, verts.shape[0]) if corner_map else None
+    b = compute_bake_binning(verts, tris, h, w, corner_map=cmap, device=CPU)
+    _assert_binning_equal(b, j_compute_bake_binning(verts, tris, h, w, corner_map=cmap))
+
+
+@pytest.mark.parametrize("corner_map", [False, True])
+def test_bake_binning_of_the_dense_mesh_matches_jax(corner_map):
+    uv_px, tris, uv2vert, _ = dense_mesh_layout(128)
+    cmap = uv2vert if corner_map else None
+    b = compute_bake_binning(uv_px, tris, 128, 128, corner_map=cmap, device=CPU)
+    _assert_binning_equal(b, j_compute_bake_binning(uv_px, tris, 128, 128, corner_map=cmap))
+
+
+def _case(name):
+    """(verts, tris, colors, h, w) of a named bake case."""
+    if name == "random_96x80":
+        verts, tris, colors = random_mesh(80, 80, n_tris=60, seed=11)
+        return verts, tris, colors, 96, 80
+    if name == "first_wins_tie":
+        return (*tie_mesh(), 24, 24)
+    if name == "multi_tile_triangle":
+        verts = np.array([[1.2, 1.2, 0.5], [61.7, 2.1, 0.5], [2.4, 60.8, 0.5]], np.float32)
+        return verts, np.array([[0, 1, 2]], np.int32), np.tile(np.float32([[0.2, 0.4, 0.8]]), (3, 1)), 64, 64
+    if name == "not_a_multiple_of_16":
+        verts, tris, colors = random_mesh(70, 70, n_tris=45, seed=2, max_size=14.0)
+        return verts, tris, colors, 75, 71
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["random_96x80", "first_wins_tie", "multi_tile_triangle", "not_a_multiple_of_16"])
+def test_plain_bake_matches_pallas(name):
+    verts, tris, colors, h, w = _case(name)
+    want = bake_texture_pallas(verts, tris, colors, h, w, interpret=True)
+    reset_launches()
+    got = bake_texture_tiled(verts, tris, colors, h, w, device=CPU)
+    assert LAUNCHES == {"uv_bake": 0, "uv_bake_plain": 1}
+    assert got.shape == (h, w, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if name == "first_wins_tie":
+        np.testing.assert_array_equal(got[10, 10].numpy(), [1, 0, 0])  # inside both: the first keeps the tie
+
+
+def test_plain_bake_with_cached_corner_map_matches_pallas():
+    """Two frames of vertex colors through one binning that composes the
+    UV-slot -> vertex map, against JAX's host re-indexing of the colors into
+    UV slots and a fresh bake (``tests/test_texture.py:360``)."""
+    h = w = 64
+    uv_verts, tris, _ = random_mesh(h, w, n_tris=40, seed=7, max_size=12.0)
+    rng = np.random.default_rng(1)
+    uv2vert = rng.integers(0, 50, uv_verts.shape[0])
+    binning = compute_bake_binning(uv_verts, tris, h, w, corner_map=uv2vert, device=CPU)
+    for _ in range(2):
+        vert_colors = rng.uniform(0, 1, (50, 3)).astype(np.float32)
+        uv_colors = np.zeros((uv_verts.shape[0], 3), np.float32)
+        uv_colors[tris.reshape(-1)] = vert_colors[uv2vert[tris.reshape(-1)]]
+        want = bake_texture_pallas(uv_verts, tris, uv_colors, h, w, interpret=True)
+        got = bake_canvas(binning, torch.as_tensor(vert_colors), h, w)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        # the port's own fresh bake of the UV colors: bit for bit
+        fresh = bake_texture_tiled(uv_verts, tris, uv_colors, h, w, device=CPU)
+        np.testing.assert_array_equal(got.numpy(), fresh.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the banded scatter bake: a torch copy of topo4d_tpu/texture/bake.py that
+# shares no code with the port's bake
+# ---------------------------------------------------------------------------
+
+_NEG = -999999.0  # the depth of "no triangle" (the reference's z-buffer fill)
+_ID_NONE = 2**31 - 1
+
+
+def _barycentric(px, py, x0, y0, x1, y1, x2, y2):
+    """(w0, w1, w2) of pixel (px, py): the Cramer solve through dot
+    products, in the JAX bake's operation order."""
+    v0x, v0y = x2 - x0, y2 - y0
+    v1x, v1y = x1 - x0, y1 - y0
+    v2x, v2y = px - x0, py - y0
+    dot00 = v0x * v0x + v0y * v0y
+    dot01 = v0x * v1x + v0y * v1y
+    dot02 = v0x * v2x + v0y * v2y
+    dot11 = v1x * v1x + v1y * v1y
+    dot12 = v1x * v2x + v1y * v2y
+    denom = dot00 * dot11 - dot01 * dot01
+    inv = torch.where(denom == 0.0, torch.zeros_like(denom), 1.0 / denom)
+    u = (dot11 * dot02 - dot01 * dot12) * inv
+    v = (dot00 * dot12 - dot01 * dot02) * inv
+    return 1.0 - u - v, v, u
+
+
+def _bake_band(verts, tris, colors, tri_ids, tri_valid, y_offset, height, width, window):
+    """One row band [y_offset, y_offset + height) -> (height, width, C):
+    scatter-max depth, scatter-min triangle id among the depth winners,
+    then the winner's color."""
+    tx, ty, tz = verts[:, 0][tris], verts[:, 1][tris], verts[:, 2][tris]  # (F, 3)
+    umin = torch.ceil(torch.amin(tx, dim=1)).to(torch.int64)
+    vmin = torch.ceil(torch.amin(ty, dim=1)).to(torch.int64)
+    umax = torch.floor(torch.amax(tx, dim=1)).to(torch.int64)
+    vmax = torch.floor(torch.amax(ty, dim=1)).to(torch.int64)
+    k = torch.arange(window * window)
+    pu = umin[:, None] + (k % window)[None, :]  # (F, W^2) pixel x
+    pv = vmin[:, None] + (k // window)[None, :]
+    in_bbox = (pu <= umax[:, None]) & (pv <= vmax[:, None])
+    in_canvas = (pu >= 0) & (pu < width) & (pv >= y_offset) & (pv < y_offset + height)
+    w0, w1, w2 = _barycentric(
+        pu.to(torch.float32), pv.to(torch.float32),
+        tx[:, 0:1], ty[:, 0:1], tx[:, 1:2], ty[:, 1:2], tx[:, 2:3], ty[:, 2:3],
+    )
+    valid = in_bbox & in_canvas & (w2 >= 0) & (w1 >= 0) & (w1 + w2 <= 1.0) & tri_valid[:, None]
+    depth = w0 * tz[:, 0:1] + w1 * tz[:, 1:2] + w2 * tz[:, 2:3]
+    npx = height * width
+    flat_idx = torch.where(valid, (pv - y_offset) * width + pu, npx).reshape(-1)
+    depth_flat = torch.where(valid, depth, _NEG).reshape(-1)
+    zbuf = torch.full((npx + 1,), _NEG).scatter_reduce_(0, flat_idx, depth_flat, "amax")
+    tid = tri_ids[:, None].expand(pu.shape).reshape(-1)
+    is_winner = valid.reshape(-1) & (depth_flat >= zbuf[flat_idx])
+    win_id = torch.full((npx + 1,), _ID_NONE, dtype=torch.int64).scatter_reduce_(
+        0, flat_idx, torch.where(is_winner, tid, _ID_NONE), "amin"
+    )
+    final = is_winner & (tid == win_id[flat_idx])
+    col = (
+        w0[..., None] * colors[tris[:, 0]][:, None, :]
+        + w1[..., None] * colors[tris[:, 1]][:, None, :]
+        + w2[..., None] * colors[tris[:, 2]][:, None, :]
+    ).reshape(-1, colors.shape[1])
+    img = torch.zeros((npx + 1, colors.shape[1]))
+    img[torch.where(final, flat_idx, npx)] = torch.where(final[:, None], col, 0.0)
+    return img[:npx].reshape(height, width, -1)
+
+
+def scatter_bake(uv_px, tri_faces, colors, height, width, window=8, bands=8):
+    """JAX's ``bake_texture`` on CPU tensors -> (H, W, C): each triangle
+    rasterizes a ``window``² window from its bbox's ceiling (a larger bbox
+    raises), bucketed by the row bands its inner bbox meets."""
+    tx, ty = uv_px[:, 0][tri_faces], uv_px[:, 1][tri_faces]
+    span = max(float((tx.max(1) - tx.min(1)).max()), float((ty.max(1) - ty.min(1)).max()))
+    if span >= window:
+        raise ValueError(f"triangle bbox span {span:.1f}px exceeds window {window}")
+    band_h = -(-height // bands)
+    vmin, vmax = np.ceil(ty.min(1)).astype(np.int64), np.floor(ty.max(1)).astype(np.int64)
+    b_lo, b_hi = np.clip(vmin // band_h, 0, bands - 1), np.clip(vmax // band_h, 0, bands - 1)
+    verts = torch.as_tensor(np.asarray(uv_px, np.float32))
+    tris = np.asarray(tri_faces, np.int64)
+    cols = torch.as_tensor(colors, dtype=torch.float32)
+    out = torch.zeros((height, width, cols.shape[1]))
+    for b in range(bands):
+        y0 = b * band_h
+        h = min(band_h, height - y0)
+        if h <= 0:
+            break
+        ids = np.flatnonzero((vmax >= vmin) & (b_lo <= b) & (b <= b_hi))
+        img = _bake_band(
+            verts, torch.as_tensor(tris[ids]), cols, torch.as_tensor(ids), torch.ones(ids.size, dtype=torch.bool),
+            y0, band_h, width, window,
+        )
+        out[y0 : y0 + h] = img[:h]
+    return out
+
+
+@pytest.mark.parametrize("name", ["random_96x80", "first_wins_tie", "not_a_multiple_of_16"])
+def test_scatter_bake_matches_jax(name):
+    verts, tris, colors, h, w = _case(name)
+    window = 32 if name == "first_wins_tie" else 16
+    want = j_bake_texture(verts, tris, colors, h, w, window=window, bands=3)
+    got = scatter_bake(verts, tris, colors, h, w, window=window, bands=3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the two torch bakes share no code and agree bit for bit
+    np.testing.assert_array_equal(got.numpy(), bake_texture_tiled(verts, tris, colors, h, w, device=CPU).numpy())
+
+
+def test_scatter_bake_window_overflow_raises():
+    verts = np.array([[0, 0, 0], [30, 0, 0], [0, 30, 0]], np.float32)
+    tris = np.array([[0, 1, 2]], np.int32)
+    with pytest.raises(ValueError, match="window"):
+        scatter_bake(verts, tris, np.ones((3, 3), np.float32), 32, 32, window=8)
+    with pytest.raises(ValueError, match="window"):
+        j_bake_texture(verts, tris, np.ones((3, 3), np.float32), 32, 32, window=8)
+
+
+@pytest.mark.parametrize("res", [64, 96])
+def test_plain_bake_of_the_dense_mesh_matches_pallas_and_the_scanline_oracle(res):
+    """The dense mesh's regular UV layout puts pixel centres exactly on
+    shared edges. On those, the inclusive inside test decides on rounding:
+    JAX's CPU evaluation (XLA, the Pallas kernel in interpret mode and the
+    scatter bake alike) leaves some such pixels to neither triangle, a crack
+    at 0, where the port, the C++ scanline oracle and, per pixel, exact
+    arithmetic cover them. So the port equals JAX at the bake tolerance
+    except on JAX's cracks (under 1% of the pixels), and matches the
+    scanline oracle on all but 1e-3 of them."""
+    uv_px, tris, uv2vert, nv = dense_mesh_layout(res)
+    colors = np.random.default_rng(4).uniform(0, 1, (nv, 3)).astype(np.float32)
+    jb = j_compute_bake_binning(uv_px, tris, res, res, corner_map=uv2vert)
+    want = bake_texture_pallas(None, None, colors, res, res, interpret=True, binning=jb)
+    b = compute_bake_binning(uv_px, tris, res, res, corner_map=uv2vert, device=CPU)
+    got = bake_canvas(b, torch.as_tensor(colors), res, res).numpy()
+    differ = ~np.isclose(got, want, **TOL).all(-1)
+    assert np.all(want[differ] == 0) and np.all(got[differ].max(-1) > 0)
+    assert differ.mean() < 0.01
+    native = native_render(uv_px.astype(np.float32), tris, colors[uv2vert], res, res)
+    assert (np.abs(got - native).max(-1) > 1e-3).mean() < 1e-3
+
+
+def test_plain_bake_matches_native_scanline_on_seams():
+    """Two 12x12-quad UV islands with jittered interiors (every boundary
+    vertex a seam), at 256^2 and more than 2 px off the border, against the
+    C++ scanline oracle (``tests/test_texture.py:394``)."""
+    res, g = 256, 13
+    rng = np.random.default_rng(9)
+    verts_l, tris_l, cols_l = [], [], []
+    for island, (u0, u1) in enumerate(((0.03, 0.47), (0.53, 0.97))):
+        uu, vv = np.meshgrid(np.linspace(u0 * res, u1 * res, g), np.linspace(0.05 * res, 0.9 * res, g), indexing="xy")
+        uu[1:-1, 1:-1] += rng.uniform(-0.7, 0.7, uu.shape)[1:-1, 1:-1]
+        vv[1:-1, 1:-1] += rng.uniform(-0.7, 0.7, uu.shape)[1:-1, 1:-1]
+        verts_l.append(np.stack([uu.reshape(-1), vv.reshape(-1), rng.uniform(0, 1, g * g)], 1).astype(np.float32))
+        idx = np.arange(g * g).reshape(g, g) + island * g * g
+        a, b, c, d = idx[:-1, :-1].reshape(-1), idx[:-1, 1:].reshape(-1), idx[1:, 1:].reshape(-1), idx[1:, :-1].reshape(-1)
+        tris_l.append(np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)]))
+        cols_l.append(rng.uniform(0, 1, (g * g, 3)).astype(np.float32))
+    verts, tris, colors = np.concatenate(verts_l), np.concatenate(tris_l).astype(np.int32), np.concatenate(cols_l)
+    got = bake_texture_tiled(verts, tris, colors, res, res, device=CPU).numpy()
+    want = native_render(verts, tris, colors, res, res)
+    frac = float((np.abs(got - want).max(axis=-1) > 1e-3).mean())
+    assert frac < 1e-4, f"{frac:.2e} of pixels differ"
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    b = compute_bake_binning(*_case("first_wins_tie")[:2], 24, 24, device=CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        bake_canvas_cuda(b, torch.ones(6, 3), 24, 24)
+
+
+def test_bake_takes_the_plain_version_only_on_the_cpu():
+    """A tensor on any device but the CPU goes to the kernel, which raises
+    off the card: it never falls back to the plain version."""
+    b = compute_bake_binning(*_case("first_wins_tie")[:2], 24, 24, device=CPU)
+    reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        bake_canvas(b, torch.ones(6, 3, device="meta"), 24, 24)
+    assert LAUNCHES == {"uv_bake": 0, "uv_bake_plain": 0}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bake kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_96x80", "first_wins_tie", "multi_tile_triangle", "not_a_multiple_of_16"])
+def test_bake_kernel_matches_plain_on_the_card(cuda, name):
+    verts, tris, colors, h, w = _case(name)
+    b = compute_bake_binning(verts, tris, h, w, device=cuda)
+    c = torch.as_tensor(colors, device=cuda)
+    torch.testing.assert_close(bake_canvas_cuda(b, c, h, w), bake_canvas_plain(b, c, h, w), rtol=0, atol=0)

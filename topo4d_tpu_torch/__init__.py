@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of ``topo4d_tpu`` (slices 1-2: parity-mode geometry
-tracking and the dense texture phase).
+"""PyTorch + CUDA port of ``topo4d_tpu`` (slices 1-3: parity-mode geometry
+tracking, the dense texture phase, and the per-frame export through
+``Trainer.run``).
 
 The JAX package beside this one is the reference; this package mirrors its
 layout (``core/``, ``rasterizer/``, ``losses/``, ``opt/``, ``topology/``,
@@ -9,8 +10,9 @@ like. It imports neither JAX nor the JAX package.
 
 Device rule: every entry point takes ``device`` and defaults to ``"cuda"``;
 it raises when no card is present and never falls back to the CPU. The tile
-blend and the SSIM blur run the hand-written CUDA kernels (``csrc/``) on CUDA
-tensors and their plain PyTorch versions only on CPU tensors.
+blend, the SSIM blur and the UV bake run the hand-written CUDA kernels
+(``csrc/``) on CUDA tensors and their plain PyTorch versions only on CPU
+tensors.
 
 Contract paths run in float32 with TF32 off (cuBLAS and cuDNN).
 """

@@ -1,5 +1,5 @@
-"""The subset of ``topo4d_tpu.config`` that the geometry tracking path and
-the dense texture phase read.
+"""The subset of ``topo4d_tpu.config`` that the geometry tracking path, the
+dense texture phase and the per-frame export read.
 
 Same field names and defaults as the reference's dataclasses; learning rates
 and loss weights stay host floats (they are passed to the step as Python
@@ -90,6 +90,7 @@ class RasterizerConfig:
 class ScheduleConfig:
     """Iteration schedule (reference train.py:767-780)."""
 
+    frame_num: int = 800
     init_opt_num: int = 7000
     opt_num: int = 1100
     dense_opt_num: int = 301
@@ -98,7 +99,21 @@ class ScheduleConfig:
     eye_freeze_frac: float = 0.7
     log_freq: int = 500
     dense_log_freq: int = 300
+    ckp_freq: int = 5  # params.npz every ckp_freq frames (resume.pkl every frame)
     views_per_step: int = 1  # 1 = reference parity (the only mode ported)
+    # run a frame's checkpoint and export on a worker thread while the next
+    # frame fits; at most one frame's IO in flight
+    async_export: bool = True
+
+
+@dataclasses.dataclass
+class DataConfig:
+    output_dir: str = "output"
+    exp: str = "exp_op1"  # reference argparse default (train.py:762)
+    seq: str = "seq_01"
+    # dim the inner mouth of tracked frames' targets with the parsing masks;
+    # a source that has masks raises until the mask module is ported
+    use_mask: bool = True
 
 
 @dataclasses.dataclass
@@ -106,6 +121,7 @@ class TextureConfig:
     """The dense texture phase (reference train.py:209-267, 715-743)."""
 
     gen_tex: bool = False  # build the dense UV-densified Gaussians
+    tex_res: int = 8192  # the baked UV texture's side
     density: int = 30  # interior subdivision points per quad edge
     # frozen per-view binning: 0 = once per (frame, view), the only
     # cadence ported (dense means3D are fixed within a frame)
@@ -122,6 +138,7 @@ class TextureConfig:
 
 @dataclasses.dataclass
 class Config:
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     raster: RasterizerConfig = dataclasses.field(default_factory=RasterizerConfig)
     weights: LossWeights = dataclasses.field(default_factory=LossWeights)

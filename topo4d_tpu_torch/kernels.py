@@ -39,6 +39,7 @@ KERNELS: Dict[str, tuple] = {
     "tile_blend_fwd": ("blend_fwd.cu", [P, I64, P, P, P, I32, I32, P, P]),
     "tile_blend_bwd": ("blend_bwd.cu", [P, I64, P, P, P, I32, I32, P, P, P, P]),
     "gauss_blur": ("blur.cu", [P, P, I32, I32, I32, P, P]),
+    "uv_bake": ("bake.cu", [P, P, I64, P, I32, P, P, P, I32, I32, I32, I32, P, P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
@@ -66,13 +67,13 @@ def build_all(verbose: bool = False) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs: List[tuple] = []
-    for source in sorted({src for src, _ in KERNELS.values()}):
+    missing = [s for s in sorted({src for src, _ in KERNELS.values()}) if not _lib_path(s).exists()]
+    nvcc = _nvcc() if missing else None  # before any temporary file is made
+    for source in missing:
         out = _lib_path(source)
-        if out.exists():
-            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / source)]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((source, out, tmp, proc))
     failed = []

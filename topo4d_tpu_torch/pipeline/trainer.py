@@ -1,15 +1,23 @@
 """Sequence trainer, parity mode (pipeline/trainer.py).
 
-Per frame: the geometry fit (warm start from the previous frame, then one
-view per Adam step with a fresh binning every render,
-``schedule.views_per_step == 1``, the reference's semantics), and the dense
-texture fit (one full-resolution view per step through frozen per-view
-binnings, compact tiles and the split pack). The batched all-views mode,
-masks, export and checkpoints are later slices.
+``Trainer.run`` fits a sequence frame by frame. Per frame: the geometry fit
+(warm start from the previous frame, then one view per Adam step with a
+fresh binning every render, ``schedule.views_per_step == 1``, the
+reference's semantics); the dense texture fit (one full-resolution view per
+step through frozen per-view binnings, compact tiles and the split pack);
+then the frame's checkpoint (``resume.pkl``, every ``ckp_freq`` frames
+``params.npz``) and export (``face.obj`` and the baked ``face.png``), on a
+worker thread while the next frame fits (``schedule.async_export``). The
+batched all-views mode, masks, progress renders, the orbax checkpoint
+backend and multi-host resume are later slices.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -28,7 +36,9 @@ from topo4d_tpu_torch.opt.step import (
     TrainState,
     make_geometry_step,
 )
+from topo4d_tpu_torch.pipeline import checkpoint as ckpt
 from topo4d_tpu_torch.pipeline.data import view_order
+from topo4d_tpu_torch.pipeline.export import build_bake_binning, save_mesh
 from topo4d_tpu_torch.pipeline.scene import (
     SceneStatics,
     build_constraints,
@@ -45,6 +55,7 @@ from topo4d_tpu_torch.texture.dense import (
     make_texture_step,
 )
 from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
+from topo4d_tpu_torch.utils.profiling import PhaseTimer, mpix_per_s
 
 
 def make_render_fn(cfg: Config, device):
@@ -114,7 +125,12 @@ class Trainer:
             cos_init=cos0.detach(),
         )
         self.first_frame_attrs: Optional[Dict[str, np.ndarray]] = None
+        self.output_params: List[Dict[str, np.ndarray]] = []  # per-frame params.npz snapshots
         self.metrics_log: List[Dict] = []
+        self.timer = PhaseTimer()
+        self._bake_binning = None  # the per-sequence bake binning, built at the first export
+        self._last_geo_renders = 0
+        self._out_dir = os.path.join(cfg.data.output_dir, cfg.data.exp, cfg.data.seq)
         self._con_cache: Dict[str, tuple] = {}
         # the texture phase, built at its first frame
         self.texture_step = self.texture_eval = None
@@ -150,9 +166,12 @@ class Trainer:
         sched = cfg.schedule
         is_init = t == 0
         num_iters = sched.init_opt_num if is_init else sched.opt_num
+        if cfg.data.use_mask and frame_data.masks is not None:
+            raise NotImplementedError("masked targets (data.use_mask with a source that has masks) are not ported")
         images = torch.as_tensor(np.asarray(frame_data.images, np.float32), device=self.device)
         cams = self.source.cameras
         step_phase = "init" if is_init else "track"
+        self._last_geo_renders = num_iters  # one view per iteration
 
         if not is_init:
             # warm start (train.py:420-438)
@@ -256,24 +275,26 @@ class Trainer:
         if cfg.texture.rebin_freq != 0:
             raise NotImplementedError("only texture.rebin_freq == 0 (one binning per frame and view) is ported")
         if self.texture_state is None:
-            dense_np = init_dense_params(
-                {k: v.detach().cpu().numpy() for k, v in self.state.params.items()},
-                self.statics, self.source.num_views,
-            )
+            dense_np = init_dense_params(ckpt.to_numpy(self.state.params), self.statics, self.source.num_views)
             dense = {k: torch.as_tensor(v, device=dev) for k, v in dense_np.items()}
             self.texture_state = TextureState(params=dense, opt=adam_init(dense))
             self.dense_anchor = dense["dense_rgb_colors"]
+        else:
+            # update_dense_states (train.py:498-508)
+            self.dense_anchor = self.texture_state.params["dense_rgb_colors"]
+        if self.texture_step is None:
+            # built apart from the state, so that a resumed run, whose
+            # texture_state comes from the checkpoint, gets them too
             render = make_dense_render_fn(cfg, dev)
             self.texture_step = make_texture_step(render)
             self.texture_eval = make_texture_eval(render)
-            self._dense_pre = build_dense_pre_constraints(dense_np, self.statics.regions, dev)
+            self._dense_pre = build_dense_pre_constraints(
+                ckpt.to_numpy(self.texture_state.params), self.statics.regions, dev
+            )
             topo = self.statics.dense.topo
             self._dense_interp = tuple(
                 torch.as_tensor(a, device=dev) for a in (topo.quad_faces, topo.father_face, topo.weights)
             )
-        else:
-            # update_dense_states (train.py:498-508)
-            self.dense_anchor = self.texture_state.params["dense_rgb_colors"]
         with torch.no_grad():
             self.dense_means3d = interpolate_dense_attribute(self.state.params["means3D"], *self._dense_interp)
         images = torch.as_tensor(np.asarray(frame_data.images, np.float32), device=dev)
@@ -316,3 +337,162 @@ class Trainer:
         row = eval_row(num_iters)
         self.metrics_log.append(row)
         return row
+
+    # ------------------------------------------------------------------
+    def run(self, resume: bool = True) -> None:
+        """Fit frames ``0 .. schedule.frame_num - 1`` of the source (its
+        frames ``t + 1``) into ``<output_dir>/<exp>/<seq>``, resuming after
+        the last checkpointed frame when ``resume`` and a ``resume.pkl``
+        exists there.
+
+        Frame ``t + 1``'s targets are read on a worker thread while frame
+        ``t`` fits; frame ``t``'s checkpoint and export run on another
+        while frame ``t + 1`` fits (``schedule.async_export``; at most one
+        frame's IO in flight, its failure raised at the next frame). Writes
+        ``metrics.jsonl`` and ``timings.json`` every frame and ``params.npz``
+        at the end. A single process: it is the only host.
+        """
+        cfg = self.cfg
+        os.makedirs(self._out_dir, exist_ok=True)
+        start_frame = 0
+        if resume:
+            payload = ckpt.load_resume(self._out_dir)
+            if payload is not None:
+                start_frame = self._restore(payload)
+        want_tex = cfg.texture.gen_tex and self.statics.dense is not None
+
+        def load(t1):
+            geo = self.source.frame(t1)
+            tex = self.source.frame(t1, full_res=True) if want_tex and geo is not None else None
+            return geo, tex
+
+        pool = ThreadPoolExecutor(max_workers=1)
+        io_pool = ThreadPoolExecutor(max_workers=1)
+        pending = pool.submit(load, start_frame + 1)
+        io_pending = None
+        try:
+            for t in range(start_frame, cfg.schedule.frame_num):
+                t_start = time.time()
+                frame_data, tex_data = pending.result()
+                if t + 1 < cfg.schedule.frame_num:
+                    pending = pool.submit(load, t + 2)
+                if frame_data is None:
+                    break
+                geo_t0 = time.perf_counter()
+                means_start = self.state.params["means3D"]
+                with self.timer.phase("geometry"):
+                    geo = self.fit_frame_geometry(t, frame_data)
+                # the geometry fit's displacement of each vertex in this frame
+                with torch.no_grad():
+                    disp = torch.linalg.vector_norm(self.state.params["means3D"] - means_start, dim=1)
+                geo["max_dmeans3d"] = float(torch.max(disp))
+                geo["mean_dmeans3d"] = float(torch.mean(disp))
+                cams = self.source.cameras
+                geo["mpix_per_s"] = mpix_per_s(
+                    cams.height, cams.width, self._last_geo_renders, time.perf_counter() - geo_t0
+                )
+                if want_tex and tex_data is not None:
+                    with self.timer.phase("texture"):
+                        self.fit_frame_texture(t, tex_data)
+
+                self.output_params.append(ckpt.params_snapshot(self.state.params, t == 0))
+                # snapshots on the card: the next frame's steps cannot reach them
+                job = self._make_io_job(
+                    t, state=ckpt.clone(self.state), priors=ckpt.clone(self.priors),
+                    first_frame_attrs=self.first_frame_attrs, output_params=list(self.output_params),
+                    texture_state=ckpt.clone(self.texture_state),
+                )
+                if io_pending is not None:
+                    io_pending.result()  # the previous frame's IO lands before the next is queued
+                    io_pending = None
+                if cfg.schedule.async_export:
+                    io_pending = io_pool.submit(job)
+                else:
+                    job()
+                geo["frame_seconds"] = round(time.time() - t_start, 4)
+                self.metrics_log.append({
+                    "frame": t, "summary": True, "frame_seconds": geo["frame_seconds"],
+                    "mpix_per_s": geo["mpix_per_s"], "max_dmeans3d": geo["max_dmeans3d"],
+                    "mean_dmeans3d": geo["mean_dmeans3d"],
+                })
+                self._write_metrics()
+                self.timer.write(os.path.join(self._out_dir, "timings.json"))
+                psnr_s = f" psnr {geo['psnr']:.2f}" if "psnr" in geo else ""
+                print(
+                    f"[topo4d_tpu_torch] frame {t + 1}/{cfg.schedule.frame_num} loss "
+                    f"{geo.get('loss_total', float('nan')):.5f}{psnr_s} ({geo['frame_seconds']:.1f}s, "
+                    f"{geo['mpix_per_s']:.2f} Mpix/s, max|dv| {geo['max_dmeans3d']:.2e})",
+                    flush=True,
+                )
+            if io_pending is not None:
+                io_pending.result()
+                io_pending = None
+        finally:
+            # a queued read is dropped and a running one finishes; queued IO
+            # finishes, so the checkpoints stay whole on an error exit too
+            pool.shutdown(wait=True, cancel_futures=True)
+            io_pool.shutdown(wait=True)
+
+        # the final params.npz whatever ckp_freq is
+        if self.output_params:
+            ckpt.save_params(self.output_params, self._out_dir)
+        # the last frame's IO may end after the loop's write
+        self.timer.write(os.path.join(self._out_dir, "timings.json"))
+
+    def _restore(self, payload) -> int:
+        """Restore the state a ``resume.pkl`` holds; reload the earlier
+        frames' metric rows and timings -> the frame to start from."""
+        start_frame = payload["frame"]
+        dev = self.device
+        self.state = ckpt.to_torch(payload["state"], dev)
+        self.priors = ckpt.to_torch(payload["priors"], dev)
+        self.first_frame_attrs = payload["first_frame_attrs"]
+        self.output_params = payload["output_params"]
+        if payload["texture_state"] is not None:
+            self.texture_state = ckpt.to_torch(payload["texture_state"], dev)
+        # metrics.jsonl and timings.json are rewritten whole every frame
+        self.timer.load(os.path.join(self._out_dir, "timings.json"))
+        mpath = os.path.join(self._out_dir, "metrics.jsonl")
+        if not self.metrics_log and os.path.exists(mpath):
+            with open(mpath) as fh:
+                for line in fh:
+                    try:
+                        row = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue  # a torn last line from a hard kill
+                    if row.get("frame", 1 << 30) < start_frame:
+                        self.metrics_log.append(row)
+        return start_frame
+
+    def _make_io_job(self, t, *, state, priors, first_frame_attrs, output_params, texture_state):
+        """Frame ``t``'s checkpoint and export as a closure over snapshots,
+        so that it can run on the IO worker while this thread fits frame
+        ``t + 1``."""
+        cfg = self.cfg
+
+        def job():
+            with self.timer.phase("checkpoint"):
+                if t % cfg.schedule.ckp_freq == 0 and t != 0:
+                    ckpt.save_params(output_params, self._out_dir)
+                    ckpt.write_loss_json(
+                        self._out_dir, {k: True for k in self.statics.quadruples}, cfg.weights.as_dict()
+                    )
+                ckpt.save_resume(
+                    self._out_dir, t + 1, state, priors, first_frame_attrs, output_params, texture_state
+                )
+            with self.timer.phase("export"):
+                if self._bake_binning is None and cfg.texture.gen_tex and texture_state is not None:
+                    # a sequence constant: the UV layout does not change
+                    self._bake_binning = build_bake_binning(self.statics, cfg.texture.tex_res, self.device)
+                save_mesh(
+                    os.path.join(self._out_dir, "%06d" % (t + 1)), state.params, self.statics, t + 1,
+                    dense_params=texture_state.params if texture_state is not None else None,
+                    tex_res=cfg.texture.tex_res, gen_texture=cfg.texture.gen_tex, bake_binning=self._bake_binning,
+                )
+
+        return job
+
+    def _write_metrics(self) -> None:
+        with open(os.path.join(self._out_dir, "metrics.jsonl"), "w") as fh:
+            for row in self.metrics_log:
+                fh.write(json.dumps(row) + "\n")

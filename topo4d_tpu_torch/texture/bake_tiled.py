@@ -1,0 +1,293 @@
+"""The tiled UV z-buffer bake: CUDA kernel K6 and its plain PyTorch version.
+
+Counterpart of ``topo4d_tpu/texture/bake_pallas.py``. The host bins the
+triangles into (16 x 16 tile, triangle id) entries sorted by tile, then by
+id (``compute_bake_binning``); the bake walks each occupied tile's entries
+in ascending id order. For each pixel centre (px, py) it takes the
+Gram/Cramer barycentrics (u, w1, w0 = 1 - u - w1, with ``inv = 0`` when the
+denominator is 0), the inner bbox ``ceil(min)..floor(max)`` of the float32
+corners, the inclusive inside test ``u >= 0, w1 >= 0, w1 + u <= 1`` within
+the bbox and the canvas, and the depth ``w0 z0 + w1 z1 + u z2``. A bigger z
+wins and, on equal z, the first triangle (the scanline renderer's strict
+``>``); the color is interpolated with the same weights; a pixel no triangle
+covers stays 0. These are the semantics of the reference's scanline
+renderer (face3d/mesh_numpy/render.py): integer pixel centres, the inner
+bbox, the inclusive-edge inside test, bigger z wins.
+
+The binning is a sequence constant (the UV layout does not change between
+frames), so ``BakeBinning`` keeps its geometry rows, corner color indices
+and compact tile map on the device and each frame only gathers colors.
+Unlike the TPU version it keeps the exact entry and tile counts: there is
+no padding for recompile reuse or DMA windows.
+
+Dispatch: ``bake_canvas`` sends a CUDA tensor to ``csrc/bake.cu`` (K6) or
+raises; a CPU tensor goes to ``bake_canvas_plain``, which is also the
+kernel's oracle on the card. ``LAUNCHES`` counts kernel launches and plain
+calls.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from topo4d_tpu_torch import kernels
+from topo4d_tpu_torch.device import resolve_device
+
+TILE = 16
+PX = TILE * TILE
+PLAIN_ENTRIES_PER_CHUNK = 1 << 16  # the plain version's (entry, pixel) pairs are made this many entries at a time
+_NEG = -1e30  # the depth of "no triangle" (the TPU kernel's z-buffer fill)
+
+# launches of the kernel and calls of the plain version, since the last reset
+LAUNCHES: Dict[str, int] = {"uv_bake": 0, "uv_bake_plain": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def process_uv(uv_coords: np.ndarray, uv_h: int, uv_w: int) -> np.ndarray:
+    """UVs -> pixel coords with the V flip and a zero z (reference
+    helpers.py:945-950), float64 (V, 3)."""
+    out = np.array(uv_coords, np.float64, copy=True)
+    out[:, 0] = out[:, 0] * (uv_w - 1)
+    out[:, 1] = out[:, 1] * (uv_h - 1)
+    out[:, 1] = uv_h - out[:, 1] - 1
+    return np.hstack([out, np.zeros((out.shape[0], 1))])
+
+
+class BakeBinning(NamedTuple):
+    """A per-sequence bake binning, on the device of its tensors.
+
+    ``geom`` rows are, per sorted entry, the corners' x0, y0, x1, y1, x2, y2,
+    their depths z0, z1, z2 and the entry's tile id (exact in float32 up to
+    2^24 tiles). ``corner_idx[k, e]`` is the color row of corner k of entry
+    e; built with a ``corner_map`` it already composes the UV-slot -> vertex
+    re-indexing, so a frame gathers straight from the per-vertex colors.
+    Occupied tile ``tile_ids[i]`` owns entries ``start[i] .. start[i] +
+    count[i] - 1``.
+    """
+
+    geom: torch.Tensor  # (10, E) float32
+    corner_idx: torch.Tensor  # (3, E) int32
+    tile_ids: torch.Tensor  # (M,) int32, ascending
+    start: torch.Tensor  # (M,) int32
+    count: torch.Tensor  # (M,) int32
+    tiles_x: int
+    tiles_y: int
+
+
+def _bin_core(verts_px: np.ndarray, tris: np.ndarray, height: int, width: int):
+    """Host binning: geometry rows and corner ids, no colors.
+
+    Returns (geom (10, E) float32, fe (E, 3) sorted-entry corner indices,
+    tile_ids, start, count, tiles_x, tiles_y).
+    """
+    v = np.asarray(verts_px, np.float32)
+    f = np.asarray(tris, np.int64)
+    tiles_x = -(-width // TILE)
+    tiles_y = -(-height // TILE)
+
+    tx = v[:, 0][f]  # (F, 3)
+    ty = v[:, 1][f]
+    umin = np.ceil(tx.min(1))
+    umax = np.floor(tx.max(1))
+    vmin = np.ceil(ty.min(1))
+    vmax = np.floor(ty.max(1))
+    # clamp to the canvas and cull empty bboxes
+    umin_c = np.maximum(umin, 0)
+    umax_c = np.minimum(umax, width - 1)
+    vmin_c = np.maximum(vmin, 0)
+    vmax_c = np.minimum(vmax, height - 1)
+    keep = (umax_c >= umin_c) & (vmax_c >= vmin_c)
+
+    tx0 = (umin_c // TILE).astype(np.int64)
+    tx1 = (umax_c // TILE).astype(np.int64)
+    ty0 = (vmin_c // TILE).astype(np.int64)
+    ty1 = (vmax_c // TILE).astype(np.int64)
+    span_x = np.where(keep, tx1 - tx0 + 1, 0)
+    span_y = np.where(keep, ty1 - ty0 + 1, 0)
+    counts = (span_x * span_y).astype(np.int64)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    e = int(offs[-1])
+
+    # expand (triangle, tile) pairs, then sort by (tile, triangle)
+    tri_of = np.repeat(np.arange(f.shape[0]), counts)
+    local = np.arange(e) - offs[tri_of]
+    sx = span_x[tri_of]
+    tile_ids = (ty0[tri_of] + local // sx) * tiles_x + (tx0[tri_of] + local % sx)
+    order = np.lexsort((tri_of, tile_ids))
+    s_tile = tile_ids[order]
+    s_tri = tri_of[order]
+
+    occupied, start = np.unique(s_tile, return_index=True)
+    count = np.diff(np.concatenate([start, [e]]))
+
+    fe = f[s_tri]
+    geom = np.empty((10, e), np.float32)
+    for k in range(3):
+        geom[2 * k] = v[:, 0][fe[:, k]]
+        geom[2 * k + 1] = v[:, 1][fe[:, k]]
+        geom[6 + k] = v[:, 2][fe[:, k]]
+    geom[9] = s_tile.astype(np.float32)
+    return (geom, fe, occupied.astype(np.int32), start.astype(np.int32), count.astype(np.int32),
+            tiles_x, tiles_y)
+
+
+def compute_bake_binning(
+    verts_px: np.ndarray,
+    tris: np.ndarray,
+    height: int,
+    width: int,
+    corner_map: Optional[np.ndarray] = None,
+    device="cuda",
+) -> BakeBinning:
+    """Bin once per sequence on the host; the result lives on ``device``.
+
+    ``corner_map`` (U,) int composes a UV-slot -> color-row re-indexing into
+    the cached corner ids.
+    """
+    dev = resolve_device(device)
+    geom, fe, tile_ids, start, count, tiles_x, tiles_y = _bin_core(verts_px, tris, height, width)
+    if corner_map is not None:
+        fe = np.asarray(corner_map, np.int64)[fe]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return BakeBinning(
+        geom=t(geom), corner_idx=t(fe.T.astype(np.int32)), tile_ids=t(tile_ids), start=t(start),
+        count=t(count), tiles_x=tiles_x, tiles_y=tiles_y,
+    )
+
+
+@torch.no_grad()
+def bake_canvas_plain(binning: BakeBinning, colors: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Plain PyTorch K6: (V, C >= 3) colors -> (height, width, 3) float32.
+
+    Expands (entry, pixel of its tile) pairs ``PLAIN_ENTRIES_PER_CHUNK``
+    entries at a time with the kernel's per-pair terms in its operation
+    order, keeps the pairs inside their triangle, then scatter-maxes the
+    depth per canvas pixel, scatter-mins the entry index among the pairs at
+    that depth (entries ascend by triangle id within a tile, so this is the
+    first-wins rule), and writes the winning pair's color.
+    """
+    LAUNCHES["uv_bake_plain"] += 1
+    dev = colors.device
+    g = binning.geom
+    e = g.shape[1]
+    if e == 0:
+        return torch.zeros((height, width, 3), device=dev)
+    p = torch.arange(PX, device=dev)
+    pix_dx, pix_dy = p % TILE, p // TILE
+    kept = {k: [] for k in ("pix", "entry", "depth", "w0", "w1", "u")}
+    for s in range(0, e, PLAIN_ENTRIES_PER_CHUNK):
+        gs = g[:, s : s + PLAIN_ENTRIES_PER_CHUNK, None]  # (10, n, 1)
+        x0, y0, x1, y1, x2, y2, z0, z1, z2, tile = gs
+        tile_i = tile.to(torch.int64)
+        pxi = (tile_i % binning.tiles_x) * TILE + pix_dx  # (n, 256)
+        pyi = (tile_i // binning.tiles_x) * TILE + pix_dy
+        px, py = pxi.to(torch.float32), pyi.to(torch.float32)
+        # per-entry terms, as the kernel stages them
+        v0x, v0y = x2 - x0, y2 - y0
+        v1x, v1y = x1 - x0, y1 - y0
+        dot00 = v0x * v0x + v0y * v0y
+        dot01 = v0x * v1x + v0y * v1y
+        dot11 = v1x * v1x + v1y * v1y
+        denom = dot00 * dot11 - dot01 * dot01
+        inv = torch.where(denom == 0.0, torch.zeros_like(denom), 1.0 / denom)
+        umin = torch.ceil(torch.minimum(torch.minimum(x0, x1), x2))
+        umax = torch.floor(torch.maximum(torch.maximum(x0, x1), x2))
+        vmin = torch.ceil(torch.minimum(torch.minimum(y0, y1), y2))
+        vmax = torch.floor(torch.maximum(torch.maximum(y0, y1), y2))
+        # per-pair terms
+        dpx, dpy = px - x0, py - y0
+        dot02 = v0x * dpx + v0y * dpy
+        dot12 = v1x * dpx + v1y * dpy
+        u = (dot11 * dot02 - dot01 * dot12) * inv
+        w1 = (dot00 * dot12 - dot01 * dot02) * inv
+        w0 = 1.0 - u - w1
+        depth = w0 * z0 + w1 * z1 + u * z2
+        hit = (
+            (u >= 0) & (w1 >= 0) & (w1 + u <= 1.0)
+            & (px >= umin) & (px <= umax) & (py >= vmin) & (py <= vmax)
+            & (pxi < width) & (pyi < height) & (depth > _NEG)
+        )
+        ent, pix = torch.nonzero(hit, as_tuple=True)
+        kept["pix"].append(pyi[ent, pix] * width + pxi[ent, pix])
+        kept["entry"].append(ent + s)
+        for name, val in (("depth", depth), ("w0", w0), ("w1", w1), ("u", u)):
+            kept[name].append(val[ent, pix])
+    pix, entry, depth, w0, w1, u = (torch.cat(kept[k]) for k in ("pix", "entry", "depth", "w0", "w1", "u"))
+
+    npx = height * width
+    zbuf = torch.full((npx,), _NEG, device=dev).scatter_reduce_(0, pix, depth, "amax")
+    first = torch.full((npx,), e, dtype=torch.int64, device=dev)
+    at_max = depth == zbuf[pix]
+    first.scatter_reduce_(0, pix[at_max], entry[at_max], "amin")
+    win = at_max & (entry == first[pix])  # one pair per covered pixel
+    pix, entry, w0, w1, u = pix[win], entry[win], w0[win, None], w1[win, None], u[win, None]
+    ci = binning.corner_idx.to(torch.int64)
+    col = [colors[ci[k, entry], :3] for k in range(3)]
+    canvas = torch.zeros((npx, 3), device=dev)
+    canvas[pix] = w0 * col[0] + w1 * col[1] + u * col[2]
+    return canvas.reshape(height, width, 3)
+
+
+def bake_canvas_cuda(binning: BakeBinning, colors: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Launch K6: (V, C >= 3) float32 colors on the card -> (height, width,
+    3) float32, zero where no triangle covers the pixel."""
+    if colors.device.type != "cuda":
+        raise ValueError(f"the bake kernel needs a CUDA tensor, got {colors.device}")
+    if colors.dtype != torch.float32 or colors.dim() != 2 or colors.shape[1] < 3 or not colors.is_contiguous():
+        raise ValueError(f"colors must be contiguous float32 (V, C >= 3), got {colors.dtype} {tuple(colors.shape)}")
+    g, ci = binning.geom, binning.corner_idx
+    for name, a, dt in (("geom", g, torch.float32), ("corner_idx", ci, torch.int32),
+                        ("tile_ids", binning.tile_ids, torch.int32), ("start", binning.start, torch.int32),
+                        ("count", binning.count, torch.int32)):
+        if a.device != colors.device or a.dtype != dt or not a.is_contiguous():
+            raise ValueError(f"binning.{name} must be contiguous {dt} on {colors.device}, got {a.dtype} on {a.device}")
+    if -(-width // TILE) != binning.tiles_x or -(-height // TILE) != binning.tiles_y:
+        raise ValueError(f"a binning of {binning.tiles_x}x{binning.tiles_y} tiles cannot bake a {width}x{height} canvas")
+    m = binning.tile_ids.shape[0]
+    if m > 2**31 - 1 or g.shape[1] > 2**31 - 1:
+        raise ValueError("the bake kernel takes fewer than 2^31 tiles and entries")
+    out = torch.zeros((height, width, 3), device=colors.device)
+    fn = kernels.kernel("uv_bake")
+    stream = torch.cuda.current_stream(colors.device).cuda_stream
+    status = fn(
+        g.data_ptr(), ci.data_ptr(), g.shape[1], colors.data_ptr(), colors.shape[1],
+        binning.tile_ids.data_ptr(), binning.start.data_ptr(), binning.count.data_ptr(), m,
+        binning.tiles_x, width, height, out.data_ptr(), stream,
+    )
+    kernels.check(status, "uv_bake")
+    LAUNCHES["uv_bake"] += 1
+    return out
+
+
+def bake_canvas(binning: BakeBinning, colors: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """The bake of ``colors`` over ``binning``: K6 on CUDA, the plain
+    version on CPU -> (height, width, 3) float32."""
+    if colors.device.type == "cpu":
+        return bake_canvas_plain(binning, colors, height, width)
+    return bake_canvas_cuda(binning, colors.contiguous(), height, width)
+
+
+def bake_texture_tiled(
+    uv_px: Optional[np.ndarray],
+    tris: Optional[np.ndarray],
+    colors,
+    height: int,
+    width: int,
+    binning: Optional[BakeBinning] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Rasterize vertex colors over the UV canvas -> (H, W, 3) float32 on
+    ``device``, with no window limit: a triangle bins into every tile it
+    touches. With a per-sequence ``binning``, ``uv_px`` and ``tris`` may be
+    None."""
+    dev = resolve_device(device)
+    if binning is None:
+        binning = compute_bake_binning(uv_px, tris, height, width, device=dev)
+    return bake_canvas(binning, torch.as_tensor(colors, dtype=torch.float32, device=dev), height, width)

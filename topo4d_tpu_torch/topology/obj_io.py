@@ -1,5 +1,6 @@
-"""The startup mesh record and its UV bookkeeping (topology/obj_io.py
-``MeshObj``, ``vertex_uv_multiplicity``)."""
+"""The startup mesh record, its UV bookkeeping and the OBJ export
+(topology/obj_io.py ``MeshObj``, ``vertex_uv_multiplicity``,
+``write_obj_with_uv``)."""
 
 from __future__ import annotations
 
@@ -35,3 +36,21 @@ def vertex_uv_multiplicity(
         for v, t in zip(face, uv_face):
             per_vertex[v].add(tuple(np.round(uvs[t], 8)))
     return [sorted(s) for s in per_vertex]
+
+
+def write_obj_with_uv(
+    path: str,
+    vertices: np.ndarray,
+    faces: Sequence[Sequence[int]],
+    uvs: np.ndarray,
+    uv_faces: Sequence[Sequence[int]],
+) -> None:
+    """Write an OBJ with v / vt / f v/vt records (reference helpers.py:258-273),
+    faces in their original arity."""
+    with open(path, "w") as fh:
+        for v in vertices:
+            fh.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for uv in uvs:
+            fh.write(f"vt {uv[0]} {uv[1]}\n")
+        for face, uv_face in zip(faces, uv_faces):
+            fh.write("f" + "".join(f" {int(v) + 1}/{int(t) + 1}" for v, t in zip(face, uv_face)) + "\n")
