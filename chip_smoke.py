@@ -11,12 +11,16 @@ order; any failure raises and exits non-zero:
    the scene: the head grid and its dense mesh at density 5 (277,780 dense
    Gaussians, 546,028 dense triangles);
 3. kernels vs their plain PyTorch versions: K1/K2 at head scale (8,280
-   Gaussians, 375x512, one view) at max_span 4 and 2, full canvas and
-   compact, plus a saturated-window case in both modes; K5 at the dense
-   phase's (15, 2160, 3840) and the geometry phase's (15, 512, 375),
-   forward and backward; K6, the UV bake, at 8192x8192 on the dense mesh's
-   UVs, on coplanar overlapping triangles (first wins) and on a triangle
-   that spans many tiles;
+   Gaussians, 375x512, one view) at max_span 4, 2 and 8, full canvas and
+   compact, plus a saturated-window case in both modes, and at each of these
+   shapes (and at the 4K dense view 0 in phase 6) K4f/K4b, the window-span
+   pair behind ``variant="v3"``, at 4 and 8 rows per block: K4f's rows 0-5
+   equal to K1's bit for bit, K4b within K2's tolerance of the plain
+   gradient (and whether it equals K2 bit for bit); K5 at the dense phase's
+   (15, 2160, 3840) and the geometry phase's (15, 512, 375), forward and
+   backward; K6, the UV bake, at 8192x8192 on the dense mesh's UVs, on
+   coplanar overlapping triangles (first wins) and on a triangle that spans
+   many tiles;
 4. the main path, ``Trainer.run(resume=False)`` over 2 frames of a
    synthetic 24-view sequence into a directory under ``build/``, with the
    launch counters set to 0 just before it and read just after, and each
@@ -34,14 +38,26 @@ order; any failure raises and exits non-zero:
    ``run(resume=True)`` that does nothing;
 5. card against CPU: five "track" steps, and three texture steps at
    480x270 on a density-1 dense mesh;
-6. timings: K1, K2 and the plain blend at the geometry shapes and at one
-   4K dense view, there both compact and on the full canvas; K5, its plain
-   version and cuDNN's depthwise convolution at both blur shapes; K6 and its
-   plain version at 8192x8192 and the export's parts (host binning, the
-   uint8 conversion and copy to the host, PNG encode, OBJ write); each
-   kernel's bound; profiles of ten track steps and of ten dense steps,
-   compact and on the full canvas (device busy share, activities per step,
-   top kernels).
+6. timings: K1, K2, K4f/K4b (4 and 8 rows per block) and the plain blend at
+   the geometry shapes and at one 4K dense view, there both compact and on
+   the full canvas; K5, its plain version and cuDNN's depthwise convolution
+   at both blur shapes; K6 and its plain version at 8192x8192 and the
+   export's parts (host binning, the uint8 conversion and copy to the host,
+   PNG encode, OBJ write); each kernel's bound; profiles of ten track steps
+   and of ten dense steps, compact and on the full canvas (device busy
+   share, activities per step, top kernels);
+7. the v3 path: ten geometry steps at 375x512 and ten dense steps on the 4K
+   dense view 0 (its frozen compact binning) through ``variant="v3"``, each
+   beside the same steps through ``variant="auto"`` in turns (auto, v3, v3,
+   auto): equal losses, K4 launched and K1/K2 not on the v3 side and the
+   reverse on the auto side, ms per step of each;
+8. the batched all-views mode, a second ``Trainer.run(resume=False)`` over
+   2 frames with ``views_per_step`` 0 and the auto ``track_rebin_freq``
+   (25), geometry only (frame 0 cut to 240 init iterations, 10 batched
+   steps; frame 1 the full 1,100, 46 batched steps): K1/K2 24 times and K5
+   48 times per batched step, no K4, no plain version; the segments and
+   frozen binnings; a profile of one 3-step segment; three batched steps on
+   the card against the CPU.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -187,35 +203,25 @@ def pair_counts(packed, start, count, tiles_x, ids):
     return evaluated, contributing, entries
 
 
-def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, compact: bool = False):
-    """K1 and K2 against the plain version on the same inputs (full canvas
-    or the compact rows); asserts the JAX suite's tolerances and returns
-    (K1 max |err| on rows 0-4, K2 max |err| of the Gaussian gradients).
-    In compact mode also checks that the compact rows, scattered onto the
-    canvas, equal the full-canvas blend bit for bit, forward and backward."""
-    from topo4d_tpu_torch.core.gaussian import ALPHA_MAX, TRANSMITTANCE_MIN
-    from topo4d_tpu_torch.rasterizer.blend import PX, tile_blend_bwd_cuda, tile_blend_fwd_cuda
-    from topo4d_tpu_torch.rasterizer.tiles import FIELD_ROWS, fold_entry_grads
+V3_TPS = (4, 8)  # K4's rows per block: JAX's default and the other width scripts/probe_dense_v3.py sweeps
 
-    packed = bins.packed
-    start, count, ids = blend_rows(bins, binning, tiles_x, tiles_y, compact)
-    kid = ids if compact else None
-    out_k = tile_blend_fwd_cuda(packed, start, count, tiles_x, tiles_y, kid)
-    rng = np.random.default_rng(seed)
-    g_np = rng.normal(size=tuple(out_k.shape)).astype(np.float32)
-    g_np[:, 5:] = 0.0  # residual rows carry no gradient
-    g_out = torch.as_tensor(g_np, device=packed.device)
-    out_p, dp_p = plain_blend(packed, start, count, tiles_x, tiles_y, ids, g_out)
-    torch.cuda.synchronize()
-    # A pixel whose transmittance lands within rounding of the 1e-4 stop in
-    # one operation order (the kernel's sequential product, the plain
-    # version's cumprod scan) stops one entry apart in the two: its last
-    # contributor differs. Such pixels are counted (at most one per million)
-    # and the tolerance holds on every other pixel. On them, T_final differs
-    # by the weight of the entries one side blends and the other does not:
-    # at most 1e-4 / (1 - 0.99), the largest T at which one entry can cross
-    # the stop; rgb and depth differ by at most that weight times the
-    # largest feature, beyond the usual tolerance.
+
+def check_forward(out_k, out_p, packed, label: str):
+    """A forward kernel's rows 0-4 against the plain version's at the JAX
+    suite's tolerance -> (max |err| where both stop at the same entry,
+    pixels whose last contributor differs, max |err| on those).
+
+    A pixel whose transmittance lands within rounding of the 1e-4 stop in
+    one operation order (the kernel's sequential product, the plain
+    version's cumprod scan) stops one entry apart in the two: its last
+    contributor differs. Such pixels are counted (at most one per million)
+    and the tolerance holds on every other pixel. On them, T_final differs
+    by the weight of the entries one side blends and the other does not: at
+    most 1e-4 / (1 - 0.99), the largest T at which one entry can cross the
+    stop; rgb and depth differ by at most that weight times the largest
+    feature, beyond the usual tolerance."""
+    from topo4d_tpu_torch.core.gaussian import ALPHA_MAX, TRANSMITTANCE_MIN
+
     flip = out_k[:, 5] != out_p[:, 5]
     term_diff = int(flip.sum())
     if term_diff > max(1, flip.numel() // 10**6):
@@ -239,12 +245,47 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
                 f"{label}: a pixel that stops one entry apart differs by more than that entry's weight: "
                 f"T_final {float(d_t.max()):.3e}, rgb/depth {float(d_c.max()):.3e} (max |feature| {feat:.3e})"
             )
+    return fwd_err, term_diff, flip_err
 
-    dp_k = tile_blend_bwd_cuda(packed, start, count, out_k, g_out, tiles_x, tiles_y, kid)
+
+def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, compact: bool = False):
+    """K1 and K2, then K4f and K4b at each of ``V3_TPS``, against the plain
+    version on the same inputs (full canvas or the compact rows); asserts
+    the JAX suite's tolerances (forward rtol 1e-4 / atol 1e-5, gradients
+    max-scaled rtol 2e-3 / atol 2e-5) and that K4f's rows 0-5 equal K1's bit
+    for bit -> (K1 max |err| on rows 0-4, K2 max |err| of the Gaussian
+    gradients, the same two for K4 over its widths). In compact mode also
+    checks that the compact rows, scattered onto the canvas, equal the
+    full-canvas blend bit for bit, forward and backward."""
+    from topo4d_tpu_torch.rasterizer.blend import (
+        PX,
+        tile_blend_bwd_cuda,
+        tile_blend_fwd_cuda,
+        tile_blend_v3_bwd_cuda,
+        tile_blend_v3_fwd_cuda,
+    )
+    from topo4d_tpu_torch.rasterizer.tiles import FIELD_ROWS, fold_entry_grads
+
+    packed = bins.packed
+    start, count, ids = blend_rows(bins, binning, tiles_x, tiles_y, compact)
+    kid = ids if compact else None
+    out_k = tile_blend_fwd_cuda(packed, start, count, tiles_x, tiles_y, kid)
+    rng = np.random.default_rng(seed)
+    g_np = rng.normal(size=tuple(out_k.shape)).astype(np.float32)
+    g_np[:, 5:] = 0.0  # residual rows carry no gradient
+    g_out = torch.as_tensor(g_np, device=packed.device)
+    out_p, dp_p = plain_blend(packed, start, count, tiles_x, tiles_y, ids, g_out)
+    torch.cuda.synchronize()
+    fwd_err, term_diff, flip_err = check_forward(out_k, out_p, packed, label)
+
     rows = list(FIELD_ROWS)
     e = binning.sorted_gid.shape[0]
-    gk = fold_entry_grads(dp_k[rows, :e], binning.entry_valid, binning.inv_positions)
-    gp = fold_entry_grads(dp_p[rows, :e], binning.entry_valid, binning.inv_positions)
+
+    def gaussian_grads(dp):
+        return fold_entry_grads(dp[rows, :e], binning.entry_valid, binning.inv_positions)
+
+    dp_k = tile_blend_bwd_cuda(packed, start, count, out_k, g_out, tiles_x, tiles_y, kid)
+    gk, gp = gaussian_grads(dp_k), gaussian_grads(dp_p)
     scale = float(gp.abs().max().clamp(min=1e-8))
     bwd_err = float((gk - gp).abs().max())
     torch.testing.assert_close(gk / scale, gp / scale, rtol=2e-3, atol=2e-5)
@@ -270,7 +311,30 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
         f"last contributor differs {term_diff} (max|err| there {flip_err:.3e}); K2 max|err| {bwd_err:.3e} of the "
         f"Gaussian gradients, max|grad| {scale:.3e}, ratio {bwd_err / scale:.3e}{extra}"
     )
-    return fwd_err, bwd_err
+
+    v3_fwd_err = v3_bwd_err = 0.0
+    for tps in V3_TPS:
+        out_v = tile_blend_v3_fwd_cuda(packed, start, count, tiles_x, tiles_y, kid, tps)
+        dp_v = tile_blend_v3_bwd_cuda(packed, start, count, out_v, g_out, tiles_x, tiles_y, kid, tps)
+        torch.cuda.synchronize()
+        differ = int((out_v[:, :6] != out_k[:, :6]).sum())
+        if differ:
+            raise AssertionError(f"{label}: K4f (tps {tps}) differs from K1 in {differ} values of rows 0-5")
+        if out_v[:, 6:].abs().max() != 0:
+            raise AssertionError(f"{label}: K4f (tps {tps}) wrote rows 6-7")
+        f_err = check_forward(out_v, out_p, packed, f"{label}, K4f tps {tps}")[0]
+        gv = gaussian_grads(dp_v)
+        b_err = float((gv - gp).abs().max())
+        torch.testing.assert_close(gv / scale, gp / scale, rtol=2e-3, atol=2e-5)
+        k2_differ = int((dp_v != dp_k).sum())
+        log(
+            f"{label}, K4 tps {tps}: K4f rows 0-5 equal K1 bit for bit (0 of {out_k[:, :6].numel()} values "
+            f"differ), max|err| {f_err:.3e} vs plain; K4b max|err| {b_err:.3e} of the Gaussian gradients, ratio "
+            f"{b_err / scale:.3e}; dpacked values that differ from K2's: {k2_differ} of {dp_k.numel()} (bit for "
+            f"bit: {k2_differ == 0})"
+        )
+        v3_fwd_err, v3_bwd_err = max(v3_fwd_err, f_err), max(v3_bwd_err, b_err)
+    return fwd_err, bwd_err, v3_fwd_err, v3_bwd_err
 
 
 def compare_blur(shape, seed):
@@ -477,7 +541,7 @@ def phase_kernels():
     params_np, cams, _ = make_head_fixture(device=DEVICE)
     rv = activate_params(params_from_numpy(params_np, DEVICE))
     errs = {}
-    for span in (4, 2):
+    for span in (4, 2, 8):  # 8: several of K4's batches per block (tests/test_rasterizer_pallas.py:302)
         bins, binning, tx, ty = pack_view(rv, cams[0], span)
         errs[span] = compare_kernels(bins, binning, tx, ty, f"head scale, max_span {span}", seed=span)
     counts = pack_view(rv, cams[0], 4)[0].tile_count
@@ -488,9 +552,10 @@ def phase_kernels():
     cam = make_synthetic_camera(width=64, height=48, device=DEVICE)
     rv_sat = activate_params(params_from_numpy(saturated_scene(), DEVICE))
     bins, binning, tx, ty = pack_view(rv_sat, cam, 8)
-    compare_kernels(bins, binning, tx, ty, "saturated windows", seed=6)
+    errs["saturated"] = compare_kernels(bins, binning, tx, ty, "saturated windows", seed=6)
     bins, binning, tx, ty = pack_view(rv_sat, cam, 8, capacity=int((bins.tile_count > 0).sum()) + 2)
-    compare_kernels(bins, binning, tx, ty, "saturated windows, compact", seed=7, compact=True)
+    errs["saturated compact"] = compare_kernels(bins, binning, tx, ty, "saturated windows, compact", seed=7,
+                                                compact=True)
 
     errs["blur"] = max(compare_blur((15, FULL_H, FULL_W), 1), compare_blur((15, 512, 375), 2))
     return errs
@@ -656,7 +721,8 @@ def phase_run(cfg, src, trainer, scene):
     evals = sum("tex_psnr_fixed" in r for p in parts if p["kind"] == "texture" for r in p["rows"])
     check_counts(counts, "Trainer.run", {
         "tile_blend_fwd": n_steps + evals, "tile_blend_bwd": n_steps, "gauss_blur": 2 * n_steps,
-        "uv_bake": FRAMES, "tile_blend_plain": 0, "gauss_blur_plain": 0, "uv_bake_plain": 0,
+        "uv_bake": FRAMES, "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "tile_blend_plain": 0,
+        "gauss_blur_plain": 0, "uv_bake_plain": 0,
     })
     log(
         f"Trainer.run, {FRAMES} frames: {wall:.3f} s; launches {counts}; timings.json "
@@ -870,9 +936,12 @@ def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, pla
     """K1 and K2 on one view's rows (every tile of the canvas, or the
     compact list): the kernels' times, K2's wrapper with its dpacked
     zero-fill and the fill alone, the plain version's forward and forward
-    plus autograd backward, and this run's bounds -> {"fwd": ..., "bwd": ...}."""
+    plus autograd backward, and this run's bounds; then K4f and K4b (the
+    same work, so the same bounds) at each of ``V3_TPS``, K4b like K2
+    without its wrapper's zero-fill -> {"fwd": ..., "bwd": ..., "v3": {tps:
+    {"fwd_ms", "bwd_ms"}}}."""
     from topo4d_tpu_torch import kernels
-    from topo4d_tpu_torch.rasterizer.blend import tile_blend_bwd_cuda, tile_blend_fwd_cuda
+    from topo4d_tpu_torch.rasterizer.blend import tile_blend_bwd_cuda, tile_blend_fwd_cuda, tile_blend_v3_fwd_cuda
 
     packed = bins.packed
     start, count, ids = blend_rows(bins, binning, tx, ty, compact)
@@ -896,15 +965,28 @@ def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, pla
     ms_plain_fwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids), iters=plain_iters, warmup=1)
     ms_plain_bwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids, g_out), iters=plain_iters, warmup=1)
     bf, byf, bb, byb = blend_bounds(packed, start, count, tx, ids, out, compact)
+    k4b = kernels.kernel("tile_blend_v3_bwd")
+    v3 = {}
+    for tps in V3_TPS:
+        fwd_ms = cuda_ms(lambda: tile_blend_v3_fwd_cuda(packed, start, count, tx, ty, kid, tps), iters=iters)
+        k4b_args = k2_args[:7] + (tps,) + k2_args[7:]
+        bwd_ms = cuda_ms(lambda: kernels.check(k4b(*k4b_args), "tile_blend_v3_bwd"), iters=iters)
+        v3[tps] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+    v3_msg = "; ".join(
+        f"K4 tps {tps}: K4f {v['fwd_ms']:.4f} ms ({100 * bf / v['fwd_ms']:.1f}% of the bound, {v['fwd_ms'] / ms_fwd:.2f}x "
+        f"K1), K4b {v['bwd_ms']:.4f} ms ({100 * bb / v['bwd_ms']:.1f}%, {v['bwd_ms'] / ms_bwd:.2f}x K2)"
+        for tps, v in v3.items()
+    )
     log(
         f"timing, {label} ({int((count > 0).sum())} non-empty of {start.shape[0]} rows, {tx * ty} tiles; "
         f"E_pad {packed.shape[1]}, entries in ranges {int(count.sum())}): K1 {ms_fwd:.4f} ms (bound {bf:.4f} ms, "
         f"{byf}, {100 * bf / ms_fwd:.1f}%), K2 {ms_bwd:.4f} ms (bound {bb:.4f} ms, {byb}, {100 * bb / ms_bwd:.1f}%); "
         f"K2 wrapper with its dpacked zero-fill {ms_bwd_wrapper:.4f} ms, zero-fill alone ({packed.numel() * 4} B) "
         f"{ms_zero:.4f} ms; plain fwd {ms_plain_fwd:.3f} ms, plain fwd+bwd {ms_plain_bwd:.3f} ms "
-        f"({ROWS_PER_CHUNK} rows per call)"
+        f"({ROWS_PER_CHUNK} rows per call); {v3_msg}"
     )
     return {
+        "v3": v3,
         "fwd": {"ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf},
         "bwd": {"ms": ms_bwd, "plain_ms": ms_plain_bwd, "bound_ms": bb, "bound_by": byb,
                 "wrapper_ms": ms_bwd_wrapper, "zero_fill_ms": ms_zero},
@@ -1083,16 +1165,250 @@ def phase_profile_dense(trainer, frame_full, steps: int = 10):
     return out
 
 
-def kernel_rows(run, errs, geo_timing, blend4k, blur, bake):
+def phase_v3(trainer, frames, steps: int = 10):
+    """The v3 path: ``steps`` geometry steps at 375x512 through a render_fn
+    that passes ``variant="v3"``, and ``steps`` dense texture steps on the
+    4K dense view 0 through its frozen compact binning
+    (scripts/probe_dense_v3.py:79-86), each beside the same steps through
+    ``variant="auto"`` from the same state, in turns (auto, v3, v3, auto):
+    the losses equal within rtol 1e-5; K4 and no K1/K2 launched on the v3
+    side, the reverse on the auto side; then a profile of each variant's
+    steps -> {path: {variant: ms per step},
+    "counts": the first v3 run's launches per path}."""
+    from topo4d_tpu_torch.opt.step import make_geometry_step
+    from topo4d_tpu_torch.pipeline.data import view_order
+    from topo4d_tpu_torch.rasterizer.render import render_gaussians
+    from topo4d_tpu_torch.texture.dense import dense_rendervars, make_texture_step
+
+    cfg, st = trainer.cfg, trainer.statics
+    span = cfg.raster.max_span
+    bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=DEVICE)
+    n = trainer.state.params["means3D"].shape[0]
+    last_geo, last_tex = frames[FRAMES]
+    geo_images = torch.as_tensor(last_geo.images, device=DEVICE)
+    cams, cams_full = trainer.source.cameras, trainer.source.cameras_full
+    order = [int(v) for v in view_order(24, steps, seed=5)]
+    geo_args = (trainer._constraints("track"), trainer.lrs_for("track"), trainer.weights_for("track"), "track")
+    rv = dense_rendervars(trainer.texture_state.params, trainer.dense_means3d)
+    binning = pack_view(rv, cams_full[0], span, trainer._auto_tile_cap, with_static=True)[1]
+    tex_image = torch.as_tensor(last_tex.images[0], device=DEVICE)
+    tex_args = (trainer.dense_anchor, trainer._dense_pre, dict(cfg.lrs.dense), cfg.dense_weights.as_dict(), binning)
+
+    def geo_step(variant):
+        def render(rv, cam):
+            return render_gaussians(rv, cam, bg=bg, max_span=span, variant=variant)
+
+        step = make_geometry_step(st.quadruples, st.umbrellas, render, n, ring_indices=st.ring.indices, device=DEVICE)
+
+        def run():
+            state, priors, losses = trainer.state, trainer.priors, []
+            for vid in order:
+                state, priors, m = step(state, geo_images[vid], cams, vid, priors, *geo_args, with_metrics=False)
+                losses.append(m["loss_total"])
+            return losses
+
+        return run
+
+    def tex_step(variant):
+        def render(rv, cam, b):
+            return render_gaussians(rv, cam, bg=bg, max_span=span, binning=b, variant=variant)
+
+        step = make_texture_step(render)
+
+        def run():
+            state, losses = trainer.texture_state, []
+            for _ in range(steps):
+                state, m = step(state, trainer.dense_means3d, tex_image, cams_full, 0, *tex_args, with_metrics=False)
+                losses.append(m["loss_total"])
+            return losses
+
+        return run
+
+    kernels_of = {"auto": ("tile_blend_fwd", "tile_blend_bwd"), "v3": ("tile_blend_v3_fwd", "tile_blend_v3_bwd")}
+    out = {"counts": {}}
+    for path, make in (("geometry", geo_step), (f"dense {FULL_W}x{FULL_H} view 0", tex_step)):
+        runs = {v: make(v) for v in ("auto", "v3")}
+        losses, ms = {}, {"auto": [], "v3": []}
+        for variant in ("auto", "v3", "v3", "auto"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = runs[variant]()
+            torch.cuda.synchronize()
+            ms[variant].append((time.perf_counter() - t0) / steps * 1e3)
+            counts = read_counts()
+            other = "v3" if variant == "auto" else "auto"
+            check_counts(counts, f"v3 path, {path}, {variant}", {
+                kernels_of[variant][0]: steps, kernels_of[variant][1]: steps,
+                kernels_of[other][0]: 0, kernels_of[other][1]: 0, "tile_blend_plain": 0, "gauss_blur_plain": 0,
+            })
+            if variant == "v3" and path not in out["counts"]:
+                out["counts"][path] = counts
+            got = torch.stack(got).cpu().numpy()
+            if variant in losses:
+                np.testing.assert_array_equal(got, losses[variant])  # the same variant twice: deterministic
+            losses[variant] = got
+        np.testing.assert_allclose(losses["v3"], losses["auto"], rtol=1e-5)
+        rel = float(np.max(np.abs(losses["v3"] - losses["auto"]) / np.abs(losses["auto"])))
+        out[path] = {v: float(np.mean(t)) for v, t in ms.items()}
+        for variant in ("auto", "v3"):  # where a variant's step time goes
+            device_profile(runs[variant], steps, f"v3 path, {path}, {variant}",
+                           ("tile_blend_fwd_kernel", "tile_blend_bwd_kernel", "tile_blend_v3_fwd_kernel",
+                            "tile_blend_v3_bwd_kernel", "gauss_blur_kernel"))
+        log(
+            f"v3 path, {steps} {path} steps: auto (K1/K2) {out[path]['auto']:.3f} ms/step "
+            f"({', '.join(f'{t:.3f}' for t in ms['auto'])}), v3 (K4f/K4b, tps {V3_TPS[0]}) {out[path]['v3']:.3f} "
+            f"ms/step ({', '.join(f'{t:.3f}' for t in ms['v3'])}); losses {losses['auto'][0]:.6f} -> "
+            f"{losses['auto'][-1]:.6f}, v3 against auto max rel diff {rel:.2e} (equal: "
+            f"{bool(np.array_equal(losses['v3'], losses['auto']))}); launches of a v3 run {out['counts'][path]}"
+        )
+    return out
+
+
+BATCHED_INIT_ITERS = 240  # frame 0 of the batched run: 10 batched steps of 24 views
+BATCHED_OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_batched")
+
+
+def phase_batched(cfg, src, trainer, scene, frames):
+    """The batched all-views mode at full width: ``Trainer.run(resume=False)``
+    over ``FRAMES`` frames with ``views_per_step`` 0 and the auto
+    ``track_rebin_freq`` (25), geometry only (the dense phase is the parity
+    run's); K1/K2 24 times and K5 48 times per batched step, no K4, no
+    plain version, no eval render; then a profile of three batched steps
+    (one segment with frozen binnings) and three batched steps on the card
+    against the CPU from the trained state."""
+    import copy
+
+    from topo4d_tpu_torch.config import effective_track_rebin_freq
+    from topo4d_tpu_torch.opt.adam import AdamState
+    from topo4d_tpu_torch.opt.step import TrainState
+    from topo4d_tpu_torch.parallel.batched import make_batched_geometry_step
+    from topo4d_tpu_torch.pipeline.scene import build_constraints
+    from topo4d_tpu_torch.pipeline.trainer import Trainer, make_render_fn
+
+    bcfg = copy.deepcopy(cfg)
+    bcfg.data.output_dir = BATCHED_OUT_DIR
+    bcfg.schedule.views_per_step = 0
+    bcfg.schedule.init_opt_num = BATCHED_INIT_ITERS
+    bcfg.texture.gen_tex = False
+    shutil.rmtree(BATCHED_OUT_DIR, ignore_errors=True)
+    _, _, _, params_np = scene
+    tr = Trainer(bcfg, src, params_np, trainer.statics, device=DEVICE)
+    parts = instrument(tr)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.run(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    views = src.num_views
+    total = 0
+    for part in parts:
+        if part["kind"] != "geometry":
+            raise AssertionError(f"the batched run without gen_tex ran a {part['kind']} fit")
+        t, rows, m = part["frame"], part["rows"], part["last"]
+        nb = tr.batched_schedule(t, views)[0]
+        total += nb
+        check_rows(rows)
+        check_counts(part["counts"], f"batched geometry frame {t}", {
+            "tile_blend_fwd": views * nb, "tile_blend_bwd": views * nb, "gauss_blur": 2 * views * nb,
+            "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "tile_blend_plain": 0, "gauss_blur_plain": 0,
+        })
+        part["steps"] = nb
+        log(
+            f"batched geometry frame {t} ({'init' if t == 0 else 'track'}, {nb} batched steps of {views} views): "
+            f"{part['wall']:.3f} s, {part['wall'] / nb * 1e3:.3f} ms per batched step; loss "
+            f"{rows[0]['loss_total']:.6f} -> {m['loss_total']:.6f}, psnr {rows[0]['psnr']:.3f} -> {m['psnr']:.3f}; "
+            f"launches {part['counts']}"
+        )
+        if t > 0 and not rows[-1]["loss_total"] < rows[0]["loss_total"]:
+            raise AssertionError(f"batched tracked frame's loss did not fall: {rows[0]} -> {rows[-1]}")
+    check_counts(counts, "batched Trainer.run", {
+        "tile_blend_fwd": views * total, "tile_blend_bwd": views * total, "gauss_blur": 2 * views * total,
+        "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "uv_bake": 0, "tile_blend_plain": 0,
+        "gauss_blur_plain": 0, "uv_bake_plain": 0,
+    })
+    segments = len(tr.geo_segments)
+    frozen = segments * views if tr._binnings_fn is not None else 0
+    geo = parts[-1]
+    log(
+        f"batched Trainer.run, {FRAMES} frames: {wall:.3f} s; {total} batched steps; {segments} segments (steps "
+        f"{[s[2] - s[1] for s in tr.geo_segments]}), {frozen} frozen per-view binnings (track_rebin_freq "
+        f"{effective_track_rebin_freq(bcfg)}); eval renders 0; launches {counts}"
+    )
+    out = {
+        "counts": counts, "wall": wall, "parts": parts, "tracked_frame_s": geo["wall"],
+        "ms_per_step": geo["wall"] / geo["steps"] * 1e3, "psnr": geo["last"]["psnr"], "segments": segments,
+        "frozen_binnings": frozen,
+    }
+
+    # a profile of one segment of three batched steps with frozen binnings
+    last_geo = frames[FRAMES][0]
+    images = torch.as_tensor(last_geo.images, device=DEVICE)
+    args = (tr._constraints("track"), tr.lrs_for("track"), tr.weights_for("track"), "track")
+
+    def segment():
+        tr.batched_multi_step(tr.state, images, src.cameras, tr.priors, *args, 3)
+
+    segment()  # warm
+    out["profile"] = device_profile(segment, 3, "batched (one 3-step segment, frozen binnings)",
+                                    ("tile_blend_fwd_kernel", "tile_blend_bwd_kernel", "gauss_blur_kernel"))
+
+    # card against CPU: three batched steps from the trained state
+    st = tr.statics
+    n = tr.state.params["means3D"].shape[0]
+    cpu_step = make_batched_geometry_step(
+        st.quadruples, st.umbrellas, make_render_fn(bcfg, "cpu"), n, ring_indices=st.ring.indices, device="cpu"
+    )
+    steps = 3
+    res = {}
+    t0 = time.perf_counter()
+    for dev, step, cm, con in (
+        (DEVICE, tr.batched_step, src.cameras, tr._constraints("track")),
+        ("cpu", cpu_step, camera_to(src.cameras, "cpu"),
+         build_constraints("track", tr.params0, st.regions, tr.first_frame_attrs, "cpu")),
+    ):
+        state = TrainState(
+            params=to_device(tr.state.params, dev),
+            opt=AdamState(dict(tr.state.opt.step), to_device(tr.state.opt.mu, dev), to_device(tr.state.opt.nu, dev)),
+            max_2d_radius=to_device(tr.state.max_2d_radius, dev),
+        )
+        priors = to_device(tr.priors, dev)
+        imgs = images.to(dev)
+        losses = []
+        for _ in range(steps):
+            state, priors, m = step(state, imgs, cm, priors, con, args[1], args[2], "track")
+            losses.append(float(m["loss_total"]))
+        res[dev] = (losses, {k: v.cpu() for k, v in state.params.items()})
+    lc, lg = np.array(res["cpu"][0]), np.array(res[DEVICE][0])
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    lr = args[1]
+    worst = [assert_leaf_close(k, res[DEVICE][1][k], pc, 2 * lr[k] * steps) for k, pc in res["cpu"][1].items()]
+    log(
+        f"card vs CPU, {steps} batched track steps of {views} views ({time.perf_counter() - t0:.1f} s): loss rel err "
+        f"{float(np.max(np.abs(lg - lc) / np.abs(lc))):.2e}; " + "; ".join(worst)
+    )
+    shutil.rmtree(BATCHED_OUT_DIR, ignore_errors=True)
+    return out
+
+
+def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
-    bake), the geometry shapes' numbers beside them; launches over the whole
-    ``Trainer.run``, and by part (the export's K6 launches are the run's)."""
+    bake), the geometry shapes' numbers beside them; launches over each
+    path's run with the counts set to 0 just before it: the parity
+    ``Trainer.run`` (K1/K2, K5, K6), by part, and the batched one; K4's over
+    the v3 path (the first v3 run of its geometry and dense steps)."""
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
+    by_part.update({f"batched geometry frame {p['frame']}": p["counts"] for p in batched["parts"]})
 
     def by_path(name):
         return {part: c[name] for part, c in by_part.items()}
+
+    def max_err(i):  # over every K1/K2/K4 comparison (the 4-tuples of compare_kernels)
+        return max(e[i] for e in errs.values() if isinstance(e, tuple))
 
     big, small = blur[(15, FULL_H, FULL_W)], blur[(15, 512, 375)]
     rows = []
@@ -1100,14 +1416,30 @@ def kernel_rows(run, errs, geo_timing, blend4k, blur, bake):
         ("tile_blend_fwd", "fwd", "blend_fwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:317"),
         ("tile_blend_bwd", "bwd", "blend_bwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:942"),
     ):
-        i = 0 if key == "fwd" else 1
         t = blend4k[key]
         rows.append({
             "name": name, "route": "cuda", "source": f"topo4d_tpu_torch/csrc/{src}", "replaces": tpu,
             "launches": counts[name], "launches_by_path": by_path(name),
-            "max_abs_err": max(errs[4][i], errs[2][i], errs["compact"][i], errs["dense"][i]),
+            "max_abs_err": max_err(0 if key == "fwd" else 1),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": "4K dense view 0, compact", "geometry_shape": geo_timing[key],
+        })
+    tps0 = V3_TPS[0]
+    for name, key, src, tpu in (
+        ("tile_blend_v3_fwd", "fwd", "blend_v3_fwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:543"),
+        ("tile_blend_v3_bwd", "bwd", "blend_v3_bwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:683"),
+    ):
+        t = blend4k[key]  # the same work as K1/K2: their bounds and plain version
+        rows.append({
+            "name": name, "route": "cuda", "source": f"topo4d_tpu_torch/csrc/{src}", "replaces": tpu,
+            "launches": sum(c[name] for c in v3["counts"].values()),
+            "launches_by_path": {f"v3 path, {path}": c[name] for path, c in v3["counts"].items()},
+            "max_abs_err": max_err(2 if key == "fwd" else 3),
+            "ms": blend4k["v3"][tps0][f"{key}_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": f"4K dense view 0, compact, tps {tps0}",
+            "ms_by_tps": {str(tps): v[f"{key}_ms"] for tps, v in blend4k["v3"].items()},
+            "geometry_shape": {"bound_ms": geo_timing[key]["bound_ms"], "bound_by": geo_timing[key]["bound_by"],
+                               "ms_by_tps": {str(tps): v[f"{key}_ms"] for tps, v in geo_timing["v3"].items()}},
         })
     rows.append({
         "name": "gauss_blur", "route": "cuda", "source": "topo4d_tpu_torch/csrc/blur.cu",
@@ -1171,15 +1503,21 @@ def main() -> int:
     bake = phase_bake_timing(trainer, bake_inputs)
     phase_profile(trainer, last_geo)
     dense = phase_profile_dense(trainer, last_tex)
+    v3 = phase_v3(trainer, frames)
+    batched = phase_batched(cfg, src, trainer, scene, frames)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
-        f"final tex_psnr_fixed {run['psnr_fixed']:.3f}; peak device memory "
+        f"final tex_psnr_fixed {run['psnr_fixed']:.3f}; batched mode: s per tracked frame "
+        f"{batched['tracked_frame_s']:.3f} ({batched['parts'][-1]['steps']} batched steps), ms per batched step "
+        f"{batched['ms_per_step']:.3f}, busy {batched['profile'][1]:.3f} ms per step in a frozen-binning segment "
+        f"({100 * batched['profile'][1] / batched['profile'][0]:.1f}% busy), psnr {batched['psnr']:.3f}; "
+        f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(run, errs, geo_timing, blend4k, blur, bake)}))
+    print(json.dumps({"kernels": kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

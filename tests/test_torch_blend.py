@@ -100,7 +100,10 @@ def test_tile_blend_dispatches_cpu_tensors_to_the_plain_version():
     args = _torch_args(bins)
     reset_launches()
     out = tile_blend(*args, tx, ty)
-    assert LAUNCHES == {"tile_blend_fwd": 0, "tile_blend_bwd": 0, "tile_blend_plain": 1}
+    assert LAUNCHES == {
+        "tile_blend_fwd": 0, "tile_blend_bwd": 0, "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0,
+        "tile_blend_plain": 1,
+    }
     torch.testing.assert_close(out, tile_blend_plain(*args, tx, ty))
 
 

@@ -1,18 +1,19 @@
-"""PyTorch + CUDA port of ``topo4d_tpu`` (slices 1-3: parity-mode geometry
-tracking, the dense texture phase, and the per-frame export through
-``Trainer.run``).
+"""PyTorch + CUDA port of ``topo4d_tpu`` (slices 1-4: parity-mode geometry
+tracking, the dense texture phase, the per-frame export through
+``Trainer.run``, and the batched all-views geometry mode with its segmented
+multi-steps and frozen binnings; the renderer's ``variant`` argument).
 
 The JAX package beside this one is the reference; this package mirrors its
-layout (``core/``, ``rasterizer/``, ``losses/``, ``opt/``, ``topology/``,
-``texture/``, ``pipeline/``) and keeps its public layouts (images (C, H, W), packed
+layout (``core/``, ``rasterizer/``, ``losses/``, ``opt/``, ``parallel/``,
+``topology/``, ``texture/``, ``pipeline/``) and keeps its public layouts (images (C, H, W), packed
 entries (16, E_pad), one-ring tables (K, N)) so that tests compare like with
 like. It imports neither JAX nor the JAX package.
 
 Device rule: every entry point takes ``device`` and defaults to ``"cuda"``;
 it raises when no card is present and never falls back to the CPU. The tile
-blend, the SSIM blur and the UV bake run the hand-written CUDA kernels
-(``csrc/``) on CUDA tensors and their plain PyTorch versions only on CPU
-tensors.
+blend (K1/K2, or K4f/K4b under ``variant="v3"``), the SSIM blur and the UV
+bake run the hand-written CUDA kernels (``csrc/``) on CUDA tensors and their
+plain PyTorch versions only on CPU tensors.
 
 Contract paths run in float32 with TF32 off (cuBLAS and cuDNN).
 """

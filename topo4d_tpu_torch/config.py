@@ -1,5 +1,6 @@
-"""The subset of ``topo4d_tpu.config`` that the geometry tracking path, the
-dense texture phase and the per-frame export read.
+"""The subset of ``topo4d_tpu.config`` that the geometry tracking path (parity
+and batched all-views modes), the dense texture phase and the per-frame
+export read.
 
 Same field names and defaults as the reference's dataclasses; learning rates
 and loss weights stay host floats (they are passed to the step as Python
@@ -84,6 +85,24 @@ class LearningRates:
 class RasterizerConfig:
     max_span: int = 4  # tiles per axis per Gaussian before cropping
     bg: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # geometry-phase frozen binning: a segment of identically configured
+    # steps computes each view's binning once at its entry and every step
+    # packs along those permutations; the value caps the segment length.
+    # 0 = off (a fresh binning every render, the reference's semantics),
+    # -1 = auto (0 in parity mode, 25 in the batched all-views mode); an
+    # explicit value >= 0 wins. Resolve with ``effective_track_rebin_freq``.
+    track_rebin_freq: int = -1
+
+
+def effective_track_rebin_freq(cfg: "Config") -> int:
+    """Resolve ``raster.track_rebin_freq`` (-1 = auto, mode-dependent): 0 in
+    parity mode (``schedule.views_per_step == 1``, the reference's fresh
+    sort every render), 25 in the batched all-views mode. Explicit values
+    (>= 0) win."""
+    f = cfg.raster.track_rebin_freq
+    if f >= 0:
+        return f
+    return 0 if cfg.schedule.views_per_step == 1 else 25
 
 
 @dataclasses.dataclass
@@ -100,7 +119,17 @@ class ScheduleConfig:
     log_freq: int = 500
     dense_log_freq: int = 300
     ckp_freq: int = 5  # params.npz every ckp_freq frames (resume.pkl every frame)
-    views_per_step: int = 1  # 1 = reference parity (the only mode ported)
+    views_per_step: int = 1  # 1 = reference parity; 0 = all views batched per step
+    # batched mode (views_per_step == 0) steps per frame; 0 = auto
+    # (ceil(num_iters / num_views): every step consumes all views)
+    batched_opt_num: int = 0
+    # run each segment of identically configured steps through the
+    # multi-step (the JAX package scans it into one program; here it is a
+    # Python loop with the same semantics, and the unit that frozen
+    # binnings live for)
+    use_scan: bool = True
+    # render all views of a batched step in one fused launch: not ported
+    fuse_views: bool = False
     # run a frame's checkpoint and export on a worker thread while the next
     # frame fits; at most one frame's IO in flight
     async_export: bool = True
@@ -154,3 +183,15 @@ class Config:
     rot_region_multipliers: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict(ROT_REGION_MULTIPLIERS)
     )
+
+
+def check_schedule(cfg: Config) -> None:
+    """Raise on schedule settings the port does not run: ``views_per_step``
+    other than 1 or 0 (the JAX package has only these two) and
+    ``fuse_views``."""
+    if cfg.schedule.views_per_step not in (0, 1):
+        raise ValueError(
+            f"schedule.views_per_step must be 1 (parity) or 0 (all views batched), got {cfg.schedule.views_per_step}"
+        )
+    if cfg.schedule.fuse_views:
+        raise NotImplementedError("schedule.fuse_views (one fused multi-view launch) is not ported")

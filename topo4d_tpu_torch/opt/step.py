@@ -9,6 +9,10 @@ Phases:
 One step is eager PyTorch: a forward, one ``torch.autograd.grad`` and a
 no-grad update. Loss weights and learning rates are host floats and the
 view id a host int, so a step reads nothing back from the card.
+
+``make_geometry_multi_step`` runs a segment of identically configured
+steps (the JAX package's scan); with frozen binnings it bins each view once
+at the segment's entry and every step packs along its view's permutation.
 """
 
 from __future__ import annotations
@@ -135,25 +139,45 @@ def build_topo_losses(
     return topo
 
 
-def make_geometry_step(
+def update_state(
+    state: TrainState,
+    params: Dict[str, torch.Tensor],
+    total: torch.Tensor,
+    radii: torch.Tensor,
+    constraints: Sequence[DenseConstraint],
+    lr: Dict[str, float],
+) -> TrainState:
+    """Adam on the gradient of ``total`` with respect to ``params`` (the
+    leaves of ``state.params`` made differentiable), the constraint writes,
+    and ``max_2d_radius`` raised where ``radii`` saw a Gaussian."""
+    keys = list(params)
+    g = torch.autograd.grad(total, [params[k] for k in keys], allow_unused=True)
+    grads = {k: gk if gk is not None else torch.zeros_like(params[k]) for k, gk in zip(keys, g)}
+    new_params, new_opt = adam_update(state.params, grads, state.opt, lr)
+    new_params = apply_constraints(new_params, constraints)
+    with torch.no_grad():
+        max_radius = torch.where(
+            radii > 0, torch.maximum(radii.to(torch.float32), state.max_2d_radius), state.max_2d_radius
+        )
+    return TrainState(params=new_params, opt=new_opt, max_2d_radius=max_radius)
+
+
+def _build_step_impl(
     quadruples: Dict[str, DihedralQuadruples],
     umbrellas: Dict[str, UmbrellaFlatten],
     render_fn: Callable[[GaussianRenderVars, Camera], object],
     num_vertices: int,
     ring_indices: Optional[np.ndarray] = None,
     device="cuda",
+    binned_render_fn: Optional[Callable] = None,
 ) -> Callable:
-    """The single-iteration geometry step. ``render_fn(rv, cam) -> RenderOutput``.
-
-    Returns ``step(state, gt, cams, view_id, priors, constraints, lr,
-    weights, phase, with_metrics) -> (state, priors, metrics)``; metrics are
-    detached 0-d tensors (PSNR only ``with_metrics``).
-    """
+    """The step body; ``binned_render_fn(rv, cam, binning)`` renders along a
+    frozen binning when the step is given one."""
     topo = build_topo_losses(quadruples, umbrellas, num_vertices, ring_indices, device)
 
-    def loss_fn(params, gt, cam, view_id: int, priors, weights, phase):
+    def loss_fn(params, gt, cam, view_id: int, priors, weights, phase, binning=None):
         rv = activate_params(params)
-        out = render_fn(rv, cam)
+        out = render_fn(rv, cam) if binning is None else binned_render_fn(rv, cam, binning)
         im = (
             torch.exp(params["cam_m"][view_id])[:, None, None] * out.image
             + params["cam_c"][view_id][:, None, None]
@@ -175,37 +199,80 @@ def make_geometry_step(
         weights: Dict[str, float],
         phase: str,
         with_metrics: bool = True,
+        binning=None,
     ) -> Tuple[TrainState, GeometryPriors, Dict[str, torch.Tensor]]:
         cam = cams[view_id]
-        keys = list(state.params)
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         total, (losses, new_cos, radii, im) = loss_fn(
-            params, gt, cam, view_id, priors, weights, phase
+            params, gt, cam, view_id, priors, weights, phase, binning
         )
-        g = torch.autograd.grad(total, [params[k] for k in keys], allow_unused=True)
-        grads = {
-            k: gk if gk is not None else torch.zeros_like(params[k])
-            for k, gk in zip(keys, g)
-        }
-        new_params, new_opt = adam_update(state.params, grads, state.opt, lr)
-        new_params = apply_constraints(new_params, constraints)
-
+        new_state = update_state(state, params, total, radii, constraints, lr)
         with torch.no_grad():
-            max_radius = torch.where(
-                radii > 0,
-                torch.maximum(radii.to(torch.float32), state.max_2d_radius),
-                state.max_2d_radius,
-            )
             metrics = {("loss_" + k): v.detach() for k, v in losses.items()}
             metrics["loss_total"] = total.detach()
             if with_metrics:
                 metrics["psnr"] = torch.mean(psnr(im.detach(), gt))
-
-        return (
-            TrainState(params=new_params, opt=new_opt, max_2d_radius=max_radius),
-            priors._replace(cos_init=new_cos),
-            metrics,
-        )
+        return new_state, priors._replace(cos_init=new_cos), metrics
 
     return step_impl
 
+
+def make_geometry_step(
+    quadruples: Dict[str, DihedralQuadruples],
+    umbrellas: Dict[str, UmbrellaFlatten],
+    render_fn: Callable[[GaussianRenderVars, Camera], object],
+    num_vertices: int,
+    ring_indices: Optional[np.ndarray] = None,
+    device="cuda",
+) -> Callable:
+    """The single-iteration geometry step. ``render_fn(rv, cam) -> RenderOutput``.
+
+    Returns ``step(state, gt, cams, view_id, priors, constraints, lr,
+    weights, phase, with_metrics) -> (state, priors, metrics)``; metrics are
+    detached 0-d tensors (PSNR only ``with_metrics``).
+    """
+    return _build_step_impl(quadruples, umbrellas, render_fn, num_vertices, ring_indices, device)
+
+
+def make_geometry_multi_step(
+    quadruples: Dict[str, DihedralQuadruples],
+    umbrellas: Dict[str, UmbrellaFlatten],
+    render_fn: Callable[[GaussianRenderVars, Camera], object],
+    num_vertices: int,
+    ring_indices: Optional[np.ndarray] = None,
+    binned_render_fn: Optional[Callable] = None,
+    binnings_fn: Optional[Callable] = None,
+    device="cuda",
+) -> Callable:
+    """A segment of identically configured steps (``opt/step.py:274``).
+
+    Returns ``multi_step(state, images, cams, view_ids, priors,
+    constraints, lr, weights, phase) -> (state, priors, loss_total (S,))``:
+    the steps of ``step`` with ``with_metrics=False`` over the segment's
+    view ids (host ints), in order. The JAX package scans the segment into
+    one program; the semantics, not that device, are ported.
+
+    With ``binnings_fn(params, cams) -> per-view Binning list`` and
+    ``binned_render_fn(rv, cam, binning)``, each view is binned once at the
+    segment's entry from the entry state, and every step packs its current
+    values along its view's frozen permutation (``raster.track_rebin_freq``
+    caps the segment length, so the staleness).
+    """
+    step_impl = _build_step_impl(
+        quadruples, umbrellas, render_fn, num_vertices, ring_indices, device, binned_render_fn
+    )
+    freeze = binnings_fn is not None and binned_render_fn is not None
+
+    def multi_step(state, images, cams, view_ids, priors, constraints, lr, weights, phase):
+        binnings = binnings_fn(state.params, cams) if freeze else None
+        losses = []
+        for vid in view_ids:
+            vid = int(vid)
+            state, priors, m = step_impl(
+                state, images[vid], cams, vid, priors, constraints, lr, weights, phase,
+                with_metrics=False, binning=None if binnings is None else binnings[vid],
+            )
+            losses.append(m["loss_total"])
+        return state, priors, torch.stack(losses)
+
+    return multi_step

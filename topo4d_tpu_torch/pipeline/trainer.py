@@ -1,15 +1,24 @@
-"""Sequence trainer, parity mode (pipeline/trainer.py).
+"""Sequence trainer (pipeline/trainer.py).
 
 ``Trainer.run`` fits a sequence frame by frame. Per frame: the geometry fit
-(warm start from the previous frame, then one view per Adam step with a
-fresh binning every render, ``schedule.views_per_step == 1``, the
-reference's semantics); the dense texture fit (one full-resolution view per
-step through frozen per-view binnings, compact tiles and the split pack);
-then the frame's checkpoint (``resume.pkl``, every ``ckp_freq`` frames
-``params.npz``) and export (``face.obj`` and the baked ``face.png``), on a
-worker thread while the next frame fits (``schedule.async_export``). The
-batched all-views mode, masks, progress renders, the orbax checkpoint
-backend and multi-host resume are later slices.
+(warm start from the previous frame, then either one view per Adam step
+with a fresh binning every render, ``schedule.views_per_step == 1``, the
+reference's semantics, or every view in each step,
+``views_per_step == 0``, the batched mode); the dense texture fit (one
+full-resolution view per step through frozen per-view binnings, compact
+tiles and the split pack); then the frame's checkpoint (``resume.pkl``,
+every ``ckp_freq`` frames ``params.npz``) and export (``face.obj`` and the
+baked ``face.png``), on a worker thread while the next frame fits
+(``schedule.async_export``).
+
+With ``schedule.use_scan`` the geometry fit runs each segment of
+identically configured steps through a multi-step, and with a resolved
+``raster.track_rebin_freq`` above 0 (auto: 25 in the batched mode) each
+segment freezes per-view binnings computed at its entry, capped at that
+many steps. Segment boundaries are semantics, not scheduling: a binning is
+recomputed at each entry, so they fall exactly where the JAX package's do.
+Masks, progress renders, the orbax checkpoint backend, multi-device meshes
+and multi-host resume are later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +32,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from topo4d_tpu_torch.config import Config
+from topo4d_tpu_torch.config import Config, check_schedule, effective_track_rebin_freq
+from topo4d_tpu_torch.core.gaussian import activate_params
 from topo4d_tpu_torch.core.quaternion import quat_normalize
 from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.losses.flatten import build_fused_flatten, dihedral_cos
@@ -34,8 +44,10 @@ from topo4d_tpu_torch.opt.step import (
     SOFT_FLATTEN_KEYS,
     GeometryPriors,
     TrainState,
+    make_geometry_multi_step,
     make_geometry_step,
 )
+from topo4d_tpu_torch.parallel.batched import make_batched_geometry_multi_step, make_batched_geometry_step
 from topo4d_tpu_torch.pipeline import checkpoint as ckpt
 from topo4d_tpu_torch.pipeline.data import view_order
 from topo4d_tpu_torch.pipeline.export import build_bake_binning, save_mesh
@@ -63,6 +75,27 @@ def make_render_fn(cfg: Config, device):
     return lambda rv, cam: render_gaussians(rv, cam, bg=bg, max_span=cfg.raster.max_span)
 
 
+def make_geo_binning_fns(cfg: Config, device):
+    """(binned_render_fn, binnings_fn) of the geometry phase's frozen
+    binnings (``pipeline/trainer.py:96-138``), or (None, None) when the
+    resolved ``raster.track_rebin_freq`` is 0 (a fresh binning every
+    render). The binned render takes no compact list and no static rows, as
+    in JAX."""
+    if effective_track_rebin_freq(cfg) <= 0:
+        return None, None
+    bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=device)
+    span = cfg.raster.max_span
+
+    def binned_render_fn(rv, cam, binning):
+        return render_gaussians(rv, cam, bg=bg, max_span=span, binning=binning)
+
+    def binnings_fn(params, cams):
+        rv = activate_params(params)
+        return [binning_for(rv, cams[v], max_span=span) for v in range(int(cams.fx.shape[0]))]
+
+    return binned_render_fn, binnings_fn
+
+
 def make_dense_render_fn(cfg: Config, device):
     """Dense-loop renderer ``(rv, cam, binning)``: a manual
     ``texture.tile_capacity`` (> 0) rides every render; the auto capacity
@@ -87,18 +120,28 @@ class Trainer:
         statics: SceneStatics,
         device="cuda",
     ):
-        if cfg.schedule.views_per_step != 1:
-            raise NotImplementedError("only the parity mode (views_per_step == 1) is ported")
+        check_schedule(cfg)
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.source = source
         self.statics = statics
         n = params_np["means3D"].shape[0]
+        sched = cfg.schedule
         self.render_fn = make_render_fn(cfg, dev)
-        self.step = make_geometry_step(
-            statics.quadruples, statics.umbrellas, self.render_fn, n,
-            ring_indices=statics.ring.indices, device=dev,
-        )
+        geo = (statics.quadruples, statics.umbrellas, self.render_fn, n)
+        ring = statics.ring.indices
+        self.step = make_geometry_step(*geo, ring_indices=ring, device=dev)
+        # segments of identically configured steps; with a resolved
+        # track_rebin_freq > 0 they freeze per-view binnings at their entry
+        self._binned_render_fn, self._binnings_fn = make_geo_binning_fns(cfg, dev)
+        frozen = dict(binned_render_fn=self._binned_render_fn, binnings_fn=self._binnings_fn)
+        self.multi_step = None
+        if sched.views_per_step == 1 and sched.use_scan:
+            self.multi_step = make_geometry_multi_step(*geo, ring_indices=ring, **frozen, device=dev)
+        self.batched_step = make_batched_geometry_step(*geo, ring_indices=ring, device=dev)
+        self.batched_multi_step = None
+        if sched.views_per_step == 0 and sched.use_scan:
+            self.batched_multi_step = make_batched_geometry_multi_step(*geo, ring_indices=ring, **frozen, device=dev)
         self.params0 = {k: np.asarray(v, np.float32) for k, v in params_np.items()}
         params = {k: torch.as_tensor(v, device=dev) for k, v in self.params0.items()}
         self.state = TrainState(
@@ -130,6 +173,8 @@ class Trainer:
         self.timer = PhaseTimer()
         self._bake_binning = None  # the per-sequence bake binning, built at the first export
         self._last_geo_renders = 0
+        # (frame, first step, end step) of every multi-step segment run
+        self.geo_segments: List[tuple] = []
         self._out_dir = os.path.join(cfg.data.output_dir, cfg.data.exp, cfg.data.seq)
         self._con_cache: Dict[str, tuple] = {}
         # the texture phase, built at its first frame
@@ -171,7 +216,6 @@ class Trainer:
         images = torch.as_tensor(np.asarray(frame_data.images, np.float32), device=self.device)
         cams = self.source.cameras
         step_phase = "init" if is_init else "track"
-        self._last_geo_renders = num_iters  # one view per iteration
 
         if not is_init:
             # warm start (train.py:420-438)
@@ -185,11 +229,56 @@ class Trainer:
                 opt=reset_moments(self.state.opt, ["means3D", "unnorm_rotations"])
             )
 
-        order = view_order(images.shape[0], num_iters, seed=t)
+        weights = self.weights_for(step_phase)
+        if sched.views_per_step == 0:
+            metrics = self._fit_batched(t, images, cams, step_phase, weights)
+        else:
+            metrics = self._fit_parity(t, images, cams, num_iters, step_phase, weights)
+        if is_init:
+            self.first_frame_attrs = cache_first_frame_attrs(self.state.params, self.statics.regions)
+        return metrics
+
+    def _walk(self, t: int, n: int, attrs, multi: bool, run_segment, run_step) -> Dict[str, float]:
+        """Run steps 0..n-1 of frame ``t``; ``attrs(i)`` is step i's
+        (constraint phase, lr key, log?). With the multi-step (``multi``),
+        each run of unlogged steps of one configuration is one
+        ``run_segment(i, j, constraints, lr)``, capped at the resolved
+        ``track_rebin_freq`` when binnings are frozen
+        (``pipeline/trainer.py:434-455``, ``:489-508``); every other step is
+        ``run_step(i, constraints, lr, log?) -> metrics``. Returns the last
+        logged row."""
+        seg_cap = effective_track_rebin_freq(self.cfg) if self._binnings_fn is not None else n
+        metrics: Dict[str, float] = {}
+        i = 0
+        while i < n:
+            con_phase, lr_key, log_this = attrs(i)
+            constraints, lr = self._constraints(con_phase), self.lrs_for(lr_key)
+            if multi and not log_this:
+                j = i + 1
+                while j < n and j - i < seg_cap and attrs(j) == (con_phase, lr_key, False):
+                    j += 1
+                run_segment(i, j, constraints, lr)
+                self.geo_segments.append((t, i, j))
+                i = j
+                continue
+            m = run_step(i, constraints, lr, log_this)
+            if log_this:
+                metrics = {k: float(v) for k, v in m.items()}
+                metrics["frame"] = t
+                metrics["iter"] = i
+                self.metrics_log.append(dict(metrics))
+            i += 1
+        return metrics
+
+    def _fit_parity(self, t, images, cams, num_iters, step_phase, weights) -> Dict[str, float]:
+        """One view per step (``pipeline/trainer.py:484-531``)."""
+        sched = self.cfg.schedule
+        is_init = t == 0
+        self._last_geo_renders = num_iters  # one view per iteration
+        order = [int(v) for v in view_order(images.shape[0], num_iters, seed=t)]
         early_cut = int(num_iters * sched.eye_freeze_frac)
 
-        def iter_attrs(i):
-            """(constraint phase, lr key, log?) of iteration i."""
+        def attrs(i):
             if is_init:
                 con = "init_early" if i < early_cut else "init"
                 lr_key = "init"
@@ -198,24 +287,63 @@ class Trainer:
                 lr_key = "polish" if i >= num_iters - sched.polish_iters else "track"
             return con, lr_key, i % sched.log_freq == 0 or i == num_iters - 1
 
-        weights = self.weights_for(step_phase)
-        metrics: Dict[str, float] = {}
-        for i in range(num_iters):
-            con_phase, lr_key, log_this = iter_attrs(i)
-            vid = int(order[i])
+        def run_segment(i, j, constraints, lr):
+            self.state, self.priors, _ = self.multi_step(
+                self.state, images, cams, order[i:j], self.priors, constraints, lr, weights, step_phase
+            )
+
+        def run_step(i, constraints, lr, log_this):
+            vid = order[i]
             self.state, self.priors, m = self.step(
-                self.state, images[vid], cams, vid, self.priors,
-                self._constraints(con_phase), self.lrs_for(lr_key), weights,
+                self.state, images[vid], cams, vid, self.priors, constraints, lr, weights,
                 step_phase, with_metrics=log_this,
             )
-            if log_this:
-                metrics = {k: float(v) for k, v in m.items()}
-                metrics["frame"] = t
-                metrics["iter"] = i
-                self.metrics_log.append(dict(metrics))
-        if is_init:
-            self.first_frame_attrs = cache_first_frame_attrs(self.state.params, self.statics.regions)
-        return metrics
+            return m
+
+        return self._walk(t, num_iters, attrs, self.multi_step is not None, run_segment, run_step)
+
+    def batched_schedule(self, t: int, num_views: int):
+        """The batched mode's contraction of frame ``t``'s schedule
+        (``pipeline/trainer.py:405-431``) -> (nb steps, log_every, attrs):
+        every step consumes all views, so ``nb = batched_opt_num or
+        ceil(num_iters / V)``; the phase boundaries (eye freeze, polish) keep
+        their fractional positions; ``attrs(i)`` is step i's (constraint
+        phase, lr key, log?)."""
+        sched = self.cfg.schedule
+        is_init = t == 0
+        num_iters = sched.init_opt_num if is_init else sched.opt_num
+        nb = sched.batched_opt_num or -(-num_iters // num_views)
+        log_every = max(1, round(nb * sched.log_freq / num_iters))
+
+        def attrs(i):
+            frac = i / nb
+            if is_init:
+                con = "init_early" if frac < sched.eye_freeze_frac else "init"
+                lr_key = "init"
+            else:
+                con = "track"
+                lr_key = "polish" if frac >= 1.0 - sched.polish_iters / num_iters else "track"
+            return con, lr_key, i % log_every == 0 or i == nb - 1
+
+        return nb, log_every, attrs
+
+    def _fit_batched(self, t, images, cams, step_phase, weights) -> Dict[str, float]:
+        """All views per step (``pipeline/trainer.py:405-482``)."""
+        nb, _, attrs = self.batched_schedule(t, images.shape[0])
+        self._last_geo_renders = nb * images.shape[0]  # every batched step renders all views
+
+        def run_segment(i, j, constraints, lr):
+            self.state, self.priors, _ = self.batched_multi_step(
+                self.state, images, cams, self.priors, constraints, lr, weights, step_phase, j - i
+            )
+
+        def run_step(i, constraints, lr, log_this):
+            self.state, self.priors, m = self.batched_step(
+                self.state, images, cams, self.priors, constraints, lr, weights, step_phase
+            )
+            return m
+
+        return self._walk(t, nb, attrs, self.batched_multi_step is not None, run_segment, run_step)
 
     def _auto_tile_capacity(self, occ: int, total_tiles: int) -> int:
         """Sticky auto tile capacity (``texture.tile_capacity = -1``):

@@ -1,4 +1,4 @@
-"""The tile blend: CUDA kernels K1/K2 and their plain PyTorch version.
+"""The tile blend: CUDA kernels K1/K2 and K4f/K4b and their plain PyTorch version.
 
 Replaces ``rasterizer/pallas_blend.py`` (and ``pallas_resident.py``, whose
 contract is the same). ``tile_blend(packed, tile_start, tile_count,
@@ -13,10 +13,14 @@ Compact mode: with ``tile_ids`` ((R,) int32), row r blends global tile
 rows carry the sentinel id T = tiles_x * tiles_y and count 0. Without
 ``tile_ids``, row r is tile r.
 
-Dispatch: a CUDA tensor goes to the kernels ``csrc/blend_fwd.cu`` (K1) and
-``csrc/blend_bwd.cu`` (K2) or raises; a CPU tensor goes to
-``tile_blend_plain``, which is also each kernel's oracle on the card.
-``LAUNCHES`` counts kernel launches and plain calls.
+Dispatch (``variant``, as ``render_gaussians_pallas`` takes it): a CUDA
+tensor goes to ``csrc/blend_fwd.cu`` (K1) and ``csrc/blend_bwd.cu`` (K2)
+under "auto", "resident" and "stream" (the JAX package's K1/K2 and its
+VMEM-resident K3, one contract), or to the window-span pair
+``csrc/blend_v3_fwd.cu`` (K4f) and ``csrc/blend_v3_bwd.cu`` (K4b) under
+"v3", or raises; a CPU tensor goes to ``tile_blend_plain`` under every
+variant, which is also each kernel's oracle on the card. ``LAUNCHES``
+counts kernel launches and plain calls.
 """
 
 from __future__ import annotations
@@ -32,7 +36,29 @@ from topo4d_tpu_torch.rasterizer.tiles import PACK_FIELDS, TILE
 PX = TILE * TILE  # 256 pixels per tile
 
 # launches of each kernel and calls of the plain version, since the last reset
-LAUNCHES: Dict[str, int] = {"tile_blend_fwd": 0, "tile_blend_bwd": 0, "tile_blend_plain": 0}
+LAUNCHES: Dict[str, int] = {
+    "tile_blend_fwd": 0, "tile_blend_bwd": 0, "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0,
+    "tile_blend_plain": 0,
+}
+
+VARIANTS = ("auto", "resident", "stream", "v3")
+TILES_PER_STEP = 4  # K4's rows per block by default (pallas_blend.py:931)
+MAX_TPS = 8  # the largest block of rows K4's kernels are built for
+
+
+def check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown blend variant {variant!r}; expected one of {VARIANTS}")
+
+
+def tiles_per_step(num_rows: int) -> int:
+    """K4's rows per block when the caller gives none: JAX's
+    ``_tiles_per_step`` (``pallas_blend.py:931-939``), 4 or fewer when
+    there are fewer rows."""
+    for tps in (TILES_PER_STEP, 4, 2, 1):
+        if num_rows >= tps:
+            return tps
+    return 1
 
 
 def reset_launches() -> None:
@@ -126,7 +152,10 @@ def tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids=None):
 
 
 def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
-    """Plain PyTorch tile blend, differentiable by autograd -> (R, 8, 256)."""
+    """Plain PyTorch tile blend, differentiable by autograd -> (R, 8, 256).
+
+    The one oracle of every blend kernel: K1/K2 and K4f/K4b share this
+    contract (K4 differs only in the order blocks walk the entries)."""
     LAUNCHES["tile_blend_plain"] += 1
     alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids)
     w, t_final = blend_weights(alpha)  # (T, 256, M), (T, 256)
@@ -166,6 +195,14 @@ def _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids) ->
     return rows
 
 
+def _check_grad_inputs(fwd_out, g_out, rows: int, device) -> None:
+    for name, a in (("fwd_out", fwd_out), ("g_out", g_out)):
+        if a.dtype != torch.float32 or a.shape != (rows, 8, PX) or a.device != device:
+            raise ValueError(f"{name} must be float32 ({rows}, 8, {PX}) on {device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -188,11 +225,7 @@ def tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: i
 def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x: int, tiles_y: int, tile_ids=None):
     """Launch K2 -> dpacked (16, E_pad) float32 (zero outside the tile ranges)."""
     rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
-    for name, a in (("fwd_out", fwd_out), ("g_out", g_out)):
-        if a.dtype != torch.float32 or a.shape != (rows, 8, PX) or a.device != packed.device:
-            raise ValueError(f"{name} must be float32 ({rows}, 8, {PX}) on {packed.device}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_grad_inputs(fwd_out, g_out, rows, packed.device)
     dpacked = torch.zeros_like(packed)
     fn = kernels.kernel("tile_blend_bwd")
     stream = torch.cuda.current_stream(packed.device).cuda_stream
@@ -205,26 +238,83 @@ def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x:
     return dpacked
 
 
+def _check_tps(tps: int) -> None:
+    if not 1 <= tps <= MAX_TPS:
+        raise ValueError(f"tps (K4's rows per block) must be in [1, {MAX_TPS}], got {tps}")
+
+
+def tile_blend_v3_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None, tps=None):
+    """Launch K4f, ``tps`` rows per block (None: ``tiles_per_step``) -> (R, 8, 256) float32."""
+    rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+    tps = tiles_per_step(rows) if tps is None else tps
+    _check_tps(tps)
+    out = torch.empty((rows, 8, PX), dtype=torch.float32, device=packed.device)
+    fn = kernels.kernel("tile_blend_v3_fwd")
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    status = fn(
+        packed.data_ptr(), packed.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
+        _ptr(tile_ids), tiles_x, rows, tps, out.data_ptr(), stream,
+    )
+    kernels.check(status, "tile_blend_v3_fwd")
+    LAUNCHES["tile_blend_v3_fwd"] += 1
+    return out
+
+
+def tile_blend_v3_bwd_cuda(
+    packed, tile_start, tile_count, fwd_out, g_out, tiles_x: int, tiles_y: int, tile_ids=None, tps=None
+):
+    """Launch K4b, ``tps`` rows per block -> dpacked (16, E_pad) float32 (zero outside the tile ranges)."""
+    rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+    _check_grad_inputs(fwd_out, g_out, rows, packed.device)
+    tps = tiles_per_step(rows) if tps is None else tps
+    _check_tps(tps)
+    dpacked = torch.zeros_like(packed)
+    fn = kernels.kernel("tile_blend_v3_bwd")
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    status = fn(
+        packed.data_ptr(), packed.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
+        _ptr(tile_ids), tiles_x, rows, tps, fwd_out.data_ptr(), g_out.data_ptr(), dpacked.data_ptr(), stream,
+    )
+    kernels.check(status, "tile_blend_v3_bwd")
+    LAUNCHES["tile_blend_v3_bwd"] += 1
+    return dpacked
+
+
 class _TileBlendCUDA(torch.autograd.Function):
+    """K1/K2 (``tps`` None) or K4f/K4b with ``tps`` rows per block."""
+
     @staticmethod
-    def forward(ctx, packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids):
-        out = tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+    def forward(ctx, packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids, tps):
+        args = (packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+        out = tile_blend_fwd_cuda(*args) if tps is None else tile_blend_v3_fwd_cuda(*args, tps)
         ctx.save_for_backward(packed, tile_start, tile_count, out)
         ctx.tile_ids = tile_ids
         ctx.tiles = (tiles_x, tiles_y)
+        ctx.tps = tps
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         packed, tile_start, tile_count, out = ctx.saved_tensors
-        dpacked = tile_blend_bwd_cuda(
-            packed, tile_start, tile_count, out, g_out.contiguous(), *ctx.tiles, ctx.tile_ids
-        )
-        return dpacked, None, None, None, None, None
+        args = (packed, tile_start, tile_count, out, g_out.contiguous(), *ctx.tiles, ctx.tile_ids)
+        dpacked = tile_blend_bwd_cuda(*args) if ctx.tps is None else tile_blend_v3_bwd_cuda(*args, ctx.tps)
+        return dpacked, None, None, None, None, None, None
 
 
-def tile_blend(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
-    """Blend packed entries -> (R, 8, 256); kernels on CUDA, plain version on CPU."""
+def tile_blend(
+    packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None, variant: str = "auto", tps=None
+):
+    """Blend packed entries -> (R, 8, 256); kernels on CUDA, plain version on CPU.
+
+    ``variant`` "v3" launches K4f/K4b with ``tps`` rows per block (None:
+    ``tiles_per_step``); "auto", "resident" and "stream" launch K1/K2,
+    whose block is one tile, so they ignore ``tps``.
+    """
+    check_variant(variant)
     if packed.device.type == "cpu":
         return tile_blend_plain(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
-    return _TileBlendCUDA.apply(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+    if variant == "v3" and tps is None:
+        tps = tiles_per_step(tile_start.shape[0])
+    return _TileBlendCUDA.apply(
+        packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids, tps if variant == "v3" else None
+    )

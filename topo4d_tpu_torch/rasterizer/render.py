@@ -73,14 +73,21 @@ def render_gaussians(
     max_span: int = 4,
     binning: Optional[Binning] = None,
     tile_capacity: Optional[int] = None,
+    variant: str = "auto",
+    tps: Optional[int] = None,
 ) -> RenderOutput:
     """Render one view (the contract of ``render_gaussians_pallas``).
 
     ``binning``: a frozen permutation from ``binning_for`` (its static rows
     and compact tile list are used when present). ``tile_capacity``: blend
     at most this many non-empty tiles (compact mode; implied by a frozen
-    compact list). Runs where ``rv``'s tensors live: the CUDA kernels on
-    the card, the plain blend on the CPU.
+    compact list). ``variant``: the blend kernels on the card, "auto",
+    "resident" or "stream" for K1/K2 (the JAX package's K1/K2 and K3, one
+    contract), "v3" for the window-span pair K4f/K4b, in full-canvas and
+    compact mode alike; any other value raises ValueError. ``tps``: K4's
+    rows per block (None: JAX's ``_tiles_per_step``, 4); K1/K2 ignore it,
+    their block is one tile. Runs where ``rv``'s tensors live: the CUDA
+    kernels on the card, the plain blend on the CPU under every variant.
     """
     dev = rv.means3d.device
     if bg is None:
@@ -100,10 +107,12 @@ def render_gaussians(
         if compact is None or compact.ids.shape[0] != tile_capacity:
             compact = compact_nonempty_tiles(bins.tile_start, bins.tile_count, tile_capacity)
         overflow = compact.overflow
-        out_c = tile_blend(bins.packed, compact.start, compact.count, tiles_x, tiles_y, compact.ids)
+        out_c = tile_blend(
+            bins.packed, compact.start, compact.count, tiles_x, tiles_y, compact.ids, variant=variant, tps=tps
+        )
         out = _ScatterTiles.apply(out_c, compact.ids, t)
     else:
-        out = tile_blend(bins.packed, bins.tile_start, bins.tile_count, tiles_x, tiles_y)
+        out = tile_blend(bins.packed, bins.tile_start, bins.tile_count, tiles_x, tiles_y, variant=variant, tps=tps)
 
     def untile(x):
         """(T, C, 256) -> (C, H, W)."""
