@@ -14,13 +14,15 @@ order; any failure raises and exits non-zero:
    Gaussians, 375x512, one view) at max_span 4, 2 and 8, full canvas and
    compact, plus a saturated-window case in both modes, and at each of these
    shapes (and at the 4K dense view 0 in phase 6) K4f/K4b, the window-span
-   pair behind ``variant="v3"``, at 4 and 8 rows per block: K4f's rows 0-5
-   equal to K1's bit for bit, K4b within K2's tolerance of the plain
-   gradient (and whether it equals K2 bit for bit); K5 at the dense phase's
-   (15, 2160, 3840) and the geometry phase's (15, 512, 375), forward and
-   backward; K6, the UV bake, at 8192x8192 on the dense mesh's UVs, on
-   coplanar overlapping triangles (first wins) and on a triangle that spans
-   many tiles;
+   pair behind ``variant="v3"``, at 4 and 8 rows per block: two K2
+   launches equal bit for bit, K4f's rows 0-5 equal to K1's bit for bit,
+   K4b within K2's tolerance of the plain gradient (and how many of its
+   values differ from K2's); K5 at the dense phase's (15, 2160, 3840), the
+   geometry phase's (15, 512, 375) and four edge shapes (H and W below the
+   window, widths off its strips, a 4K plane one past its runs), forward
+   bit for bit and backward; K6, the UV bake, at 8192x8192 on the dense
+   mesh's UVs, on coplanar overlapping triangles (first wins) and on a
+   triangle that spans many tiles;
 4. the main path, ``Trainer.run(resume=False)`` over 2 frames of a
    synthetic 24-view sequence into a directory under ``build/``, with the
    launch counters set to 0 just before it and read just after, and each
@@ -40,10 +42,12 @@ order; any failure raises and exits non-zero:
    480x270 on a density-1 dense mesh;
 6. timings: K1, K2, K4f/K4b (4 and 8 rows per block) and the plain blend at
    the geometry shapes and at one 4K dense view, there both compact and on
-   the full canvas; K5, its plain version and cuDNN's depthwise convolution
-   at both blur shapes; K6 and its plain version at 8192x8192 and the
-   export's parts (host binning, the uint8 conversion and copy to the host,
-   PNG encode, OBJ write); each kernel's bound; profiles of ten track steps
+   the full canvas, with the share of visited (entry, warp) pairs in which
+   a lane contributes; K5 (through its wrapper, the kernel alone through
+   its C entry point beside it), its plain version and cuDNN's depthwise
+   convolution at both blur shapes; K6 and its plain version at 8192x8192
+   and the export's parts (host binning, the uint8 conversion and copy to
+   the host, PNG encode, OBJ write); each kernel's bound; profiles of ten track steps
    and of ten dense steps, compact and on the full canvas (device busy
    share, activities per step, top kernels);
 7. the v3 path: ten geometry steps at 375x512 and ten dense steps on the 4K
@@ -203,6 +207,36 @@ def pair_counts(packed, start, count, tiles_x, ids):
     return evaluated, contributing, entries
 
 
+def warp_entry_share(packed, start, count, tiles_x, ids, out):
+    """How often a warp's per-entry step has work: the visited (entry, warp)
+    pairs and those in which at least one lane's pixel contributes (the
+    plain alpha, up to each pixel's last contributor as K1 saved it), for
+    two warp shapes -> {shape: (visited, with a contributor)}. Warps of 32
+    consecutive pixels (two pixel rows: K1, and K2's first design) visit
+    every entry up to the tile's furthest last contributor; K2's 8 x 8
+    blocks (two pixels per thread) stop at their own furthest."""
+    from topo4d_tpu_torch.rasterizer.blend import tile_alpha
+    from topo4d_tpu_torch.rasterizer.tiles import TILE
+
+    shapes = {"32 consecutive pixels": (2, TILE, False), "8 x 8 blocks": (8, 8, True)}  # (rows, columns, own stop)
+    totals = {k: [0, 0] for k in shapes}
+    last = out[:, 5].long()
+    with torch.no_grad():
+        for s in range(0, start.shape[0], ROWS_PER_CHUNK):
+            sl = slice(s, s + ROWS_PER_CHUNK)
+            alpha, _ = tile_alpha(packed, start[sl], count[sl], tiles_x, ids[sl])
+            r, m = alpha.shape[0], alpha.shape[-1]
+            lst = last[sl]
+            contrib = (alpha > 0) & (torch.arange(m, device=alpha.device) < lst[..., None])
+            for k, (h, w, own) in shapes.items():
+                blocks = (r, TILE // h, h, TILE // w, w)
+                per_warp = lst.view(blocks).amax((2, 4))
+                visited = per_warp if own else lst.amax(-1)[:, None, None].expand_as(per_warp)
+                totals[k][0] += int(visited.sum())
+                totals[k][1] += int(contrib.view(*blocks, m).any(4).any(2).sum())
+    return {k: tuple(v) for k, v in totals.items()}
+
+
 V3_TPS = (4, 8)  # K4's rows per block: JAX's default and the other width scripts/probe_dense_v3.py sweeps
 
 
@@ -253,7 +287,8 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
     version on the same inputs (full canvas or the compact rows); asserts
     the JAX suite's tolerances (forward rtol 1e-4 / atol 1e-5, gradients
     max-scaled rtol 2e-3 / atol 2e-5) and that K4f's rows 0-5 equal K1's bit
-    for bit -> (K1 max |err| on rows 0-4, K2 max |err| of the Gaussian
+    for bit, and that two K2 launches on the same input are equal bit for
+    bit -> (K1 max |err| on rows 0-4, K2 max |err| of the Gaussian
     gradients, the same two for K4 over its widths). In compact mode also
     checks that the compact rows, scattered onto the canvas, equal the
     full-canvas blend bit for bit, forward and backward."""
@@ -285,6 +320,8 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
         return fold_entry_grads(dp[rows, :e], binning.entry_valid, binning.inv_positions)
 
     dp_k = tile_blend_bwd_cuda(packed, start, count, out_k, g_out, tiles_x, tiles_y, kid)
+    if not torch.equal(tile_blend_bwd_cuda(packed, start, count, out_k, g_out, tiles_x, tiles_y, kid), dp_k):
+        raise AssertionError(f"{label}: two K2 launches on the same input differ")
     gk, gp = gaussian_grads(dp_k), gaussian_grads(dp_p)
     scale = float(gp.abs().max().clamp(min=1e-8))
     bwd_err = float((gk - gp).abs().max())
@@ -309,7 +346,8 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
         f"{label}: E_pad {packed.shape[1]}, rows {start.shape[0]}, max count "
         f"{int(count.max())}: K1 max|err| {fwd_err:.3e} (rows 0-4), pixels whose "
         f"last contributor differs {term_diff} (max|err| there {flip_err:.3e}); K2 max|err| {bwd_err:.3e} of the "
-        f"Gaussian gradients, max|grad| {scale:.3e}, ratio {bwd_err / scale:.3e}{extra}"
+        f"Gaussian gradients, max|grad| {scale:.3e}, ratio {bwd_err / scale:.3e}; two K2 launches equal bit for "
+        f"bit{extra}"
     )
 
     v3_fwd_err = v3_bwd_err = 0.0
@@ -337,8 +375,12 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
     return fwd_err, bwd_err, v3_fwd_err, v3_bwd_err
 
 
+BLUR_EDGE_SHAPES = ((3, 7, 5), (2, 37, 53), (1, 11, 700), (3, 2161, 3843))  # below the window, ragged strips and runs
+
+
 def compare_blur(shape, seed):
-    """K5 forward and backward against the plain version; returns max |err|."""
+    """K5 forward (bit for bit) and backward (rtol 1e-5 / atol 1e-6)
+    against the plain version; returns max |err|."""
     from topo4d_tpu_torch.losses.blur import SelfAdjointBlur, gauss_blur_cuda, gauss_blur_plain
 
     g = torch.Generator(DEVICE).manual_seed(seed)
@@ -352,10 +394,11 @@ def compare_blur(shape, seed):
     torch.cuda.synchronize()
     fwd_err = float((yk - yp).abs().max())
     bwd_err = float((dk - dp).abs().max())
-    torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-6)
+    if not torch.equal(yk, yp):
+        raise AssertionError(f"K5 {tuple(shape)}: the forward differs from the plain version, max|err| {fwd_err:.3e}")
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-6)
     log(
-        f"K5 {tuple(shape)}: forward max|err| {fwd_err:.3e} (bit for bit: {bool(torch.equal(yk, yp))}), "
+        f"K5 {tuple(shape)}: forward bit for bit, "
         f"backward (kernel on the cotangent vs autograd of the plain version) max|err| {bwd_err:.3e}"
     )
     return max(fwd_err, bwd_err)
@@ -557,7 +600,8 @@ def phase_kernels():
     errs["saturated compact"] = compare_kernels(bins, binning, tx, ty, "saturated windows, compact", seed=7,
                                                 compact=True)
 
-    errs["blur"] = max(compare_blur((15, FULL_H, FULL_W), 1), compare_blur((15, 512, 375), 2))
+    shapes = ((15, FULL_H, FULL_W), (15, 512, 375)) + BLUR_EDGE_SHAPES
+    errs["blur"] = max(compare_blur(shape, seed) for seed, shape in enumerate(shapes, start=1))
     return errs
 
 
@@ -1033,9 +1077,13 @@ def phase_texture_timing(trainer, errs):
     compact against the plain version, then the times and bounds of the
     compact rows and of the full canvas; K5, its plain version and cuDNN's
     depthwise convolution at both blur shapes."""
+    import ctypes
+
     import torch.nn.functional as F
 
+    from topo4d_tpu_torch import kernels
     from topo4d_tpu_torch.losses.blur import _gaussian_1d, gauss_blur_cuda, gauss_blur_plain
+    from topo4d_tpu_torch.rasterizer.blend import tile_blend_fwd_cuda
     from topo4d_tpu_torch.texture.dense import dense_rendervars
 
     rv = dense_rendervars(trainer.texture_state.params, trainer.dense_means3d)
@@ -1043,9 +1091,16 @@ def phase_texture_timing(trainer, errs):
     bins, binning, tx, ty = pack_view(rv, cam, trainer.cfg.raster.max_span, trainer._auto_tile_cap, with_static=True)
     errs["dense"] = compare_kernels(bins, binning, tx, ty, "4K dense view 0, compact", seed=12, compact=True)
     blend = time_blend(bins, binning, tx, ty, True, "4K dense view 0, compact", iters=20, plain_iters=2, seed=1)
+    start, count, ids = blend_rows(bins, binning, tx, ty, True)
+    out = tile_blend_fwd_cuda(bins.packed, start, count, tx, ty, ids)
+    blend["warp_share"] = warp_entry_share(bins.packed, start, count, tx, ids, out)
+    log("4K dense view 0, compact: visited (entry, warp) pairs in which a lane contributes: " + "; ".join(
+        f"warps of {k} {n} of {v} ({100 * n / v:.1f}%)" for k, (v, n) in blend["warp_share"].items()))
     time_blend(bins, binning, tx, ty, False, "4K dense view 0, full canvas", iters=20, plain_iters=2, seed=1)
 
     taps = torch.as_tensor(_gaussian_1d(11, 1.5), device=DEVICE)
+    taps_c = (ctypes.c_float * 11)(*_gaussian_1d(11, 1.5).tolist())
+    k5 = kernels.kernel("gauss_blur")
     blur = {}
     for shape in ((15, FULL_H, FULL_W), (15, 512, 375)):
         ch = shape[0]
@@ -1058,13 +1113,23 @@ def phase_texture_timing(trainer, errs):
 
         torch.testing.assert_close(cudnn(), gauss_blur_plain(x), rtol=1e-5, atol=1e-6)
         ms = cuda_ms(lambda: gauss_blur_cuda(x), iters=20)
+        # the kernel alone through its C entry point, on an output allocated
+        # once (as K2 and K6 are timed beside their wrappers): at (15, 512,
+        # 375) the wrapper's host work per call is as long as the kernel
+        out = torch.empty_like(x)
+        args = (x.data_ptr(), out.data_ptr(), *shape, ctypes.addressof(taps_c), torch.cuda.current_stream().cuda_stream)
+        ms_kernel = cuda_ms(lambda: kernels.check(k5(*args), "gauss_blur"), iters=20)
+        if not torch.equal(out, gauss_blur_cuda(x)):
+            raise AssertionError("K5 through its C entry point differs from its wrapper")
         ms_plain = cuda_ms(lambda: gauss_blur_plain(x), iters=5, warmup=1)
         ms_lib = cuda_ms(cudnn, iters=20)
         b, by = bound(2 * x.numel() * 4, 42 * x.numel())
-        blur[shape] = {"ms": ms, "plain_ms": ms_plain, "library_ms": ms_lib, "bound_ms": b, "bound_by": by}
+        blur[shape] = {"ms": ms, "plain_ms": ms_plain, "library_ms": ms_lib, "bound_ms": b, "bound_by": by,
+                       "kernel_ms": ms_kernel}
         log(
-            f"K5 {shape}: {ms:.4f} ms (bound {b:.4f} ms, {by}, {100 * b / ms:.1f}%), plain {ms_plain:.3f} ms, "
-            f"cuDNN depthwise conv2d (vertical then horizontal, TF32 off) {ms_lib:.4f} ms"
+            f"K5 {shape}: {ms:.4f} ms through its wrapper (bound {b:.4f} ms, {by}, {100 * b / ms:.1f}%; the kernel "
+            f"alone on an output allocated once {ms_kernel:.4f} ms, {100 * b / ms_kernel:.1f}%), plain {ms_plain:.3f} "
+            f"ms, cuDNN depthwise conv2d (vertical then horizontal, TF32 off) {ms_lib:.4f} ms"
         )
     return blend, blur
 
@@ -1424,6 +1489,9 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": "4K dense view 0, compact", "geometry_shape": geo_timing[key],
         })
+    rows[-1].update(redesigned=True,
+                    warp_entry_share={k: {"visited": v, "with_a_contributor": n}
+                                      for k, (v, n) in blend4k["warp_share"].items()})
     tps0 = V3_TPS[0]
     for name, key, src, tpu in (
         ("tile_blend_v3_fwd", "fwd", "blend_v3_fwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:543"),
@@ -1447,7 +1515,7 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
         "launches": counts["gauss_blur"], "launches_by_path": by_path("gauss_blur"),
         "max_abs_err": errs["blur"], "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": big["library_ms"], "shape": [15, FULL_H, FULL_W],
-        "geometry_shape": small,
+        "kernel_ms": big["kernel_ms"], "geometry_shape": small, "redesigned": True,
     })
     rows.append({
         "name": "uv_bake", "route": "cuda", "source": "topo4d_tpu_torch/csrc/bake.cu",

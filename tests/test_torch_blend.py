@@ -39,7 +39,13 @@ from topo4d_tpu_torch.rasterizer.blend import (
     tile_blend_plain,
 )
 from topo4d_tpu_torch.rasterizer.render import render_gaussians
-from topo4d_tpu_torch.rasterizer.tiles import FIELD_ROWS, compute_binning, fold_entry_grads, pack_with_binning
+from topo4d_tpu_torch.rasterizer.tiles import (
+    FIELD_ROWS,
+    compact_nonempty_tiles,
+    compute_binning,
+    fold_entry_grads,
+    pack_with_binning,
+)
 from topo4d_tpu_torch.testing import make_synthetic_camera
 
 CPU = "cpu"
@@ -308,3 +314,34 @@ def test_kernels_match_plain_on_the_card(cuda, n, seed, w, h, span):
     gk = fold_entry_grads(dk[rows, :e], binning.entry_valid, binning.inv_positions).cpu().numpy()
     gp = fold_entry_grads(dp[rows, :e], binning.entry_valid, binning.inv_positions).cpu().numpy()
     _scaled_close(gk, gp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,seed,w,h,span", BLEND_CASES)
+def test_blend_backward_kernel_is_deterministic_and_compact_equals_full_canvas(cuda, n, seed, w, h, span):
+    """K2 sums each entry's gradient within its tile's block in a fixed
+    order, with no atomics: two launches on the same input give the same
+    bits, and the compact rows (padded past the occupied tiles) give the
+    full canvas's dpacked bit for bit."""
+    p = make_synthetic_scene(n=n, seed=seed)
+    with torch.no_grad():
+        rv = activate_params({k: torch.as_tensor(v, device=cuda) for k, v in p.items()})
+        proj = project_gaussians(rv, make_synthetic_camera(w, h, device=cuda))
+        bins = pack_with_binning(proj, rv.colors, rv.opacities, compute_binning(proj, w, h, span))
+    tx, ty = -(-w // 16), -(-h // 16)
+    packed, start, count = bins.packed, bins.tile_start, bins.tile_count
+    full = tile_blend_fwd_cuda(packed, start, count, tx, ty)
+    g = torch.randn(full.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(seed))
+    g[:, 5:] = 0.0
+    dk = tile_blend_bwd_cuda(packed, start, count, full, g, tx, ty)
+    assert torch.equal(tile_blend_bwd_cuda(packed, start, count, full, g, tx, ty), dk)
+
+    occupied = int((count > 0).sum())
+    compact = compact_nonempty_tiles(start, count, min(occupied + 3, tx * ty))
+    assert int(compact.overflow) == 0
+    out_c = tile_blend_fwd_cuda(packed, compact.start, compact.count, tx, ty, compact.ids)
+    valid = compact.ids < tx * ty
+    g_c = torch.zeros_like(out_c)
+    g_c[valid] = g[compact.ids[valid].long()]
+    dk_c = tile_blend_bwd_cuda(packed, compact.start, compact.count, out_c, g_c, tx, ty, compact.ids)
+    assert torch.equal(dk_c, dk)

@@ -32,13 +32,18 @@ from topo4d_tpu_torch.losses.blur import (
 from topo4d_tpu_torch.losses.image import l1_loss_sum_last, ssim
 
 SHAPES = [(3, 37, 51), (15, 200, 300), (2, 128, 128)]
+# the kernel's edge cases: H and W below the window, widths no multiple of 4
+# or of its 128-column strip, a single row of strips; (3, 2161, 3843), its
+# run and strip edges at 4K, goes to the card only (interpret mode at that
+# size would take minutes)
+EDGE_SHAPES = [(3, 7, 5), (2, 37, 53), (1, 11, 700)]
 
 
 def _x(shape, seed=0):
     return np.random.default_rng(seed).uniform(-1, 1, shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_plain_blur_matches_jax_pallas_blur(shape):
     x = _x(shape)
     a = gauss_blur_plain(torch.as_tensor(x)).numpy()
@@ -46,7 +51,7 @@ def test_plain_blur_matches_jax_pallas_blur(shape):
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_plain_blur_matches_jax_shift_form(shape):
     x = _x(shape, 1)
     a = gauss_blur_plain(torch.as_tensor(x)).numpy()
@@ -110,7 +115,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(15, 512, 375)])
+@pytest.mark.parametrize("shape", SHAPES + [(15, 512, 375)] + EDGE_SHAPES + [(3, 2161, 3843)])
 def test_blur_kernel_matches_plain_on_the_card(cuda, shape):
     x = torch.as_tensor(_x(shape, 5), device=cuda).requires_grad_(True)
     g = torch.as_tensor(_x(shape, 6), device=cuda)
