@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port ``topo4d_tpu_torch``.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k1-ref PATH [PATH ...]]
+
+``--k1-ref`` builds sources with K1's C interface (an earlier commit's
+``csrc/blend_fwd.cu`` from ``git show``, or variants of K1) and times each
+beside K1 in phase 6, both alone on the same rows, in turns; each must give
+K1's rows 0-5 bit for bit. Without arguments only the phases below run.
 
 Needs one CUDA card (exits non-zero without one) and ``nvcc``. Phases, in
 order; any failure raises and exits non-zero:
@@ -16,8 +21,7 @@ order; any failure raises and exits non-zero:
    shapes (and at the 4K dense view 0 in phase 6) K4f/K4b, the window-span
    pair behind ``variant="v3"``, at 4 and 8 rows per block: two K2
    launches equal bit for bit, K4f's rows 0-5 equal to K1's bit for bit,
-   K4b within K2's tolerance of the plain gradient (and how many of its
-   values differ from K2's); K5 at the dense phase's (15, 2160, 3840), the
+   K4b's dpacked equal to K2's bit for bit; K5 at the dense phase's (15, 2160, 3840), the
    geometry phase's (15, 512, 375) and four edge shapes (H and W below the
    window, widths off its strips, a 4K plane one past its runs), forward
    bit for bit and backward; K6, the UV bake, at 8192x8192 on the dense
@@ -42,8 +46,10 @@ order; any failure raises and exits non-zero:
    480x270 on a density-1 dense mesh;
 6. timings: K1, K2, K4f/K4b (4 and 8 rows per block) and the plain blend at
    the geometry shapes and at one 4K dense view, there both compact and on
-   the full canvas, with the share of visited (entry, warp) pairs in which
-   a lane contributes; K5 (through its wrapper, the kernel alone through
+   the full canvas (with ``--k1-ref``, those K1 builds beside this one), with the
+   share of visited (entry, warp) pairs in which a lane contributes, for
+   three warp shapes and stop rules, and the share K1's bounding-box cull
+   skips (counted with ``warp_block_cull_plain``); K5 (through its wrapper, the kernel alone through
    its C entry point beside it), its plain version and cuDNN's depthwise
    convolution at both blur shapes; K6 and its plain version at 8192x8192
    and the export's parts (host binning, the uint8 conversion and copy to
@@ -209,32 +215,50 @@ def pair_counts(packed, start, count, tiles_x, ids):
 
 def warp_entry_share(packed, start, count, tiles_x, ids, out):
     """How often a warp's per-entry step has work: the visited (entry, warp)
-    pairs and those in which at least one lane's pixel contributes (the
-    plain alpha, up to each pixel's last contributor as K1 saved it), for
-    two warp shapes -> {shape: (visited, with a contributor)}. Warps of 32
-    consecutive pixels (two pixel rows: K1, and K2's first design) visit
-    every entry up to the tile's furthest last contributor; K2's 8 x 8
-    blocks (two pixels per thread) stop at their own furthest."""
-    from topo4d_tpu_torch.rasterizer.blend import tile_alpha
+    pairs, those in which at least one lane's pixel contributes (the plain
+    alpha, up to each pixel's last contributor as K1 saved it) and, for K1,
+    those its bounding-box cull skips (``warp_block_cull_plain``), for
+    three warp shapes and stop rules -> {shape: {"visited", "with_a_contributor"
+    [, "culled"]}}. Warps of 32 consecutive pixels (two pixel rows: the first
+    design of K1 and of K2) visit every entry up to the tile's furthest last
+    contributor; the backward's 8 x 8 blocks (K2, two pixels per thread) stop
+    at their own furthest last contributor; the forward's 8 x 8 blocks (K1)
+    visit entries up to their own pixels' furthest terminating entry, or the
+    range end if a pixel never stops."""
+    from topo4d_tpu_torch.core.gaussian import TRANSMITTANCE_MIN
+    from topo4d_tpu_torch.rasterizer.blend import PX, tile_alpha, warp_block_cull_plain
     from topo4d_tpu_torch.rasterizer.tiles import TILE
 
-    shapes = {"32 consecutive pixels": (2, TILE, False), "8 x 8 blocks": (8, 8, True)}  # (rows, columns, own stop)
-    totals = {k: [0, 0] for k in shapes}
+    k1 = "8 x 8 blocks, forward stop (K1)"
+    shapes = {  # (rows, columns, the warp's own stop)
+        "32 consecutive pixels": (2, TILE, False), "8 x 8 blocks, backward stop (K2)": (8, 8, True), k1: (8, 8, True),
+    }
+    totals = {k: {"visited": 0, "with_a_contributor": 0} for k in shapes}
+    totals[k1]["culled"] = 0
     last = out[:, 5].long()
     with torch.no_grad():
         for s in range(0, start.shape[0], ROWS_PER_CHUNK):
             sl = slice(s, s + ROWS_PER_CHUNK)
             alpha, _ = tile_alpha(packed, start[sl], count[sl], tiles_x, ids[sl])
             r, m = alpha.shape[0], alpha.shape[-1]
+            j = torch.arange(m, device=alpha.device)
             lst = last[sl]
-            contrib = (alpha > 0) & (torch.arange(m, device=alpha.device) < lst[..., None])
+            contrib = (alpha > 0) & (j < lst[..., None])
+            # the forward's per-pixel visit: up to and including its terminating entry
+            stop = torch.cumprod(1.0 - alpha, dim=-1) < TRANSMITTANCE_MIN
+            full = count[sl, None].long().expand(-1, PX)
+            reach = torch.minimum(torch.where(stop.any(-1), stop.float().argmax(-1) + 1, full), full)
             for k, (h, w, own) in shapes.items():
                 blocks = (r, TILE // h, h, TILE // w, w)
-                per_warp = lst.view(blocks).amax((2, 4))
+                per_pixel = reach if k == k1 else lst
+                per_warp = per_pixel.view(blocks).amax((2, 4))
                 visited = per_warp if own else lst.amax(-1)[:, None, None].expand_as(per_warp)
-                totals[k][0] += int(visited.sum())
-                totals[k][1] += int(contrib.view(*blocks, m).any(4).any(2).sum())
-    return {k: tuple(v) for k, v in totals.items()}
+                totals[k]["visited"] += int(visited.sum())
+                totals[k]["with_a_contributor"] += int(contrib.view(*blocks, m).any(4).any(2).sum())
+                if k == k1:  # warp w is block (w // 2, w % 2): the view's (block row, block column) order
+                    culled = warp_block_cull_plain(packed, start[sl], count[sl], tiles_x, ids[sl])
+                    totals[k]["culled"] += int((culled & (j < visited.reshape(r, 4, 1))).sum())
+    return totals
 
 
 V3_TPS = (4, 8)  # K4's rows per block: JAX's default and the other width scripts/probe_dense_v3.py sweeps
@@ -365,11 +389,12 @@ def compare_kernels(bins, binning, tiles_x, tiles_y, label: str, seed: int, comp
         b_err = float((gv - gp).abs().max())
         torch.testing.assert_close(gv / scale, gp / scale, rtol=2e-3, atol=2e-5)
         k2_differ = int((dp_v != dp_k).sum())
+        if k2_differ:
+            raise AssertionError(f"{label}: K4b (tps {tps}) differs from K2 in {k2_differ} of {dp_k.numel()} values")
         log(
             f"{label}, K4 tps {tps}: K4f rows 0-5 equal K1 bit for bit (0 of {out_k[:, :6].numel()} values "
-            f"differ), max|err| {f_err:.3e} vs plain; K4b max|err| {b_err:.3e} of the Gaussian gradients, ratio "
-            f"{b_err / scale:.3e}; dpacked values that differ from K2's: {k2_differ} of {dp_k.numel()} (bit for "
-            f"bit: {k2_differ == 0})"
+            f"differ), max|err| {f_err:.3e} vs plain; K4b equals K2 bit for bit (0 of {dp_k.numel()} values "
+            f"differ), max|err| {b_err:.3e} of the Gaussian gradients, ratio {b_err / scale:.3e}"
         )
         v3_fwd_err, v3_bwd_err = max(v3_fwd_err, f_err), max(v3_bwd_err, b_err)
     return fwd_err, bwd_err, v3_fwd_err, v3_bwd_err
@@ -976,6 +1001,66 @@ def phase_texture_card_vs_cpu(cfg, trainer, scene, steps: int = 3):
     )
 
 
+K1_REFS = {}  # path -> a second K1 build timed beside K1 (``--k1-ref``)
+
+
+def load_k1_ref(path):
+    """Build ``path``, a source with K1's C interface (an earlier
+    commit's ``csrc/blend_fwd.cu``, or a variant of K1), with the kernels'
+    nvcc flags into ``build/`` and load its ``tile_blend_fwd``."""
+    import ctypes
+    import hashlib
+
+    from topo4d_tpu_torch import kernels
+
+    src = os.path.abspath(path)
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = kernels.BUILD_DIR / f"k1_ref-{digest}.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--k1-ref {path}: build failed:\n{proc.stdout}{proc.stderr}")
+    log(f"[nvcc] --k1-ref {path}\n{(proc.stdout + proc.stderr).strip()}")
+    fn = ctypes.CDLL(str(out)).tile_blend_fwd
+    fn.argtypes = kernels.KERNELS["tile_blend_fwd"][1]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def time_k1_refs(out, row_args, stream, label: str, iters: int):
+    """K1 and each ``--k1-ref`` build, each alone on an output allocated
+    once, in turns (reference, K1, K1, reference) on the same rows; their
+    rows 0-5 must equal K1's bit for bit -> {path: {"ms", "k1_ms", "turns"}}."""
+    from topo4d_tpu_torch import kernels
+
+    k1 = kernels.kernel("tile_blend_fwd")
+    res = {}
+    for path, ref in K1_REFS.items():
+        outs = {"k1": torch.empty_like(out), "ref": torch.empty_like(out)}
+        calls = {
+            "k1": lambda: kernels.check(k1(*row_args, outs["k1"].data_ptr(), stream), "tile_blend_fwd"),
+            "ref": lambda ref=ref: kernels.check(ref(*row_args, outs["ref"].data_ptr(), stream), path),
+        }
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        for name, o in outs.items():
+            if not torch.equal(o[:, :6], out[:, :6]):
+                raise AssertionError(f"{label}: {path if name == 'ref' else 'K1 alone'} differs from K1's wrapper "
+                                     "in rows 0-5")
+        turns = [(name, cuda_ms(calls[name], iters=iters)) for name in ("ref", "k1", "k1", "ref")]
+        mean = {n: float(np.mean([t for m, t in turns if m == n])) for n in calls}
+        log(
+            f"timing, {label}: K1 alone {mean['k1']:.4f} ms, {path} alone {mean['ref']:.4f} ms "
+            f"({mean['ref'] / mean['k1']:.2f}x K1; turns " + ", ".join(f"{n} {t:.4f}" for n, t in turns)
+            + "); rows 0-5 equal bit for bit"
+        )
+        res[path] = {"ms": mean["ref"], "k1_ms": mean["k1"], "turns": turns}
+    return res
+
+
 def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, plain_iters: int, seed: int):
     """K1 and K2 on one view's rows (every tile of the canvas, or the
     compact list): the kernels' times, K2's wrapper with its dpacked
@@ -1009,6 +1094,7 @@ def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, pla
     ms_plain_fwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids), iters=plain_iters, warmup=1)
     ms_plain_bwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids, g_out), iters=plain_iters, warmup=1)
     bf, byf, bb, byb = blend_bounds(packed, start, count, tx, ids, out, compact)
+    refs = time_k1_refs(out, k2_args[:7], stream, label, iters)
     k4b = kernels.kernel("tile_blend_v3_bwd")
     v3 = {}
     for tps in V3_TPS:
@@ -1031,7 +1117,7 @@ def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, pla
     )
     return {
         "v3": v3,
-        "fwd": {"ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf},
+        "fwd": {"ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf, "k1_ref": refs},
         "bwd": {"ms": ms_bwd, "plain_ms": ms_plain_bwd, "bound_ms": bb, "bound_by": byb,
                 "wrapper_ms": ms_bwd_wrapper, "zero_fill_ms": ms_zero},
     }
@@ -1095,7 +1181,11 @@ def phase_texture_timing(trainer, errs):
     out = tile_blend_fwd_cuda(bins.packed, start, count, tx, ty, ids)
     blend["warp_share"] = warp_entry_share(bins.packed, start, count, tx, ids, out)
     log("4K dense view 0, compact: visited (entry, warp) pairs in which a lane contributes: " + "; ".join(
-        f"warps of {k} {n} of {v} ({100 * n / v:.1f}%)" for k, (v, n) in blend["warp_share"].items()))
+        f"warps of {k} {v['with_a_contributor']} of {v['visited']} "
+        f"({100 * v['with_a_contributor'] / v['visited']:.1f}%"
+        + (f"; culled by the bounding box {v['culled']}, {100 * v['culled'] / v['visited']:.1f}%" if "culled" in v
+           else "") + ")"
+        for k, v in blend["warp_share"].items()))
     time_blend(bins, binning, tx, ty, False, "4K dense view 0, full canvas", iters=20, plain_iters=2, seed=1)
 
     taps = torch.as_tensor(_gaussian_1d(11, 1.5), device=DEVICE)
@@ -1489,9 +1579,9 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": "4K dense view 0, compact", "geometry_shape": geo_timing[key],
         })
-    rows[-1].update(redesigned=True,
-                    warp_entry_share={k: {"visited": v, "with_a_contributor": n}
-                                      for k, (v, n) in blend4k["warp_share"].items()})
+    for row in rows:  # K1 and K2
+        row["redesigned"] = True
+    rows[0].update(warp_entry_share=blend4k["warp_share"], k1_ref=blend4k["fwd"]["k1_ref"])
     tps0 = V3_TPS[0]
     for name, key, src, tpu in (
         ("tile_blend_v3_fwd", "fwd", "blend_v3_fwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:543"),
@@ -1509,6 +1599,7 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
             "geometry_shape": {"bound_ms": geo_timing[key]["bound_ms"], "bound_by": geo_timing[key]["bound_by"],
                                "ms_by_tps": {str(tps): v[f"{key}_ms"] for tps, v in geo_timing["v3"].items()}},
         })
+    rows[-1]["redesigned"] = True  # K4b
     rows.append({
         "name": "gauss_blur", "route": "cuda", "source": "topo4d_tpu_torch/csrc/blur.cu",
         "replaces": "topo4d_tpu/losses/blur_pallas.py:52",
@@ -1530,6 +1621,13 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
 
 def main() -> int:
     global CARD
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke run of topo4d_tpu_torch.")
+    parser.add_argument("--k1-ref", metavar="PATH", nargs="+", default=[],
+                        help="sources with K1's C interface (an earlier commit's csrc/blend_fwd.cu, variants of K1) "
+                        "to time beside K1 in phase 6, each alone, in turns with K1")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1544,6 +1642,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     log(f"kernels built in {kernels.build_all(verbose=True):.2f} s")
+    for path in args.k1_ref:
+        K1_REFS[path] = load_k1_ref(path)
     cfg, src, trainer, scene = build_main_path()
     errs = phase_kernels()
     errs["bake"], bake_inputs = phase_bake(trainer.statics)

@@ -8,7 +8,8 @@ forward rows 0-4 rtol 1e-4 / atol 1e-5, gradients scaled by their largest
 element rtol 2e-3 / atol 2e-5.
 
 The CUDA kernels K1/K2 run only on the card: the ``cuda`` tests compare
-them with the plain version and skip here.
+them with the plain version (and K4f/K4b with them, bit for bit) and skip
+here.
 """
 
 import jax
@@ -37,6 +38,8 @@ from topo4d_tpu_torch.rasterizer.blend import (
     tile_blend_bwd_cuda,
     tile_blend_fwd_cuda,
     tile_blend_plain,
+    tile_blend_v3_bwd_cuda,
+    tile_blend_v3_fwd_cuda,
 )
 from topo4d_tpu_torch.rasterizer.render import render_gaussians
 from topo4d_tpu_torch.rasterizer.tiles import (
@@ -308,6 +311,9 @@ def test_kernels_match_plain_on_the_card(cuda, n, seed, w, h, span):
     g = torch.randn(ok.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(seed))
     g[:, 5:] = 0.0
     dk = tile_blend_bwd_cuda(packed, start, count, ok, g, tx, ty)
+    for tps in (4, 8):  # K4f keeps K1's per-pixel loop, K4b runs K2's per-tile body
+        assert torch.equal(tile_blend_v3_fwd_cuda(packed, start, count, tx, ty, None, tps)[:, :6], ok[:, :6])
+        assert torch.equal(tile_blend_v3_bwd_cuda(packed, start, count, ok, g, tx, ty, None, tps), dk)
     (dp,) = torch.autograd.grad(op, pp, g)
     e = binning.sorted_gid.shape[0]
     rows = list(FIELD_ROWS)

@@ -214,3 +214,43 @@ def test_compact_kernels_match_plain_on_the_card(cuda, scene):
     (dp,) = torch.autograd.grad(op, pp, g)
     scale = float(dp.abs().max())
     torch.testing.assert_close(dk / scale, dp / scale, rtol=2e-3, atol=2e-5)
+
+
+def _assert_ranges_in_order(start, count, ids=None, num_tiles=None):
+    """The rows' ranges [start, start + count) are ascending and contiguous
+    (K4b walks its rows' ranges one after another and so reads each entry
+    once, as the TPU kernel's union walk did, csrc/blend_v3_bwd.cu); with a
+    tile map, the used rows list ascending tile ids and the padding rows come
+    last with count 0."""
+    start, count = start.long(), count.long()
+    if ids is None:
+        assert int(start[0]) == 0
+        np.testing.assert_array_equal(start[1:].numpy(), (start[:-1] + count[:-1]).numpy())
+        return
+    used = ids < num_tiles
+    n = int(used.sum())
+    assert bool(used[:n].all()) and not bool(used[n:].any())  # padding last
+    assert bool((count[n:] == 0).all())
+    assert bool((ids[1:n] > ids[: n - 1]).all())
+    np.testing.assert_array_equal(start[1:n].numpy(), (start[: n - 1] + count[: n - 1]).numpy())
+
+
+@pytest.mark.parametrize("mode", ["full canvas", "padded", "overflow", "frozen padded", "frozen overflow"])
+def test_tile_ranges_are_ascending_and_contiguous(scene, mode):
+    params, _, cam, occ = scene
+    with torch.no_grad():
+        rv = activate_params(_tp(params))
+        if mode.startswith("frozen"):  # test_frozen_compact_render_matches_jax's setup
+            cap = occ + (3 if mode.endswith("padded") else -2)
+            c = binning_for(rv, cam, SPAN, with_static=True, tile_capacity=cap).compact
+            assert int(c.overflow) == max(0, occ - cap)
+            _assert_ranges_in_order(c.start, c.count, c.ids, -(-W // 16) * -(-H // 16))
+            return
+        b = compute_binning(project_gaussians(rv, cam), W, H, SPAN)
+        t = b.tile_count.shape[0]
+        _assert_ranges_in_order(b.tile_start, b.tile_count)
+        if mode != "full canvas":
+            cap = occ + (3 if mode == "padded" else -2)
+            c = compact_nonempty_tiles(b.tile_start, b.tile_count, cap)
+            assert int(c.overflow) == max(0, occ - cap)
+            _assert_ranges_in_order(c.start, c.count, c.ids, t)

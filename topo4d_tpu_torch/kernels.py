@@ -3,7 +3,9 @@
 Each ``.cu`` file has a plain C interface and is compiled on first use by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
 -Xcompiler -fPIC`` into ``<repo>/build/``, one shared library per source,
-named by a hash of the source so an edited kernel is never served stale.
+named by a hash of the source, of every ``csrc/`` header it includes
+(``#include "..."``, followed into headers) and of the flags, so an edited
+kernel or header is never served stale.
 ``build_all()`` starts one ``nvcc`` per source at once. Nothing here runs at
 import: the CPU tests import every module on a machine without ``nvcc``.
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,10 +57,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and /usr/local/cuda/bin)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> List[Path]:
+    """``source`` and every ``csrc/`` file it includes with quotes, followed
+    into the included files, each once, in the order first met."""
+    found: List[Path] = []
+    todo = [CSRC / source]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo.extend(CSRC / name for name in _INCLUDE.findall(path.read_text()))
+    return found
+
+
 def _lib_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    text = b"".join(p.read_bytes() for p in _sources(source))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
 def build_all(verbose: bool = False) -> float:

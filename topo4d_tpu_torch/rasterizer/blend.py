@@ -20,7 +20,9 @@ VMEM-resident K3, one contract), or to the window-span pair
 ``csrc/blend_v3_fwd.cu`` (K4f) and ``csrc/blend_v3_bwd.cu`` (K4b) under
 "v3", or raises; a CPU tensor goes to ``tile_blend_plain`` under every
 variant, which is also each kernel's oracle on the card. ``LAUNCHES``
-counts kernel launches and plain calls.
+counts kernel launches and plain calls. ``warp_block_cull_plain`` mirrors
+K1's per-warp bounding-box cull, for the tests and chip_smoke.py's counts;
+no blend calls it.
 """
 
 from __future__ import annotations
@@ -149,6 +151,60 @@ def tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids=None):
     alpha = raw + (torch.clamp(raw, max=ALPHA_MAX) - raw).detach()
     keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & valid[:, None, :]
     return torch.where(keep, alpha, torch.zeros_like(alpha)), ent
+
+
+# K1's conservative cull (csrc/blend_fwd.cu, "The cull"): its ranges and margins
+WARP_W = 8  # K1's and K2's warps each own an 8 x 8 pixel block of a tile
+_COORD_MAX = 2.0**20
+_CONIC_MAX = 2.0**40
+_CONIC_MIN = 2.0**-40
+_COND_MAX = 65536.0
+_OPACITY_NONE = float(torch.tensor(ALPHA_MIN, dtype=torch.float32) * torch.tensor(0.99999, dtype=torch.float32))
+_TAU_SLACK = 1e-5
+_TAU_SCALE = 1.0625
+_BOX_SCALE = 1.01
+
+
+def cull_box_plain(x, y, a, b, c, o):
+    """K1's cull box per entry, float32 -> half-widths (hx, hy): +inf culls
+    nothing, -inf culls every pixel (csrc/blend_fwd.cu ``cull_box``)."""
+    inf = torch.full_like(x, float("inf"))
+    tame = (x.abs() <= _COORD_MAX) & (y.abs() <= _COORD_MAX) & (a.abs() <= _CONIC_MAX)
+    tame &= (b.abs() <= _CONIC_MAX) & (c.abs() <= _CONIC_MAX)
+    none_pass = tame & (o < _OPACITY_NONE)
+    det = a * c - b * b
+    tr = a + c
+    t = torch.log(255.0 * o) + _TAU_SLACK
+    boxed = tame & ~none_pass & (o <= 1.0) & (a >= _CONIC_MIN) & (c >= _CONIC_MIN)
+    boxed &= (det > 0.0) & (tr * tr <= _COND_MAX * det) & (t > 0.0)
+    t2 = 2.0 * (_TAU_SCALE * t)
+    hx = torch.where(boxed, _BOX_SCALE * torch.sqrt(t2 * c / det), inf)
+    hy = torch.where(boxed, _BOX_SCALE * torch.sqrt(t2 * a / det), inf)
+    return torch.where(none_pass, -inf, hx), torch.where(none_pass, -inf, hy)
+
+
+@torch.no_grad()
+def warp_block_cull_plain(packed, tile_start, tile_count, tiles_x: int, tile_ids=None):
+    """Plain mirror of K1's warp-uniform cull -> (R, 4, M) bool: entry j of
+    row r's range is culled for the warp block w (columns 8 (w % 2) + 0..7,
+    rows 8 (w // 2) + 0..7 of the tile), M the largest count as in
+    ``tile_alpha``. For the tests and chip_smoke.py's counts only."""
+    t = tile_start.shape[0]
+    dev = packed.device
+    m = max(int(tile_count.max()), 1) if t else 1
+    j = torch.arange(m, device=dev)
+    valid = j[None, :] < tile_count[:, None].to(torch.int64)
+    idx = torch.where(valid, tile_start[:, None].to(torch.int64) + j[None, :], 0)
+    x, y, a, b, c, o = (packed[k][idx] for k in range(6))  # (R, M)
+    hx, hy = cull_box_plain(x, y, a, b, c, o)
+    ids = torch.arange(t, device=dev) if tile_ids is None else tile_ids.to(torch.int64)
+    w = torch.arange(4, device=dev)
+    bx0 = ((ids[:, None] % tiles_x) * TILE + (w % 2) * WARP_W).to(torch.float32)[..., None]  # (R, 4, 1)
+    by0 = ((ids[:, None] // tiles_x) * TILE + (w // 2) * WARP_W).to(torch.float32)[..., None]
+    bx1, by1 = bx0 + (WARP_W - 1), by0 + (WARP_W - 1)
+    x, y, hx, hy = (v[:, None, :] for v in (x, y, hx, hy))
+    culled = (bx0 - x > hx) | (x - bx1 > hx) | (by0 - y > hy) | (y - by1 > hy)
+    return culled & valid[:, None, :]
 
 
 def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
