@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port ``topo4d_tpu_torch``.
 
-    python3 chip_smoke.py [--k1-ref PATH [PATH ...]]
+    python3 chip_smoke.py [--ref NAME=PATH [NAME=PATH ...]]
 
-``--k1-ref`` builds sources with K1's C interface (an earlier commit's
-``csrc/blend_fwd.cu`` from ``git show``, or variants of K1) and times each
-beside K1 in phase 6, both alone on the same rows, in turns; each must give
-K1's rows 0-5 bit for bit. Without arguments only the phases below run.
+``--ref NAME=PATH`` builds PATH, a source of kernel NAME (an earlier
+commit's file from ``git show``, or a variant), and times it beside the
+kernel in phase 6, both alone on the same inputs, in turns: NAME
+``tile_blend_fwd`` (K1) and ``tile_blend_v3_fwd`` (K4f, at each tps) must
+give K1's rows 0-5 bit for bit, ``uv_bake`` (K6) the kernel's canvas; a K6
+source with the interface before the empty-tile list is given a zeroed
+canvas and timed with the fill. Without arguments only the phases below
+run.
 
 Needs one CUDA card (exits non-zero without one) and ``nvcc``. Phases, in
 order; any failure raises and exits non-zero:
@@ -24,9 +28,13 @@ order; any failure raises and exits non-zero:
    K4b's dpacked equal to K2's bit for bit; K5 at the dense phase's (15, 2160, 3840), the
    geometry phase's (15, 512, 375) and four edge shapes (H and W below the
    window, widths off its strips, a 4K plane one past its runs), forward
-   bit for bit and backward; K6, the UV bake, at 8192x8192 on the dense
-   mesh's UVs, on coplanar overlapping triangles (first wins) and on a
-   triangle that spans many tiles;
+   bit for bit and backward; K6, the UV bake, bit for bit, through its
+   wrapper and on a canvas pre-filled with NaN, at 8192x8192 on the dense
+   mesh's UVs, on coplanar overlapping triangles (first wins), on a
+   triangle that spans many tiles and on a tile that holds more entries
+   than one staging batch (degenerate triangles among them), with the share
+   of (pixel, entry) pairs K6's per-warp cull skips (counted with
+   ``bake_warp_cull_plain``) and the entries per occupied tile;
 4. the main path, ``Trainer.run(resume=False)`` over 2 frames of a
    synthetic 24-view sequence into a directory under ``build/``, with the
    launch counters set to 0 just before it and read just after, and each
@@ -46,20 +54,21 @@ order; any failure raises and exits non-zero:
    480x270 on a density-1 dense mesh;
 6. timings: K1, K2, K4f/K4b (4 and 8 rows per block) and the plain blend at
    the geometry shapes and at one 4K dense view, there both compact and on
-   the full canvas (with ``--k1-ref``, those K1 builds beside this one), with the
+   the full canvas (with ``--ref``, those K1 and K4f builds beside these), with the
    share of visited (entry, warp) pairs in which a lane contributes, for
    three warp shapes and stop rules, and the share K1's bounding-box cull
    skips (counted with ``warp_block_cull_plain``); K5 (through its wrapper, the kernel alone through
    its C entry point beside it), its plain version and cuDNN's depthwise
-   convolution at both blur shapes; K6 and its plain version at 8192x8192
-   and the export's parts (host binning, the uint8 conversion and copy to
-   the host, PNG encode, OBJ write); each kernel's bound; profiles of ten track steps
+   convolution at both blur shapes; K6 (with ``--ref``, those K6 builds
+   beside it) and its plain version at 8192x8192 and the export's parts
+   (host binning, the uint8 conversion and copy to the host, PNG encode,
+   OBJ write); each kernel's bound; profiles of ten track steps
    and of ten dense steps, compact and on the full canvas (device busy
    share, activities per step, top kernels);
 7. the v3 path: ten geometry steps at 375x512 and ten dense steps on the 4K
    dense view 0 (its frozen compact binning) through ``variant="v3"``, each
    beside the same steps through ``variant="auto"`` in turns (auto, v3, v3,
-   auto): equal losses, K4 launched and K1/K2 not on the v3 side and the
+   auto): losses equal bit for bit, K4 launched and K1/K2 not on the v3 side and the
    reverse on the auto side, ms per step of each;
 8. the batched all-views mode, a second ``Trainer.run(resume=False)`` over
    2 frames with ``views_per_step`` 0 and the auto ``track_rebin_freq``
@@ -75,6 +84,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -432,37 +442,79 @@ def compare_blur(shape, seed):
 def bake_bound(binning, colors, height, width):
     """K6's bound from what this input needs it to move and compute -> (ms,
     by, pairs): the entries' ten geometry rows and three corner ids, the
-    tile map, each color row read once, the (H, W, 3) canvas written once;
-    the (pixel, entry) pairs of every tile's range on the canvas."""
+    tile lists, each color row read once, the (H, W, 3) canvas written
+    once; the (pixel, entry) pairs of every tile's range on the canvas."""
     e, m = binning.geom.shape[1], binning.tile_ids.shape[0]
     tx = binning.tiles_x
     ids = binning.tile_ids.long()
     on_w = (width - (ids % tx) * 16).clamp(max=16)
     on_h = (height - (ids // tx) * 16).clamp(max=16)
     pairs = int((binning.count.long() * on_w * on_h).sum())
-    nbytes = 13 * 4 * e + 3 * 4 * m + colors.numel() * 4 + height * width * 3 * 4
+    nbytes = 13 * 4 * e + 3 * 4 * m + 4 * binning.empty_ids.shape[0] + colors.numel() * 4 + height * width * 3 * 4
     return (*bound(nbytes, BAKE_OPS_PER_PAIR * pairs + BAKE_OPS_PER_ENTRY * e), pairs)
 
 
+def bake_args(binning, colors, height, width, out, legacy: bool = False):
+    """K6's C arguments for ``out`` on the current stream; ``legacy``: the
+    interface before the empty-tile list."""
+    b = binning
+    head = (b.geom.data_ptr(), b.corner_idx.data_ptr(), b.geom.shape[1], colors.data_ptr(), colors.shape[1],
+            b.tile_ids.data_ptr(), b.start.data_ptr(), b.count.data_ptr(), b.tile_ids.shape[0])
+    tail = (b.tiles_x, width, height, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    return head + tail if legacy else head + (b.empty_ids.data_ptr(), b.empty_ids.shape[0]) + tail
+
+
+def bake_into(binning, colors, height, width, out):
+    """K6 through its C entry point into ``out``, as the caller allocated
+    it (not counted as a launch of the main path)."""
+    from topo4d_tpu_torch import kernels
+
+    kernels.check(kernels.kernel("uv_bake")(*bake_args(binning, colors, height, width, out)), "uv_bake")
+
+
 def compare_bake(binning, colors, height, width, label):
-    """K6 against its plain version on the same inputs: the JAX suite's
-    bake tolerance (rtol 2e-4, atol 2e-5; bit for bit expected) -> (kernel
-    canvas, max |err|)."""
+    """K6 against its plain version on the same inputs, bit for bit, through
+    its wrapper and on a canvas pre-filled with NaN (the kernel must write
+    every pixel) -> (kernel canvas, max |err|)."""
     from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda, bake_canvas_plain
 
     out_k = bake_canvas_cuda(binning, colors, height, width)
+    out_nan = torch.full_like(out_k, float("nan"))
+    bake_into(binning, colors, height, width, out_nan)
     out_p = bake_canvas_plain(binning, colors, height, width)
     torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    differ = int((out_k != out_p).any(-1).sum())
-    torch.testing.assert_close(out_k, out_p, rtol=2e-4, atol=2e-5)
+    err = max(float((o - out_p).abs().max()) for o in (out_k, out_nan))
+    for name, o in (("through its wrapper", out_k), ("on a canvas pre-filled with NaN", out_nan)):
+        if not torch.equal(o, out_p):
+            differ = int((o != out_p).any(-1).sum())
+            raise AssertionError(f"K6 {label}, {name}: {differ} pixels differ from the plain version (max|err| {err:.3e})")
     covered = int((out_p != 0).any(-1).sum())
     log(
         f"K6 {label}: {binning.geom.shape[1]} entries in {binning.tile_ids.shape[0]} occupied tiles of "
-        f"{binning.tiles_x * binning.tiles_y}, {covered} of {height * width} pixels covered; max|err| {err:.3e}, "
-        f"pixels that differ {differ} (bit for bit: {bool(torch.equal(out_k, out_p))})"
+        f"{binning.tiles_x * binning.tiles_y} (at most {int(binning.count.max()) if binning.count.numel() else 0} "
+        f"in one), {covered} of {height * width} pixels covered; bit for bit against the plain version through its "
+        f"wrapper and on a canvas pre-filled with NaN"
     )
     return out_k, err
+
+
+def bake_cull_counts(binning, height, width):
+    """What K6's per-warp cull skips on this input (``bake_warp_cull_plain``)
+    and the entries per occupied tile -> {"culled_pairs", "pairs",
+    "culled_share", "entries_per_tile_max", "entries_per_tile_mean"}; a
+    pair is an on-canvas pixel of a warp block with an entry of its tile."""
+    from topo4d_tpu_torch.texture.bake_tiled import bake_warp_cull_plain
+
+    tile = binning.geom[9].long()
+    w = torch.arange(4, device=tile.device)
+    x0 = (tile % binning.tiles_x)[:, None] * 16 + (w % 2) * 8
+    y0 = (tile // binning.tiles_x)[:, None] * 16 + (w // 2) * 8
+    on_canvas = (width - x0).clamp(0, 8) * (height - y0).clamp(0, 8)  # (E, 4) pixels of each block
+    culled = int((bake_warp_cull_plain(binning) * on_canvas).sum())
+    pairs = int(on_canvas.sum())
+    count = binning.count.double()
+    return {"culled_pairs": culled, "pairs": pairs, "culled_share": culled / max(pairs, 1),
+            "entries_per_tile_max": int(count.max()), "entries_per_tile_mean": float(count.mean())}
 
 
 def read_png(path):
@@ -493,12 +545,16 @@ def read_png(path):
 
 
 def phase_bake(statics):
-    """K6 against its plain version: the 8192^2 bake of the density-5 dense
+    """K6 against its plain version, bit for bit, through its wrapper and on
+    a canvas pre-filled with NaN: the 8192^2 bake of the density-5 dense
     mesh's UVs with seeded colors (the main path's shapes), coplanar
-    overlapping triangles (the first wins), a triangle over many tiles, and
-    the wrapper that bins for itself on a canvas whose sides are no multiple
-    of 16 -> (max |err|, the 8K inputs for the timings)."""
+    overlapping triangles (the first wins), a triangle over many tiles, a
+    tile that holds more entries than one staging batch, and triangles
+    partly off a canvas whose sides are no multiple of 16, through the
+    wrapper that bins for itself; K6's culled share and entries per tile at
+    8192^2 -> (max |err|, the 8K inputs for the timings)."""
     from topo4d_tpu_torch.pipeline.export import build_bake_binning
+    from topo4d_tpu_torch.testing import make_crowded_bake_tile
     from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_plain, bake_texture_tiled, compute_bake_binning
 
     nd = statics.dense.topo.dense_vertices.shape[0]
@@ -508,6 +564,12 @@ def phase_bake(statics):
     binning_s = time.perf_counter() - t0
     colors = torch.rand((nd, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(21))
     _, err = compare_bake(binning, colors, TEX_RES, TEX_RES, f"{TEX_RES}x{TEX_RES}, density-{DENSITY} dense mesh")
+    cull = bake_cull_counts(binning, TEX_RES, TEX_RES)
+    log(
+        f"K6 {TEX_RES}x{TEX_RES}: the per-warp cull skips {cull['culled_pairs']} of {cull['pairs']} (pixel, entry) "
+        f"pairs ({100 * cull['culled_share']:.1f}%); entries per occupied tile: mean "
+        f"{cull['entries_per_tile_mean']:.3f}, max {cull['entries_per_tile_max']}"
+    )
 
     # coplanar overlap: the first triangle (red) keeps the tie
     verts = np.array([[2.3, 2.3, 0], [20.3, 2.3, 0], [2.3, 20.3, 0], [3.3, 3.3, 0], [21.3, 3.3, 0], [3.3, 21.3, 0]],
@@ -523,44 +585,73 @@ def phase_bake(statics):
     if b2.tile_ids.shape[0] != 16:
         raise AssertionError(f"the big triangle binned into {b2.tile_ids.shape[0]} tiles, not 16")
     _, e3 = compare_bake(b2, torch.tensor([[0.2, 0.4, 0.8]] * 3, device=DEVICE), 64, 64, "one triangle over 16 tiles")
-    # the wrapper that bins for itself, 93x91
+    # more entries in one tile than one staging batch holds
+    v4, t4 = make_crowded_bake_tile()
+    b4 = compute_bake_binning(v4, t4, 36, 40, device=DEVICE)
+    if int(b4.count.max()) <= 64:
+        raise AssertionError(f"the crowded tile holds {int(b4.count.max())} entries, not more than two batches")
+    c4 = torch.rand((v4.shape[0], 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(4))
+    _, e4 = compare_bake(b4, c4, 36, 40, "a crowded tile, degenerate triangles and ties, 40x36")
+    # partly off the canvas, through the wrapper that bins for itself, 93x91
     rng = np.random.default_rng(3)
-    v3 = np.hstack([rng.uniform(0, 90, (30, 2)), rng.uniform(-1, 1, (30, 1))]).astype(np.float32)
+    v3 = np.hstack([rng.uniform(-8, 100, (30, 2)), rng.uniform(-1, 1, (30, 1))]).astype(np.float32)
     t3 = np.arange(30).reshape(10, 3)
     c3 = torch.rand((30, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
-    got = bake_texture_tiled(v3, t3, c3, 93, 91, device=DEVICE)
-    want = bake_canvas_plain(compute_bake_binning(v3, t3, 93, 91, device=DEVICE), c3, 93, 91)
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
-    return max(err, e2, e3), (binning, binning_s)
+    b3 = compute_bake_binning(v3, t3, 93, 91, device=DEVICE)
+    _, e5 = compare_bake(b3, c3, 93, 91, "partly off a 91x93 canvas")
+    if not torch.equal(bake_texture_tiled(v3, t3, c3, 93, 91, device=DEVICE), bake_canvas_plain(b3, c3, 93, 91)):
+        raise AssertionError("K6 through bake_texture_tiled differs from the plain version")
+    return max(err, e2, e3, e4, e5), (binning, binning_s, cull)
 
 
 def phase_bake_timing(trainer, bake_inputs):
     """K6 and its plain version at 8192^2 on the fitted dense colors, K6's
-    bound, and the export's parts on the same canvas: its uint8 conversion
-    and copy to the host, the PNG encode, the OBJ write."""
+    bound, each ``--ref`` build of K6 in turns with it (a source with the
+    interface before the empty-tile list timed with the zero-fill it needs),
+    and the export's parts on the same canvas: its uint8 conversion and
+    copy to the host, the PNG encode, the OBJ write."""
     from topo4d_tpu_torch import kernels
     from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda, bake_canvas_plain
     from topo4d_tpu_torch.topology.obj_io import write_obj_with_uv
     from topo4d_tpu_torch.utils.png import encode_png
 
-    binning, binning_s = bake_inputs
+    binning, binning_s, cull = bake_inputs
     colors = torch.clamp(trainer.texture_state.params["dense_rgb_colors"], 0.0, 1.0).contiguous()
     canvas = bake_canvas_cuda(binning, colors, TEX_RES, TEX_RES)
     ms_wrapper = cuda_ms(lambda: bake_canvas_cuda(binning, colors, TEX_RES, TEX_RES), iters=10)
-    # the kernel alone, on a canvas allocated and zeroed once (it writes every
-    # pixel of the occupied tiles), and the wrapper's zero-fill alone
-    out = torch.zeros_like(canvas)
+    # the kernel alone, on a canvas allocated once (and pre-filled with NaN)
+    out = torch.full_like(canvas, float("nan"))
     fn = kernels.kernel("uv_bake")
-    args = (
-        binning.geom.data_ptr(), binning.corner_idx.data_ptr(), binning.geom.shape[1], colors.data_ptr(),
-        colors.shape[1], binning.tile_ids.data_ptr(), binning.start.data_ptr(), binning.count.data_ptr(),
-        binning.tile_ids.shape[0], binning.tiles_x, TEX_RES, TEX_RES, out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream,
-    )
+    args = bake_args(binning, colors, TEX_RES, TEX_RES, out)
     ms = cuda_ms(lambda: kernels.check(fn(*args), "uv_bake"), iters=10)
     if not torch.equal(out, canvas):
         raise AssertionError("K6 through its C entry point differs from its wrapper")
     ms_fill = cuda_ms(lambda: torch.zeros_like(canvas), iters=10)
+    refs = {}
+    for path, (ref, legacy) in REFS.get("uv_bake", {}).items():
+        outs = {"new": torch.full_like(canvas, float("nan")), "ref": torch.full_like(canvas, float("nan"))}
+        ref_args = bake_args(binning, colors, TEX_RES, TEX_RES, outs["ref"], legacy)
+
+        def run_ref(ref=ref, ref_args=ref_args, legacy=legacy, o=outs["ref"], path=path):
+            if legacy:
+                o.zero_()
+            kernels.check(ref(*ref_args), path)
+
+        new_args = bake_args(binning, colors, TEX_RES, TEX_RES, outs["new"])
+        calls = {"new": lambda: kernels.check(fn(*new_args), "uv_bake"), "ref": run_ref}
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        for name, o in outs.items():
+            if not torch.equal(o, canvas):
+                raise AssertionError(f"K6: {path if name == 'ref' else 'uv_bake'} differs from K6's wrapper")
+        mean, turns = in_turns(calls, 10)
+        log(
+            f"timing, K6 {TEX_RES}x{TEX_RES}: uv_bake alone {mean['new']:.4f} ms, {path} "
+            f"{'with the zero-fill it needs ' if legacy else ''}{mean['ref']:.4f} ms ({mean['ref'] / mean['new']:.2f}x; "
+            "turns " + ", ".join(f"{n} {t:.4f}" for n, t in turns) + "); canvases equal bit for bit"
+        )
+        refs[path] = {"ms": mean["ref"], "kernel_ms": mean["new"], "with_zero_fill": legacy, "turns": turns}
     ms_plain = cuda_ms(lambda: bake_canvas_plain(binning, colors, TEX_RES, TEX_RES), iters=2, warmup=1)
     b_ms, by, pairs = bake_bound(binning, colors, TEX_RES, TEX_RES)
     torch.cuda.synchronize()
@@ -578,14 +669,14 @@ def phase_bake_timing(trainer, bake_inputs):
     obj_s = time.perf_counter() - t0
     log(
         f"K6 {TEX_RES}x{TEX_RES}: {ms:.4f} ms (bound {b_ms:.4f} ms, {by}, {100 * b_ms / ms:.1f}%; {pairs} pixel-entry "
-        f"pairs); its wrapper with the canvas zero-fill {ms_wrapper:.4f} ms, the fill alone ({canvas.numel() * 4} B) "
-        f"{ms_fill:.4f} ms; plain {ms_plain:.3f} ms; host binning {binning_s:.3f} s (once per sequence); uint8 "
-        f"conversion and copy to the host {to_host_ms:.3f} ms; PNG encode {png_s:.3f} s ({len(png)} bytes); OBJ "
-        f"write {obj_s:.4f} s"
+        f"pairs, {100 * cull['culled_share']:.1f}% of them culled); its wrapper (no fill) {ms_wrapper:.4f} ms; a "
+        f"zero-fill of the canvas ({canvas.numel() * 4} B) {ms_fill:.4f} ms; plain {ms_plain:.3f} ms; host binning "
+        f"{binning_s:.3f} s (once per sequence); uint8 conversion and copy to the host {to_host_ms:.3f} ms; PNG "
+        f"encode {png_s:.3f} s ({len(png)} bytes); OBJ write {obj_s:.4f} s"
     )
     return {"ms": ms, "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": by, "wrapper_ms": ms_wrapper,
             "zero_fill_ms": ms_fill, "binning_s": binning_s, "to_host_ms": to_host_ms, "png_s": png_s,
-            "obj_s": obj_s, "pairs": pairs}
+            "obj_s": obj_s, "pairs": pairs, "cull": cull, "refs": refs}
 
 
 def saturated_scene():
@@ -1001,63 +1092,90 @@ def phase_texture_card_vs_cpu(cfg, trainer, scene, steps: int = 3):
     )
 
 
-K1_REFS = {}  # path -> a second K1 build timed beside K1 (``--k1-ref``)
+REFS = {}  # kernel symbol -> {path: (ctypes function, takes the interface before the empty-tile list)}
+# K6's C interface before the empty-tile list; that kernel expects a zeroed canvas
+BAKE_ARGTYPES_BEFORE_EMPTY_LIST = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def load_k1_ref(path):
-    """Build ``path``, a source with K1's C interface (an earlier
-    commit's ``csrc/blend_fwd.cu``, or a variant of K1), with the kernels'
-    nvcc flags into ``build/`` and load its ``tile_blend_fwd``."""
-    import ctypes
+def load_ref(symbol, path):
+    """Build ``path``, a source of kernel ``symbol`` (an earlier commit's
+    file, or a variant), with the kernels' nvcc flags and ``csrc/`` on the
+    include path into ``build/``, log what ``-Xptxas -v`` says and load it
+    -> (ctypes function, legacy): ``legacy`` for a K6 source with the
+    interface before the empty-tile list (its C signature's parameter
+    count tells)."""
     import hashlib
+    import re
 
     from topo4d_tpu_torch import kernels
 
+    if symbol not in ("tile_blend_fwd", "tile_blend_v3_fwd", "uv_bake"):
+        raise ValueError(f"--ref {symbol}={path}: only tile_blend_fwd, tile_blend_v3_fwd and uv_bake take a reference")
     src = os.path.abspath(path)
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = kernels.BUILD_DIR / f"k1_ref-{digest}.so"
+        text = fh.read()
+    sig = re.search(rb'extern "C" int ' + symbol.encode() + rb"\(([^)]*)\)", text)
+    if sig is None:
+        raise ValueError(f"--ref {symbol}={path}: the source has no extern \"C\" {symbol}")
+    params = sig.group(1).count(b",") + 1
+    argtypes = kernels.KERNELS[symbol][1]
+    legacy = symbol == "uv_bake" and params == len(BAKE_ARGTYPES_BEFORE_EMPTY_LIST)
+    if legacy:
+        argtypes = BAKE_ARGTYPES_BEFORE_EMPTY_LIST
+    elif params != len(argtypes):
+        raise ValueError(f"--ref {symbol}={path}: {params} parameters, the kernel takes {len(argtypes)}")
+    digest = hashlib.sha256(text + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = kernels.BUILD_DIR / f"ref_{symbol}-{digest}.so"
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), src],
-                          capture_output=True, text=True)
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-Xptxas", "-v", "-o",
+                           str(out), src], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"--k1-ref {path}: build failed:\n{proc.stdout}{proc.stderr}")
-    log(f"[nvcc] --k1-ref {path}\n{(proc.stdout + proc.stderr).strip()}")
-    fn = ctypes.CDLL(str(out)).tile_blend_fwd
-    fn.argtypes = kernels.KERNELS["tile_blend_fwd"][1]
+        raise RuntimeError(f"--ref {symbol}={path}: build failed:\n{proc.stdout}{proc.stderr}")
+    log(f"[nvcc] --ref {symbol}={path}\n{(proc.stdout + proc.stderr).strip()}")
+    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn
+    return fn, legacy
 
 
-def time_k1_refs(out, row_args, stream, label: str, iters: int):
-    """K1 and each ``--k1-ref`` build, each alone on an output allocated
-    once, in turns (reference, K1, K1, reference) on the same rows; their
-    rows 0-5 must equal K1's bit for bit -> {path: {"ms", "k1_ms", "turns"}}."""
+def in_turns(calls, iters: int):
+    """Time ``calls["new"]`` and ``calls["ref"]`` in turns (ref, new, new,
+    ref) -> ({"new": ms, "ref": ms} means, [(name, ms), ...])."""
+    turns = [(name, cuda_ms(calls[name], iters=iters)) for name in ("ref", "new", "new", "ref")]
+    return {n: float(np.mean([t for m, t in turns if m == n])) for n in calls}, turns
+
+
+def time_blend_refs(symbol, want, row_args, stream, label: str, iters: int):
+    """K1 or K4f (``symbol``; ``row_args`` its C arguments before the
+    output) and each ``--ref`` build of it, each alone on an output
+    allocated once, in turns on the same rows; every output's rows 0-5 must
+    equal ``want``'s (K1's wrapper) bit for bit -> {path: {"ms", "kernel_ms",
+    "turns"}}."""
     from topo4d_tpu_torch import kernels
 
-    k1 = kernels.kernel("tile_blend_fwd")
+    new = kernels.kernel(symbol)
     res = {}
-    for path, ref in K1_REFS.items():
-        outs = {"k1": torch.empty_like(out), "ref": torch.empty_like(out)}
+    for path, (ref, _) in REFS.get(symbol, {}).items():
+        outs = {"new": torch.empty_like(want), "ref": torch.empty_like(want)}
         calls = {
-            "k1": lambda: kernels.check(k1(*row_args, outs["k1"].data_ptr(), stream), "tile_blend_fwd"),
+            "new": lambda: kernels.check(new(*row_args, outs["new"].data_ptr(), stream), symbol),
             "ref": lambda ref=ref: kernels.check(ref(*row_args, outs["ref"].data_ptr(), stream), path),
         }
         for call in calls.values():
             call()
         torch.cuda.synchronize()
         for name, o in outs.items():
-            if not torch.equal(o[:, :6], out[:, :6]):
-                raise AssertionError(f"{label}: {path if name == 'ref' else 'K1 alone'} differs from K1's wrapper "
-                                     "in rows 0-5")
-        turns = [(name, cuda_ms(calls[name], iters=iters)) for name in ("ref", "k1", "k1", "ref")]
-        mean = {n: float(np.mean([t for m, t in turns if m == n])) for n in calls}
+            if not torch.equal(o[:, :6], want[:, :6]):
+                raise AssertionError(f"{label}: {path if name == 'ref' else symbol} differs from K1 in rows 0-5")
+        mean, turns = in_turns(calls, iters)
         log(
-            f"timing, {label}: K1 alone {mean['k1']:.4f} ms, {path} alone {mean['ref']:.4f} ms "
-            f"({mean['ref'] / mean['k1']:.2f}x K1; turns " + ", ".join(f"{n} {t:.4f}" for n, t in turns)
-            + "); rows 0-5 equal bit for bit"
+            f"timing, {label}: {symbol} alone {mean['new']:.4f} ms, {path} alone {mean['ref']:.4f} ms "
+            f"({mean['ref'] / mean['new']:.2f}x; turns " + ", ".join(f"{n} {t:.4f}" for n, t in turns)
+            + "); rows 0-5 equal K1's bit for bit"
         )
-        res[path] = {"ms": mean["ref"], "k1_ms": mean["k1"], "turns": turns}
+        res[path] = {"ms": mean["ref"], "kernel_ms": mean["new"], "turns": turns}
     return res
 
 
@@ -1094,14 +1212,16 @@ def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, pla
     ms_plain_fwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids), iters=plain_iters, warmup=1)
     ms_plain_bwd = cuda_ms(lambda: plain_blend(packed, start, count, tx, ty, ids, g_out), iters=plain_iters, warmup=1)
     bf, byf, bb, byb = blend_bounds(packed, start, count, tx, ids, out, compact)
-    refs = time_k1_refs(out, k2_args[:7], stream, label, iters)
+    refs = time_blend_refs("tile_blend_fwd", out, k2_args[:7], stream, label, iters)
     k4b = kernels.kernel("tile_blend_v3_bwd")
     v3 = {}
     for tps in V3_TPS:
         fwd_ms = cuda_ms(lambda: tile_blend_v3_fwd_cuda(packed, start, count, tx, ty, kid, tps), iters=iters)
         k4b_args = k2_args[:7] + (tps,) + k2_args[7:]
         bwd_ms = cuda_ms(lambda: kernels.check(k4b(*k4b_args), "tile_blend_v3_bwd"), iters=iters)
-        v3[tps] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        v3_refs = time_blend_refs("tile_blend_v3_fwd", out, k2_args[:7] + (tps,), stream, f"{label}, K4f tps {tps}",
+                                  iters)
+        v3[tps] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_refs": v3_refs}
     v3_msg = "; ".join(
         f"K4 tps {tps}: K4f {v['fwd_ms']:.4f} ms ({100 * bf / v['fwd_ms']:.1f}% of the bound, {v['fwd_ms'] / ms_fwd:.2f}x "
         f"K1), K4b {v['bwd_ms']:.4f} ms ({100 * bb / v['bwd_ms']:.1f}%, {v['bwd_ms'] / ms_bwd:.2f}x K2)"
@@ -1117,7 +1237,7 @@ def time_blend(bins, binning, tx, ty, compact: bool, label: str, iters: int, pla
     )
     return {
         "v3": v3,
-        "fwd": {"ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf, "k1_ref": refs},
+        "fwd": {"ms": ms_fwd, "plain_ms": ms_plain_fwd, "bound_ms": bf, "bound_by": byf, "refs": refs},
         "bwd": {"ms": ms_bwd, "plain_ms": ms_plain_bwd, "bound_ms": bb, "bound_by": byb,
                 "wrapper_ms": ms_bwd_wrapper, "zero_fill_ms": ms_zero},
     }
@@ -1163,8 +1283,6 @@ def phase_texture_timing(trainer, errs):
     compact against the plain version, then the times and bounds of the
     compact rows and of the full canvas; K5, its plain version and cuDNN's
     depthwise convolution at both blur shapes."""
-    import ctypes
-
     import torch.nn.functional as F
 
     from topo4d_tpu_torch import kernels
@@ -1326,7 +1444,7 @@ def phase_v3(trainer, frames, steps: int = 10):
     4K dense view 0 through its frozen compact binning
     (scripts/probe_dense_v3.py:79-86), each beside the same steps through
     ``variant="auto"`` from the same state, in turns (auto, v3, v3, auto):
-    the losses equal within rtol 1e-5; K4 and no K1/K2 launched on the v3
+    the losses equal bit for bit; K4 and no K1/K2 launched on the v3
     side, the reverse on the auto side; then a profile of each variant's
     steps -> {path: {variant: ms per step},
     "counts": the first v3 run's launches per path}."""
@@ -1403,7 +1521,7 @@ def phase_v3(trainer, frames, steps: int = 10):
             if variant in losses:
                 np.testing.assert_array_equal(got, losses[variant])  # the same variant twice: deterministic
             losses[variant] = got
-        np.testing.assert_allclose(losses["v3"], losses["auto"], rtol=1e-5)
+        np.testing.assert_array_equal(losses["v3"], losses["auto"])  # K4f equals K1 and K4b K2, bit for bit
         rel = float(np.max(np.abs(losses["v3"] - losses["auto"]) / np.abs(losses["auto"])))
         out[path] = {v: float(np.mean(t)) for v, t in ms.items()}
         for variant in ("auto", "v3"):  # where a variant's step time goes
@@ -1581,7 +1699,7 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
         })
     for row in rows:  # K1 and K2
         row["redesigned"] = True
-    rows[0].update(warp_entry_share=blend4k["warp_share"], k1_ref=blend4k["fwd"]["k1_ref"])
+    rows[0].update(warp_entry_share=blend4k["warp_share"], refs=blend4k["fwd"]["refs"])
     tps0 = V3_TPS[0]
     for name, key, src, tpu in (
         ("tile_blend_v3_fwd", "fwd", "blend_v3_fwd.cu", "topo4d_tpu/rasterizer/pallas_blend.py:543"),
@@ -1598,8 +1716,9 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
             "ms_by_tps": {str(tps): v[f"{key}_ms"] for tps, v in blend4k["v3"].items()},
             "geometry_shape": {"bound_ms": geo_timing[key]["bound_ms"], "bound_by": geo_timing[key]["bound_by"],
                                "ms_by_tps": {str(tps): v[f"{key}_ms"] for tps, v in geo_timing["v3"].items()}},
+            "redesigned": True,
         })
-    rows[-1]["redesigned"] = True  # K4b
+    rows[-2]["refs_by_tps"] = {str(tps): v["fwd_refs"] for tps, v in blend4k["v3"].items()}  # K4f
     rows.append({
         "name": "gauss_blur", "route": "cuda", "source": "topo4d_tpu_torch/csrc/blur.cu",
         "replaces": "topo4d_tpu/losses/blur_pallas.py:52",
@@ -1614,7 +1733,9 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
         "launches": counts["uv_bake"], "launches_by_path": {"export": counts["uv_bake"]},
         "max_abs_err": errs["bake"], "ms": bake["ms"], "plain_ms": bake["plain_ms"], "bound_ms": bake["bound_ms"],
         "bound_by": bake["bound_by"], "library_ms": None, "shape": [TEX_RES, TEX_RES, 3],
-        "wrapper_ms": bake["wrapper_ms"],
+        "wrapper_ms": bake["wrapper_ms"], "culled_share": bake["cull"]["culled_share"],
+        "entries_per_tile": {"max": bake["cull"]["entries_per_tile_max"], "mean": bake["cull"]["entries_per_tile_mean"]},
+        "refs": bake["refs"], "redesigned": True,
     })
     return rows
 
@@ -1624,9 +1745,9 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke run of topo4d_tpu_torch.")
-    parser.add_argument("--k1-ref", metavar="PATH", nargs="+", default=[],
-                        help="sources with K1's C interface (an earlier commit's csrc/blend_fwd.cu, variants of K1) "
-                        "to time beside K1 in phase 6, each alone, in turns with K1")
+    parser.add_argument("--ref", metavar="NAME=PATH", nargs="+", default=[],
+                        help="sources of kernel NAME (tile_blend_fwd, tile_blend_v3_fwd or uv_bake: an earlier "
+                        "commit's file, or a variant) to time beside the kernel in phase 6, each alone, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1642,8 +1763,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     log(f"kernels built in {kernels.build_all(verbose=True):.2f} s")
-    for path in args.k1_ref:
-        K1_REFS[path] = load_k1_ref(path)
+    for spec in args.ref:
+        symbol, _, path = spec.partition("=")
+        REFS.setdefault(symbol, {})[path] = load_ref(symbol, path)
     cfg, src, trainer, scene = build_main_path()
     errs = phase_kernels()
     errs["bake"], bake_inputs = phase_bake(trainer.statics)

@@ -17,12 +17,20 @@ CPU.
 
 The CUDA kernel runs only on the card: the ``cuda`` test compares it with
 the plain version (bit for bit: the same operation order, no fused
-multiply-add) and skips here.
+multiply-add), through its wrapper and on a canvas pre-filled with NaN,
+and skips here. Its per-warp cull runs only there too; its plain mirror
+``bake_warp_cull_plain`` is held here to the contract's inside test
+(``bake_inside_plain``): no culled (entry, 8 x 8 warp block) pair has an
+inside pixel, on the named cases, the dense mesh and hypothesis-drawn
+triangles, and a cull one pixel wider is caught. The binning's list of
+empty tiles is checked against its occupied tiles and ranges.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from topo4d_tpu.config import Config as JConfig
 from topo4d_tpu.native import render_colors as native_render
@@ -35,12 +43,16 @@ from topo4d_tpu.texture.bake_pallas import bake_texture_pallas
 from topo4d_tpu.texture.bake_pallas import compute_bake_binning as j_compute_bake_binning
 from topo4d_tpu.topology.obj_io import MeshObj as JMesh
 
+from topo4d_tpu_torch import kernels
+from topo4d_tpu_torch.testing import make_crowded_bake_tile
 from topo4d_tpu_torch.texture.bake_tiled import (
     LAUNCHES,
     bake_canvas,
     bake_canvas_cuda,
     bake_canvas_plain,
+    bake_inside_plain,
     bake_texture_tiled,
+    bake_warp_cull_plain,
     compute_bake_binning,
     process_uv,
     reset_launches,
@@ -145,10 +157,20 @@ def _case(name):
     if name == "not_a_multiple_of_16":
         verts, tris, colors = random_mesh(70, 70, n_tris=45, seed=2, max_size=14.0)
         return verts, tris, colors, 75, 71
+    if name == "crowded_tile":
+        verts, tris = make_crowded_bake_tile()
+        colors = np.random.default_rng(4).uniform(0, 1, (verts.shape[0], 3)).astype(np.float32)
+        return verts, tris, colors, 36, 40
     raise KeyError(name)
 
 
-@pytest.mark.parametrize("name", ["random_96x80", "first_wins_tie", "multi_tile_triangle", "not_a_multiple_of_16"])
+PALLAS_CASES = ["random_96x80", "first_wins_tie", "multi_tile_triangle", "not_a_multiple_of_16"]
+# float32 rounding decides some of the crowded tile's pixels, and XLA rounds otherwise: it is held to Pallas
+# only where rounding does not decide (test_crowded_tile_differs_from_pallas_only_where_rounding_decides)
+CASES = PALLAS_CASES + ["crowded_tile"]
+
+
+@pytest.mark.parametrize("name", PALLAS_CASES)
 def test_plain_bake_matches_pallas(name):
     verts, tris, colors, h, w = _case(name)
     want = bake_texture_pallas(verts, tris, colors, h, w, interpret=True)
@@ -159,6 +181,69 @@ def test_plain_bake_matches_pallas(name):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     if name == "first_wins_tie":
         np.testing.assert_array_equal(got[10, 10].numpy(), [1, 0, 0])  # inside both: the first keeps the tie
+
+
+def _thin_triangles(verts, tris, rel_area=1e-6):
+    """(n,) bool: three distinct corners (in float64) that are collinear
+    within ``rel_area``, so the float32 barycentric denominator is
+    cancellation noise (0 or not) and so is the triangle's inside test."""
+    p = verts.astype(np.float64)[tris][:, :, :2]
+    v0, v1, v2 = p[:, 2] - p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 1]
+    n0, n1, n2 = (np.hypot(v[:, 0], v[:, 1]) for v in (v0, v1, v2))
+    cross = v0[:, 0] * v1[:, 1] - v0[:, 1] * v1[:, 0]
+    return (n0 > 0) & (n1 > 0) & (n2 > 0) & (np.abs(cross) <= rel_area * n0 * n1)
+
+
+def _decided_by_rounding(verts, tris, h, w, margin=1e-5):
+    """(h, w) bool: pixels whose winner float32 rounding decides, from exact
+    (float64) barycentrics: in the inner bbox of a thin triangle, or inside
+    (within ``margin``) two triangles of the same constant depth, a tie that
+    the rounding of each depth sum breaks. Triangles with a repeated corner
+    have a denominator of exactly 0 and are decided alike everywhere."""
+    p = verts.astype(np.float64)[tris]
+    thin = _thin_triangles(verts, tris)
+    py, px = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = np.zeros((h, w), bool)
+    inside_at = {}  # constant depth -> count of such triangles covering each pixel
+    for k in range(tris.shape[0]):
+        (x0, y0, z0), (x1, y1, z1), (x2, y2, z2) = p[k]
+        lo, hi = np.ceil(p[k, :, :2].min(0)), np.floor(p[k, :, :2].max(0))
+        box = (px >= lo[0]) & (px <= hi[0]) & (py >= lo[1]) & (py <= hi[1])
+        if thin[k]:
+            out |= box
+            continue
+        cross = (x2 - x0) * (y1 - y0) - (y2 - y0) * (x1 - x0)
+        if cross == 0:
+            continue
+        u = ((px - x0) * (y1 - y0) - (py - y0) * (x1 - x0)) / cross
+        w1 = ((x2 - x0) * (py - y0) - (y2 - y0) * (px - x0)) / cross
+        bary = np.stack([u, w1, 1.0 - u - w1])
+        covered = box & (bary.min(0) >= -margin)
+        if z0 == z1 == z2:
+            inside_at[z0] = inside_at.get(z0, 0) + covered
+    for count in inside_at.values():
+        out |= np.asarray(count) >= 2
+    return out
+
+
+@pytest.mark.parametrize("thin", ["with_thin_triangles", "without_thin_triangles"])
+def test_crowded_tile_differs_from_pallas_only_where_rounding_decides(thin):
+    """The crowded tile is held to the plain version on the card, not to
+    JAX's Pallas bake: XLA rounds some of its pixels' decisions otherwise.
+    Every pixel where the two differ is one whose winner rounding decides
+    (``_decided_by_rounding``). The thin triangles' bboxes cover most of
+    the tile, so without them the rest, the ties and the triangles with a
+    repeated corner among it, is held to Pallas at hundreds of pixels."""
+    verts, tris, colors, h, w = _case("crowded_tile")
+    if thin == "without_thin_triangles":
+        tris = tris[~_thin_triangles(verts, tris)]
+    want = bake_texture_pallas(verts, tris, colors, h, w, interpret=True)
+    got = bake_texture_tiled(verts, tris, colors, h, w, device=CPU).numpy()
+    differ = ~np.isclose(got, want, **TOL).all(-1)
+    decided = _decided_by_rounding(verts, tris, h, w)
+    assert not bool((differ & ~decided).any()), np.argwhere(differ & ~decided)[:8].tolist()
+    if thin == "without_thin_triangles":
+        assert int(((np.abs(want).sum(-1) > 0) & ~decided).sum()) >= 200
 
 
 def test_plain_bake_with_cached_corner_map_matches_pallas():
@@ -368,9 +453,139 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["random_96x80", "first_wins_tie", "multi_tile_triangle", "not_a_multiple_of_16"])
+@pytest.mark.parametrize("name", CASES)
 def test_bake_kernel_matches_plain_on_the_card(cuda, name):
+    """Bit for bit through the wrapper and, through the C entry point, on a
+    canvas pre-filled with NaN: the kernel writes every pixel. The crowded
+    tile holds more entries than one staging batch."""
     verts, tris, colors, h, w = _case(name)
     b = compute_bake_binning(verts, tris, h, w, device=cuda)
     c = torch.as_tensor(colors, device=cuda)
-    torch.testing.assert_close(bake_canvas_cuda(b, c, h, w), bake_canvas_plain(b, c, h, w), rtol=0, atol=0)
+    want = bake_canvas_plain(b, c, h, w)
+    torch.testing.assert_close(bake_canvas_cuda(b, c, h, w), want, rtol=0, atol=0)
+    out = torch.full((h, w, 3), float("nan"), device=cuda)
+    status = kernels.kernel("uv_bake")(
+        b.geom.data_ptr(), b.corner_idx.data_ptr(), b.geom.shape[1], c.data_ptr(), c.shape[1], b.tile_ids.data_ptr(),
+        b.start.data_ptr(), b.count.data_ptr(), b.tile_ids.shape[0], b.empty_ids.data_ptr(), b.empty_ids.shape[0],
+        b.tiles_x, w, h, out.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    kernels.check(status, "uv_bake")
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K6's per-warp cull (through its plain mirror) and the empty-tile list
+# ---------------------------------------------------------------------------
+
+CULL_CASES = CASES + ["dense_64", "dense_96"]
+
+
+def _binning(name):
+    if name.startswith("dense_"):
+        res = int(name[len("dense_"):])
+        uv_px, tris, uv2vert, _ = dense_mesh_layout(res)
+        return compute_bake_binning(uv_px, tris, res, res, corner_map=uv2vert, device=CPU)
+    verts, tris, _, h, w = _case(name)
+    return compute_bake_binning(verts, tris, h, w, device=CPU)
+
+
+def _blocks_with_an_inside_pixel(binning):
+    """(E, 4) bool: warp block w (columns 8 (w % 2) + 0..7, rows 8 (w // 2)
+    + 0..7 of the entry's tile) has a pixel inside the entry's triangle."""
+    inside = bake_inside_plain(binning)
+    return inside.view(-1, 2, 8, 2, 8).any(4).any(2).reshape(-1, 4)
+
+
+def _widened_cull(binning, widen):
+    """The mirror's cull with the warp block shrunk by ``widen`` pixels on
+    each side: ``widen`` 0 is ``bake_warp_cull_plain``."""
+    g = binning.geom
+    umin = torch.ceil(torch.minimum(torch.minimum(g[0], g[2]), g[4]))[:, None]
+    umax = torch.floor(torch.maximum(torch.maximum(g[0], g[2]), g[4]))[:, None]
+    vmin = torch.ceil(torch.minimum(torch.minimum(g[1], g[3]), g[5]))[:, None]
+    vmax = torch.floor(torch.maximum(torch.maximum(g[1], g[3]), g[5]))[:, None]
+    tile = g[9].to(torch.int64)[:, None]
+    w = torch.arange(4)
+    bx0 = ((tile % binning.tiles_x) * 16 + (w % 2) * 8).to(torch.float32) + widen
+    by0 = ((tile // binning.tiles_x) * 16 + (w // 2) * 8).to(torch.float32) + widen
+    bx1, by1 = bx0 + 7 - 2 * widen, by0 + 7 - 2 * widen
+    return (umax < bx0) | (umin > bx1) | (vmax < by0) | (vmin > by1)
+
+
+def _check_cull_safe(binning):
+    """No culled (entry, warp block) pair has an inside pixel -> (culled, pairs)."""
+    culled = bake_warp_cull_plain(binning)
+    bad = culled & _blocks_with_an_inside_pixel(binning)
+    assert not bool(bad.any()), f"{int(bad.sum())} culled (entry, warp block) pairs have an inside pixel"
+    return int(culled.sum()), culled.numel()
+
+
+def _check_empty_tiles(binning):
+    """The empty list and the occupied tiles partition the canvas's tiles;
+    the ranges tile the entries in order, each entry in its own tile."""
+    ids, empty = binning.tile_ids.long(), binning.empty_ids.long()
+    start, count = binning.start.long(), binning.count.long()
+    n_tiles = binning.tiles_x * binning.tiles_y
+    assert binning.empty_ids.dtype == torch.int32 and binning.empty_ids.is_contiguous()
+    assert bool((empty[1:] > empty[:-1]).all()) and bool((ids[1:] > ids[:-1]).all())
+    assert torch.equal(torch.sort(torch.cat([ids, empty])).values, torch.arange(n_tiles))
+    assert bool((count >= 1).all())
+    assert torch.equal(start, torch.cumsum(count, 0) - count) and int(count.sum()) == binning.geom.shape[1]
+    assert torch.equal(binning.geom[9].long(), torch.repeat_interleave(ids, count))
+
+
+@pytest.mark.parametrize("name", CULL_CASES)
+def test_bake_cull_mirror_is_conservative(name):
+    b = _binning(name)
+    assert torch.equal(_widened_cull(b, 0), bake_warp_cull_plain(b))
+    _check_cull_safe(b)
+
+
+def test_bake_cull_removes_a_share_of_the_dense_mesh():
+    """The dense mesh's small triangles leave most warp blocks of their
+    tiles: the cull removes a real share, so the checks above do not pass
+    vacuously."""
+    culled, pairs = _check_cull_safe(_binning("dense_96"))
+    assert culled > 0.3 * pairs
+
+
+@pytest.mark.parametrize("name", ["dense_64", "crowded_tile"])
+def test_a_cull_one_pixel_wider_is_caught(name):
+    """The mirror shrunk by one pixel on each side of the warp block drops
+    pairs with an inside pixel: the safety check can fail."""
+    b = _binning(name)
+    assert bool((_widened_cull(b, 1) & _blocks_with_an_inside_pixel(b)).any())
+
+
+@pytest.mark.parametrize("name", CULL_CASES)
+def test_bake_binning_lists_the_empty_tiles(name):
+    _check_empty_tiles(_binning(name))
+
+
+_edge = st.sampled_from([0.0, 7.0, 7.5, 8.0, 15.0, 15.5, 16.0, 23.0, 24.0, 31.0, 32.0, -0.5, 39.0, 40.5])
+_coord = st.one_of(_edge, _edge.map(lambda v: v + 1e-4), _edge.map(lambda v: v - 1e-4), st.floats(-12.0, 52.0))
+
+
+@st.composite
+def _triangle(draw):
+    """Corners on tile and warp-block edges or anywhere (some off the 40 x
+    36 canvas, some wider than a tile), or degenerate: collinear corners or
+    a repeated one."""
+    p = [(draw(_coord), draw(_coord)) for _ in range(3)]
+    kind = draw(st.sampled_from(["any", "collinear", "repeated"]))
+    if kind == "collinear":
+        t = draw(st.sampled_from([-1.0, 0.5, 2.0]))
+        p[2] = (p[0][0] + t * (p[1][0] - p[0][0]), p[0][1] + t * (p[1][1] - p[0][1]))
+    elif kind == "repeated":
+        p[1] = p[0]
+    z = draw(st.floats(-1.0, 1.0))
+    return [(x, y, z) for x, y in p]
+
+
+@settings(max_examples=120, deadline=None)
+@given(st.lists(_triangle(), min_size=1, max_size=8))
+def test_bake_cull_is_conservative_on_drawn_triangles(tris):
+    verts = np.asarray(tris, np.float32).reshape(-1, 3)
+    b = compute_bake_binning(verts, np.arange(verts.shape[0]).reshape(-1, 3), 36, 40, device=CPU)
+    _check_cull_safe(b)
+    _check_empty_tiles(b)

@@ -39,5 +39,22 @@ def test_shared_blend_body_is_in_both_backward_keys():
     both libraries."""
     for source in ("blend_bwd.cu", "blend_v3_bwd.cu"):
         assert [p.name for p in kernels._sources(source)] == [source, "blend_bwd_tile.cuh"]
-    for source in ("blend_fwd.cu", "blend_v3_fwd.cu", "blur.cu", "bake.cu"):
+    for source in ("blur.cu", "bake.cu"):
         assert [p.name for p in kernels._sources(source)] == [source]
+
+
+def test_shared_blend_body_is_in_both_forward_keys():
+    """K1 and K4f include the same per-tile body, so an edit of it renames
+    both libraries, and neither includes the backward's."""
+    for source in ("blend_fwd.cu", "blend_v3_fwd.cu"):
+        assert [p.name for p in kernels._sources(source)] == [source, "blend_fwd_tile.cuh"]
+
+
+def test_every_kernel_source_is_named_once():
+    """Each C symbol maps to its own source, and every source and header in
+    csrc/ is built by some kernel: nothing is left unbuilt or shared by
+    name."""
+    sources = [src for src, _ in kernels.KERNELS.values()]
+    assert len(sources) == len(set(sources))
+    used = {p.name for src in sources for p in kernels._sources(src)}
+    assert used == {p.name for p in kernels.CSRC.iterdir() if p.suffix in (".cu", ".cuh")}

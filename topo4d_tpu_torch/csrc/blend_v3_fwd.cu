@@ -16,191 +16,79 @@
 // (count 0) come out as T_final 1, all else 0.
 //
 // The TPU kernel's idea, kept: one block owns ``tps`` consecutive output
-// rows and stages the UNION of their entry ranges through fast memory once
-// for all of them, so the serial chain of batch visits is one walk of the
-// union instead of one walk per row; and the block terminates collectively.
-// Consecutive rows have contiguous ranges in the (tile, depth) sort (compact
-// rows list ascending tile ids), so the union is one contiguous span.
-// Padding rows (count 0) are left out of it (:589-596).
-//
-// The TPU devices left behind: the double-buffered window DMA, the SMEM
+// rows (1-8). On the TPU it walked the UNION of their spans once, so that
+// one window DMA fed every row, and the block terminated collectively. Left
+// behind with it: the union span, the double-buffered window DMA, the SMEM
 // window cache, the log-space transmittance carry, the (8, PX) transposed
-// residual layout and the per-window residual rows (:663-677). Rows 5-7 keep
-// K1's layout, so K2's and K4b's reverse sweeps start from the same row 5.
+// residual layout and the per-window residual rows (:663-677). On a GPU the
+// union walk buys nothing: the rows' ranges are ascending and contiguous
+// (tiles.py sorts the entries stably by (tile, depth), and
+// compact_nonempty_tiles keeps the non-empty tiles in ascending id order,
+// padding rows last with count 0), so a block that walks its rows' ranges
+// one after another reads each entry once, as the union walk did
+// (tests/test_torch_compact.py checks that order). Rows 5-7 keep K1's
+// layout, so K2's and K4b's reverse sweeps start from the same row 5.
 //
-// Design. One block of 256 threads per group of TPS rows (a template
-// parameter, 1-8): thread p owns pixel p of each of the TPS tiles and keeps
-// their blend state (T, four sums, last contributor, done) in registers.
-// (256 * TPS threads, one per pixel, would not fit a block at TPS 8.) The
-// block stages the union span in batches of 256 entries, one entry per
-// thread, coalesced, into shared memory. For each of its tiles a thread
-// walks only the intersection of the batch with that tile's own range, in
-// K1's order with K1's arithmetic: the TPU kernel masks foreign entries to
-// alpha 0, but on a GPU a masked entry still costs its loop iteration. The
-// block leaves the batch loop when __syncthreads_count says every pixel of
-// every tile has either stopped or passed the end of its range; a pixel
-// that has stopped stays stopped, so collective termination decides only
-// when loading ends, never a pixel's result.
+// Design. A block of 128 threads, K1's: each thread owns two vertically
+// adjacent pixels, each warp an 8 x 8 block. The block runs K1's per-tile
+// body (csrc/blend_fwd_tile.cuh) on each of its rows in turn: each row gets
+// exactly K1's batches, cull, early cut, per-warp stop and operation order,
+// so K4f's rows 0-5 equal K1's bit for bit, with a barrier between two
+// rows. The one thing the window-span idea still offered a GPU was to carry
+// the double buffer across rows: a row's last batch issuing the next row's
+// first batch, so that its copies overlap the last batch's work. Timed
+// in turns with this turn-by-turn version in one call (chip_smoke.py
+// --ref) it was 1-5% slower at the 4K view at tps 4 and 8, 1% faster at
+// the geometry view, and took 64 registers against 56, so it was dropped
+// (PERF.md section 6 has the times).
 //
 // Bound on an H100 SXM: the same work as K1 (the same entries read, the
 // same output written, the same pairs evaluated), so K1's bound at the same
-// shape. A block does TPS tiles' serial work with 256 threads, so at equal
-// occupancy it has TPS times less parallelism than K1; the span walk saves
-// barriers and batch loads only where tiles hold few entries.
+// shape. A block does ``tps`` tiles' work in series, so at the 4K compact
+// view (18,432 rows, 4,608 blocks at tps 4) it has a quarter of K1's
+// blocks, and at the geometry view (768 rows, 192 blocks at tps 4 on 132
+// SMs) fewer blocks than the card has room for. Measured (chip_smoke.py
+// with --ref and the union-span design's source, NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md section 6): at the 4K compact view, the kernel alone,
+// 0.5183 ms at tps 4 and 0.5775 at tps 8 against the union-span design's
+// 0.9205 / 1.2819; through the wrapper 0.5226 / 0.5786 ms against K1's
+// 0.4678 in the same call (1.12x, 1.24x); at the geometry view, the
+// kernels alone, 0.0429 / 0.0818 ms against K1's 0.0168 and the union-span
+// design's 0.0830 / 0.2039. -Xptxas -v: K1's 56 registers and 12,800 bytes
+// of static shared memory, no spills.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false. With
-// --fmad=false every product and sum is rounded on its own, so each pixel's
-// rows 0-5 equal K1's bit for bit.
+// Since the body is K1's, K4f's rows 0-5 equal K1's by construction, and
+// chip_smoke.py's assertion that they do guards the row loop, not the body.
+// The body is held to the plain version by the forward check (rtol 1e-4,
+// atol 1e-5) and, through chip_smoke.py --ref, to an earlier K1 source bit
+// for bit.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false, as K1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_fwd_tile.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;
-constexpr int BATCH = PX;
+using namespace blend_fwd;
+
 constexpr int MAX_TPS = 8;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_MIN = 1e-4f;
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
-
-template <int TPS>
-__global__ void __launch_bounds__(PX) tile_blend_v3_fwd_kernel(
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) tile_blend_v3_fwd_kernel(
     const float* __restrict__ packed, int64_t e_pad,
     const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count,
-    const int32_t* __restrict__ tile_ids, int tiles_x, int num_rows,
+    const int32_t* __restrict__ tile_ids, int tiles_x, int num_rows, int tps,
     float* __restrict__ out) {
-  const int row0 = blockIdx.x * TPS;
-  const int p = threadIdx.x;
-
-  __shared__ float s_x[BATCH], s_y[BATCH], s_a[BATCH], s_b[BATCH];
-  __shared__ float s_c[BATCH], s_o[BATCH];
-  __shared__ float s_r[BATCH], s_g[BATCH], s_bl[BATCH], s_d[BATCH];
-  __shared__ int64_t s_start[TPS];
-  __shared__ int s_count[TPS], s_tile[TPS];
-  __shared__ int64_t s_lo, s_hi;
-
-  if (p < TPS) {
-    const int r = row0 + p;
-    const bool in = r < num_rows;
-    s_start[p] = in ? (int64_t)tile_start[r] : 0;
-    s_count[p] = in ? tile_count[r] : 0;
-    s_tile[p] = in ? (tile_ids ? tile_ids[r] : r) : 0;
+  __shared__ Smem sm;
+  const int row0 = blockIdx.x * tps;
+  const int rows = min(tps, num_rows - row0);
+  for (int j = 0; j < rows; ++j) {
+    if (j > 0) __syncthreads();  // the previous row's batches are consumed
+    fwd_tile(packed, e_pad, tile_start, tile_count, tile_ids, tiles_x, row0 + j, out, sm);
   }
-  __syncthreads();
-  if (p == 0) {
-    // the union span of the non-empty rows' ranges
-    int64_t lo = 0, hi = 0;
-    bool any = false;
-    for (int j = 0; j < TPS; ++j) {
-      if (s_count[j] > 0) {
-        lo = any ? min64(lo, s_start[j]) : s_start[j];
-        hi = max64(hi, s_start[j] + s_count[j]);
-        any = true;
-      }
-    }
-    s_lo = lo;
-    s_hi = hi;
-  }
-  __syncthreads();
-  const int64_t lo = s_lo, hi = s_hi;
-
-  float T[TPS], acc_r[TPS], acc_g[TPS], acc_b[TPS], acc_d[TPS];
-  int last[TPS];
-  bool done[TPS];
-#pragma unroll
-  for (int j = 0; j < TPS; ++j) {
-    T[j] = 1.0f;
-    acc_r[j] = acc_g[j] = acc_b[j] = acc_d[j] = 0.0f;
-    last[j] = 0;
-    done[j] = false;
-  }
-
-  for (int64_t base = lo; base < hi; base += BATCH) {
-    // finished: every tile of this pixel has stopped or has no entry at or
-    // past ``base``. The barrier also protects the previous batch.
-    bool finished = true;
-#pragma unroll
-    for (int j = 0; j < TPS; ++j)
-      finished = finished && (done[j] || s_start[j] + s_count[j] <= base);
-    if (__syncthreads_count(finished) == PX) break;
-    const int nb = (int)min64(BATCH, hi - base);
-    if (p < nb) {
-      const float* e = packed + base + p;
-      s_x[p] = e[0 * e_pad];
-      s_y[p] = e[1 * e_pad];
-      s_a[p] = e[2 * e_pad];
-      s_b[p] = e[3 * e_pad];
-      s_c[p] = e[4 * e_pad];
-      s_o[p] = e[5 * e_pad];
-      s_r[p] = e[8 * e_pad];
-      s_g[p] = e[9 * e_pad];
-      s_bl[p] = e[10 * e_pad];
-      s_d[p] = e[11 * e_pad];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < TPS; ++j) {
-      if (done[j]) continue;
-      const int64_t t0 = s_start[j];
-      // this tile's entries in the batch: [k0, k1) in batch positions
-      const int k0 = (int)(max64(t0, base) - base);
-      const int k1 = (int)(min64(t0 + s_count[j], base + nb) - base);
-      const int tile = s_tile[j];
-      const float px = (float)((tile % tiles_x) * TILE + (p % TILE));
-      const float py = (float)((tile / tiles_x) * TILE + (p / TILE));
-      for (int k = k0; k < k1; ++k) {
-        const float dx = s_x[k] - px;
-        const float dy = s_y[k] - py;
-        const float power =
-            -0.5f * (s_a[k] * dx * dx + s_c[k] * dy * dy) - s_b[k] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(ALPHA_MAX, s_o[k] * expf(power));
-        if (alpha < ALPHA_MIN) continue;
-        const float test_t = T[j] * (1.0f - alpha);
-        if (test_t < T_MIN) {
-          done[j] = true;
-          break;
-        }
-        const float w = alpha * T[j];
-        acc_r[j] += s_r[k] * w;
-        acc_g[j] += s_g[k] * w;
-        acc_b[j] += s_bl[k] * w;
-        acc_d[j] += s_d[k] * w;
-        T[j] = test_t;
-        last[j] = (int)(base + k - t0) + 1;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < TPS; ++j) {
-    const int r = row0 + j;
-    if (r >= num_rows) break;
-    float* o = out + (int64_t)r * 8 * PX + p;
-    o[0 * PX] = acc_r[j];
-    o[1 * PX] = acc_g[j];
-    o[2 * PX] = acc_b[j];
-    o[3 * PX] = acc_d[j];
-    o[4 * PX] = T[j];
-    o[5 * PX] = (float)last[j];
-    o[6 * PX] = 0.0f;
-    o[7 * PX] = 0.0f;
-  }
-}
-
-template <int TPS>
-void launch(const float* packed, int64_t e_pad, const int32_t* start,
-            const int32_t* count, const int32_t* ids, int tiles_x,
-            int num_rows, float* out, cudaStream_t stream) {
-  const int blocks = (num_rows + TPS - 1) / TPS;
-  tile_blend_v3_fwd_kernel<TPS><<<blocks, PX, 0, stream>>>(
-      packed, e_pad, start, count, ids, tiles_x, num_rows, out);
 }
 
 }  // namespace
@@ -216,22 +104,11 @@ extern "C" int tile_blend_v3_fwd(const void* packed, int64_t e_pad,
                                  void* stream) {
   if (tps < 1 || tps > MAX_TPS) return (int)cudaErrorInvalidValue;
   if (num_rows > 0) {
-    const float* pk = (const float*)packed;
-    const int32_t* st = (const int32_t*)tile_start;
-    const int32_t* ct = (const int32_t*)tile_count;
-    const int32_t* id = (const int32_t*)tile_ids;
-    float* o = (float*)out;
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (tps) {
-      case 1: launch<1>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      case 2: launch<2>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      case 3: launch<3>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      case 4: launch<4>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      case 5: launch<5>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      case 6: launch<6>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      case 7: launch<7>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-      default: launch<8>(pk, e_pad, st, ct, id, tiles_x, num_rows, o, s); break;
-    }
+    const int blocks = (num_rows + tps - 1) / tps;
+    tile_blend_v3_fwd_kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>(
+        (const float*)packed, e_pad, (const int32_t*)tile_start,
+        (const int32_t*)tile_count, (const int32_t*)tile_ids, tiles_x,
+        num_rows, tps, (float*)out);
   }
   return (int)cudaGetLastError();
 }

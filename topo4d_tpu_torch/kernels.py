@@ -44,7 +44,7 @@ KERNELS: Dict[str, tuple] = {
     "tile_blend_v3_fwd": ("blend_v3_fwd.cu", [P, I64, P, P, P, I32, I32, I32, P, P]),
     "tile_blend_v3_bwd": ("blend_v3_bwd.cu", [P, I64, P, P, P, I32, I32, I32, P, P, P, P]),
     "gauss_blur": ("blur.cu", [P, P, I32, I32, I32, P, P]),
-    "uv_bake": ("bake.cu", [P, P, I64, P, I32, P, P, P, I32, I32, I32, I32, P, P]),
+    "uv_bake": ("bake.cu", [P, P, I64, P, I32, P, P, P, I32, P, I32, I32, I32, I32, P, P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -147,3 +147,23 @@ def make_head_fixture(
     }
     cams = make_camera_ring(num_views, width=width, height=height, distance=2.0, device=device)
     return params, cams, (verts, faces)
+
+
+def make_crowded_bake_tile(n_tris: int = 100, seed: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """``n_tris`` UV triangles crowded into the first 16 x 16 tile of a
+    40 x 36 canvas and its neighbours, so that one tile holds more entries
+    than K6 stages in one batch: random depths and equal ones (ties),
+    corners on pixel centres and on the x = 7 / 8 edge between two warp
+    blocks, degenerate triangles (collinear corners, a repeated corner: a
+    zero barycentric denominator), corners off the canvas -> (verts (3 n, 3)
+    float32 pixel coordinates and depth, tris (n, 3))."""
+    rng = np.random.default_rng(seed)
+    corners = rng.uniform(-2.0, 20.0, (n_tris, 3, 2))
+    corners[::7] = np.round(corners[::7])
+    corners[1::9, :, 0] = 7.0 + rng.integers(0, 2, (len(corners[1::9]), 3))
+    corners[2::11, 2] = corners[2::11, 0] + 2.0 * (corners[2::11, 1] - corners[2::11, 0])
+    corners[3::13, 1] = corners[3::13, 0]
+    z = rng.uniform(-1.0, 1.0, (n_tris, 3, 1))
+    z[::5] = 0.25
+    verts = np.concatenate([corners, z], -1).reshape(-1, 3).astype(np.float32)
+    return verts, np.arange(3 * n_tris).reshape(n_tris, 3)

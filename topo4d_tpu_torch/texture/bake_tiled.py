@@ -18,12 +18,15 @@ The binning is a sequence constant (the UV layout does not change between
 frames), so ``BakeBinning`` keeps its geometry rows, corner color indices
 and compact tile map on the device and each frame only gathers colors.
 Unlike the TPU version it keeps the exact entry and tile counts: there is
-no padding for recompile reuse or DMA windows.
+no padding for recompile reuse or DMA windows. It also lists the tiles
+with no entry, which K6 writes as zeros, so the canvas needs no fill.
 
 Dispatch: ``bake_canvas`` sends a CUDA tensor to ``csrc/bake.cu`` (K6) or
 raises; a CPU tensor goes to ``bake_canvas_plain``, which is also the
 kernel's oracle on the card. ``LAUNCHES`` counts kernel launches and plain
-calls.
+calls. ``bake_warp_cull_plain`` mirrors K6's per-warp cull and
+``bake_inside_plain`` gives the contract's inside test per (entry, pixel),
+for the tests and chip_smoke.py's counts; no bake calls them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from topo4d_tpu_torch.device import resolve_device
 
 TILE = 16
 PX = TILE * TILE
+WARP_W = 8  # K6's warps each own an 8 x 8 pixel block of a tile
 PLAIN_ENTRIES_PER_CHUNK = 1 << 16  # the plain version's (entry, pixel) pairs are made this many entries at a time
 _NEG = -1e30  # the depth of "no triangle" (the TPU kernel's z-buffer fill)
 
@@ -69,7 +73,7 @@ class BakeBinning(NamedTuple):
     e; built with a ``corner_map`` it already composes the UV-slot -> vertex
     re-indexing, so a frame gathers straight from the per-vertex colors.
     Occupied tile ``tile_ids[i]`` owns entries ``start[i] .. start[i] +
-    count[i] - 1``.
+    count[i] - 1``; ``empty_ids`` lists the canvas's other tiles.
     """
 
     geom: torch.Tensor  # (10, E) float32
@@ -77,6 +81,7 @@ class BakeBinning(NamedTuple):
     tile_ids: torch.Tensor  # (M,) int32, ascending
     start: torch.Tensor  # (M,) int32
     count: torch.Tensor  # (M,) int32
+    empty_ids: torch.Tensor  # (tiles_x * tiles_y - M,) int32, ascending
     tiles_x: int
     tiles_y: int
 
@@ -155,10 +160,53 @@ def compute_bake_binning(
     geom, fe, tile_ids, start, count, tiles_x, tiles_y = _bin_core(verts_px, tris, height, width)
     if corner_map is not None:
         fe = np.asarray(corner_map, np.int64)[fe]
+    empty_ids = np.setdiff1d(np.arange(tiles_x * tiles_y, dtype=np.int32), tile_ids, assume_unique=True)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
     return BakeBinning(
         geom=t(geom), corner_idx=t(fe.T.astype(np.int32)), tile_ids=t(tile_ids), start=t(start),
-        count=t(count), tiles_x=tiles_x, tiles_y=tiles_y,
+        count=t(count), empty_ids=t(empty_ids.astype(np.int32)), tiles_x=tiles_x, tiles_y=tiles_y,
+    )
+
+
+def _pair_terms(gs, tiles_x: int):
+    """The kernel's terms for a chunk of entries ``gs`` (10, n, 1) at the 256
+    pixels of each entry's tile, in its operation order -> (pxi, pyi (n,
+    256) int64, u, w1, w0, depth, inside (n, 256)); ``inside`` is the
+    contract's test (barycentric and inner bbox), without the canvas."""
+    x0, y0, x1, y1, x2, y2, z0, z1, z2, tile = gs
+    p = torch.arange(PX, device=gs.device)
+    tile_i = tile.to(torch.int64)
+    pxi = (tile_i % tiles_x) * TILE + p % TILE  # (n, 256)
+    pyi = (tile_i // tiles_x) * TILE + p // TILE
+    px, py = pxi.to(torch.float32), pyi.to(torch.float32)
+    # per-entry terms, as the kernel stages them
+    v0x, v0y = x2 - x0, y2 - y0
+    v1x, v1y = x1 - x0, y1 - y0
+    dot00 = v0x * v0x + v0y * v0y
+    dot01 = v0x * v1x + v0y * v1y
+    dot11 = v1x * v1x + v1y * v1y
+    denom = dot00 * dot11 - dot01 * dot01
+    inv = torch.where(denom == 0.0, torch.zeros_like(denom), 1.0 / denom)
+    umin, umax, vmin, vmax = _inner_bbox(gs)
+    # per-pair terms
+    dpx, dpy = px - x0, py - y0
+    dot02 = v0x * dpx + v0y * dpy
+    dot12 = v1x * dpx + v1y * dpy
+    u = (dot11 * dot02 - dot01 * dot12) * inv
+    w1 = (dot00 * dot12 - dot01 * dot02) * inv
+    w0 = 1.0 - u - w1
+    depth = w0 * z0 + w1 * z1 + u * z2
+    inside = (u >= 0) & (w1 >= 0) & (w1 + u <= 1.0) & (px >= umin) & (px <= umax) & (py >= vmin) & (py <= vmax)
+    return pxi, pyi, u, w1, w0, depth, inside
+
+
+def _inner_bbox(g):
+    """(umin, umax, vmin, vmax): ceil(min) .. floor(max) of the corners of
+    geometry rows ``g`` (10, ...)."""
+    x0, y0, x1, y1, x2, y2 = g[:6]
+    return (
+        torch.ceil(torch.minimum(torch.minimum(x0, x1), x2)), torch.floor(torch.maximum(torch.maximum(x0, x1), x2)),
+        torch.ceil(torch.minimum(torch.minimum(y0, y1), y2)), torch.floor(torch.maximum(torch.maximum(y0, y1), y2)),
     )
 
 
@@ -179,41 +227,10 @@ def bake_canvas_plain(binning: BakeBinning, colors: torch.Tensor, height: int, w
     e = g.shape[1]
     if e == 0:
         return torch.zeros((height, width, 3), device=dev)
-    p = torch.arange(PX, device=dev)
-    pix_dx, pix_dy = p % TILE, p // TILE
     kept = {k: [] for k in ("pix", "entry", "depth", "w0", "w1", "u")}
     for s in range(0, e, PLAIN_ENTRIES_PER_CHUNK):
-        gs = g[:, s : s + PLAIN_ENTRIES_PER_CHUNK, None]  # (10, n, 1)
-        x0, y0, x1, y1, x2, y2, z0, z1, z2, tile = gs
-        tile_i = tile.to(torch.int64)
-        pxi = (tile_i % binning.tiles_x) * TILE + pix_dx  # (n, 256)
-        pyi = (tile_i // binning.tiles_x) * TILE + pix_dy
-        px, py = pxi.to(torch.float32), pyi.to(torch.float32)
-        # per-entry terms, as the kernel stages them
-        v0x, v0y = x2 - x0, y2 - y0
-        v1x, v1y = x1 - x0, y1 - y0
-        dot00 = v0x * v0x + v0y * v0y
-        dot01 = v0x * v1x + v0y * v1y
-        dot11 = v1x * v1x + v1y * v1y
-        denom = dot00 * dot11 - dot01 * dot01
-        inv = torch.where(denom == 0.0, torch.zeros_like(denom), 1.0 / denom)
-        umin = torch.ceil(torch.minimum(torch.minimum(x0, x1), x2))
-        umax = torch.floor(torch.maximum(torch.maximum(x0, x1), x2))
-        vmin = torch.ceil(torch.minimum(torch.minimum(y0, y1), y2))
-        vmax = torch.floor(torch.maximum(torch.maximum(y0, y1), y2))
-        # per-pair terms
-        dpx, dpy = px - x0, py - y0
-        dot02 = v0x * dpx + v0y * dpy
-        dot12 = v1x * dpx + v1y * dpy
-        u = (dot11 * dot02 - dot01 * dot12) * inv
-        w1 = (dot00 * dot12 - dot01 * dot02) * inv
-        w0 = 1.0 - u - w1
-        depth = w0 * z0 + w1 * z1 + u * z2
-        hit = (
-            (u >= 0) & (w1 >= 0) & (w1 + u <= 1.0)
-            & (px >= umin) & (px <= umax) & (py >= vmin) & (py <= vmax)
-            & (pxi < width) & (pyi < height) & (depth > _NEG)
-        )
+        pxi, pyi, u, w1, w0, depth, inside = _pair_terms(g[:, s : s + PLAIN_ENTRIES_PER_CHUNK, None], binning.tiles_x)
+        hit = inside & (pxi < width) & (pyi < height) & (depth > _NEG)
         ent, pix = torch.nonzero(hit, as_tuple=True)
         kept["pix"].append(pyi[ent, pix] * width + pxi[ent, pix])
         kept["entry"].append(ent + s)
@@ -235,9 +252,38 @@ def bake_canvas_plain(binning: BakeBinning, colors: torch.Tensor, height: int, w
     return canvas.reshape(height, width, 3)
 
 
+@torch.no_grad()
+def bake_inside_plain(binning: BakeBinning) -> torch.Tensor:
+    """The contract's inside test of every entry at every pixel of its tile
+    -> (E, 256) bool, pixels row-major; the canvas is not applied. For the
+    tests and chip_smoke.py's counts."""
+    g = binning.geom
+    out = torch.empty((g.shape[1], PX), dtype=torch.bool, device=g.device)
+    for s in range(0, g.shape[1], PLAIN_ENTRIES_PER_CHUNK):
+        out[s : s + PLAIN_ENTRIES_PER_CHUNK] = _pair_terms(g[:, s : s + PLAIN_ENTRIES_PER_CHUNK, None], binning.tiles_x)[6]
+    return out
+
+
+@torch.no_grad()
+def bake_warp_cull_plain(binning: BakeBinning) -> torch.Tensor:
+    """Plain mirror of K6's per-warp cull -> (E, 4) bool: entry e is culled
+    for the warp block w (columns 8 (w % 2) + 0..7, rows 8 (w // 2) + 0..7
+    of its tile) when the block lies outside its inner bbox (csrc/bake.cu).
+    For the tests and chip_smoke.py's counts."""
+    g = binning.geom
+    umin, umax, vmin, vmax = (v[:, None] for v in _inner_bbox(g))
+    tile = g[9].to(torch.int64)[:, None]
+    w = torch.arange(4, device=g.device)
+    bx0 = ((tile % binning.tiles_x) * TILE + (w % 2) * WARP_W).to(torch.float32)  # (E, 4)
+    by0 = ((tile // binning.tiles_x) * TILE + (w // 2) * WARP_W).to(torch.float32)
+    bx1, by1 = bx0 + (WARP_W - 1), by0 + (WARP_W - 1)
+    return (umax < bx0) | (umin > bx1) | (vmax < by0) | (vmin > by1)
+
+
 def bake_canvas_cuda(binning: BakeBinning, colors: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Launch K6: (V, C >= 3) float32 colors on the card -> (height, width,
-    3) float32, zero where no triangle covers the pixel."""
+    3) float32, zero where no triangle covers the pixel. The kernel writes
+    every pixel, so the canvas is allocated without a fill."""
     if colors.device.type != "cuda":
         raise ValueError(f"the bake kernel needs a CUDA tensor, got {colors.device}")
     if colors.dtype != torch.float32 or colors.dim() != 2 or colors.shape[1] < 3 or not colors.is_contiguous():
@@ -245,21 +291,24 @@ def bake_canvas_cuda(binning: BakeBinning, colors: torch.Tensor, height: int, wi
     g, ci = binning.geom, binning.corner_idx
     for name, a, dt in (("geom", g, torch.float32), ("corner_idx", ci, torch.int32),
                         ("tile_ids", binning.tile_ids, torch.int32), ("start", binning.start, torch.int32),
-                        ("count", binning.count, torch.int32)):
+                        ("count", binning.count, torch.int32), ("empty_ids", binning.empty_ids, torch.int32)):
         if a.device != colors.device or a.dtype != dt or not a.is_contiguous():
             raise ValueError(f"binning.{name} must be contiguous {dt} on {colors.device}, got {a.dtype} on {a.device}")
     if -(-width // TILE) != binning.tiles_x or -(-height // TILE) != binning.tiles_y:
         raise ValueError(f"a binning of {binning.tiles_x}x{binning.tiles_y} tiles cannot bake a {width}x{height} canvas")
-    m = binning.tile_ids.shape[0]
-    if m > 2**31 - 1 or g.shape[1] > 2**31 - 1:
-        raise ValueError("the bake kernel takes fewer than 2^31 tiles and entries")
-    out = torch.zeros((height, width, 3), device=colors.device)
+    m, n_empty = binning.tile_ids.shape[0], binning.empty_ids.shape[0]
+    if m + n_empty != binning.tiles_x * binning.tiles_y:
+        raise ValueError(f"{m} occupied and {n_empty} empty tiles do not cover the {binning.tiles_x}x{binning.tiles_y} "
+                         "tiles of the canvas")
+    if m + n_empty >= 2**30 or g.shape[1] > 2**31 - 1:
+        raise ValueError("the bake kernel takes fewer than 2^30 tiles and 2^31 entries")
+    out = torch.empty((height, width, 3), device=colors.device)
     fn = kernels.kernel("uv_bake")
     stream = torch.cuda.current_stream(colors.device).cuda_stream
     status = fn(
         g.data_ptr(), ci.data_ptr(), g.shape[1], colors.data_ptr(), colors.shape[1],
         binning.tile_ids.data_ptr(), binning.start.data_ptr(), binning.count.data_ptr(), m,
-        binning.tiles_x, width, height, out.data_ptr(), stream,
+        binning.empty_ids.data_ptr(), n_empty, binning.tiles_x, width, height, out.data_ptr(), stream,
     )
     kernels.check(status, "uv_bake")
     LAUNCHES["uv_bake"] += 1
