@@ -4,13 +4,12 @@
     python3 chip_smoke.py [--ref NAME=PATH [NAME=PATH ...]]
 
 ``--ref NAME=PATH`` builds PATH, a source of kernel NAME (an earlier
-commit's file from ``git show``, or a variant), and times it beside the
-kernel in phase 6, both alone on the same inputs, in turns: NAME
-``tile_blend_fwd`` (K1) and ``tile_blend_v3_fwd`` (K4f, at each tps) must
-give K1's rows 0-5 bit for bit, ``uv_bake`` (K6) the kernel's canvas; a K6
-source with the interface before the empty-tile list is given a zeroed
-canvas and timed with the fill. Without arguments only the phases below
-run.
+commit's file from ``git show``, or a variant, with the kernel's C
+interface), and times it beside the kernel in phase 6, both alone on the
+same inputs, in turns: NAME ``tile_blend_fwd`` (K1) and
+``tile_blend_v3_fwd`` (K4f, at each tps) must give K1's rows 0-5 bit for
+bit, ``uv_bake`` (K6) the kernel's canvas. Without arguments only the
+phases below run.
 
 Needs one CUDA card (exits non-zero without one) and ``nvcc``. Phases, in
 order; any failure raises and exits non-zero:
@@ -76,7 +75,25 @@ order; any failure raises and exits non-zero:
    steps; frame 1 the full 1,100, 46 batched steps): K1/K2 24 times and K5
    48 times per batched step, no K4, no plain version; the segments and
    frozen binnings; a profile of one 3-step segment; three batched steps on
-   the card against the CPU.
+   the card against the CPU;
+9. the CLI on a disk tree: ``write_disk_sequence`` writes the reference
+   layout under ``build/`` (24 views named after ``DEFAULT_ROTATE_MASK``'s
+   labels on landscape 4096x3000 sensors, so the loader's portrait swap and
+   rotation run; the head grid; a component transform; parsing masks with
+   skin and inner-mouth labels; the 3000x4096 dense tree; 2 frames); the
+   loader is held to it (images and masks bit for bit, cameras within 1e-5,
+   ``trans_g``); ``cli.main`` runs ``-t -tr 8192 -dn 5 -fn 2`` with
+   ``data.use_mask_dense`` (schedule cut to 100 init, 200 track and 51
+   dense steps) with the launch counts set to 0 just before it and read
+   just after: K1/K2 per geometry and dense step, K1 per progress render
+   and dense eval render, K5 twice per geometry step and never in a masked
+   dense step, K6 per frame, no plain version; then the outputs (OBJ
+   topology, each face.png decoded by ``utils/png.py`` equal to K6's bytes,
+   the progress renders, config.json, the dimmed pixels), a resume through
+   ``python -m topo4d_tpu_torch`` and one in process that launches
+   nothing, the tiled and oracle renderers on the card against K1/K2, and
+   the geometry loop's ms per step beside a dense frame read at 1, 2 and 4
+   loader threads.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -454,14 +471,13 @@ def bake_bound(binning, colors, height, width):
     return (*bound(nbytes, BAKE_OPS_PER_PAIR * pairs + BAKE_OPS_PER_ENTRY * e), pairs)
 
 
-def bake_args(binning, colors, height, width, out, legacy: bool = False):
-    """K6's C arguments for ``out`` on the current stream; ``legacy``: the
-    interface before the empty-tile list."""
+def bake_args(binning, colors, height, width, out):
+    """K6's C arguments for ``out`` on the current stream."""
     b = binning
-    head = (b.geom.data_ptr(), b.corner_idx.data_ptr(), b.geom.shape[1], colors.data_ptr(), colors.shape[1],
-            b.tile_ids.data_ptr(), b.start.data_ptr(), b.count.data_ptr(), b.tile_ids.shape[0])
-    tail = (b.tiles_x, width, height, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    return head + tail if legacy else head + (b.empty_ids.data_ptr(), b.empty_ids.shape[0]) + tail
+    return (b.geom.data_ptr(), b.corner_idx.data_ptr(), b.geom.shape[1], colors.data_ptr(), colors.shape[1],
+            b.tile_ids.data_ptr(), b.start.data_ptr(), b.count.data_ptr(), b.tile_ids.shape[0],
+            b.empty_ids.data_ptr(), b.empty_ids.shape[0], b.tiles_x, width, height, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
 
 
 def bake_into(binning, colors, height, width, out):
@@ -606,10 +622,9 @@ def phase_bake(statics):
 
 def phase_bake_timing(trainer, bake_inputs):
     """K6 and its plain version at 8192^2 on the fitted dense colors, K6's
-    bound, each ``--ref`` build of K6 in turns with it (a source with the
-    interface before the empty-tile list timed with the zero-fill it needs),
-    and the export's parts on the same canvas: its uint8 conversion and
-    copy to the host, the PNG encode, the OBJ write."""
+    bound, each ``--ref`` build of K6 in turns with it, and the export's
+    parts on the same canvas: its uint8 conversion and copy to the host,
+    the PNG encode, the OBJ write."""
     from topo4d_tpu_torch import kernels
     from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda, bake_canvas_plain
     from topo4d_tpu_torch.topology.obj_io import write_obj_with_uv
@@ -628,13 +643,11 @@ def phase_bake_timing(trainer, bake_inputs):
         raise AssertionError("K6 through its C entry point differs from its wrapper")
     ms_fill = cuda_ms(lambda: torch.zeros_like(canvas), iters=10)
     refs = {}
-    for path, (ref, legacy) in REFS.get("uv_bake", {}).items():
+    for path, ref in REFS.get("uv_bake", {}).items():
         outs = {"new": torch.full_like(canvas, float("nan")), "ref": torch.full_like(canvas, float("nan"))}
-        ref_args = bake_args(binning, colors, TEX_RES, TEX_RES, outs["ref"], legacy)
+        ref_args = bake_args(binning, colors, TEX_RES, TEX_RES, outs["ref"])
 
-        def run_ref(ref=ref, ref_args=ref_args, legacy=legacy, o=outs["ref"], path=path):
-            if legacy:
-                o.zero_()
+        def run_ref(ref=ref, ref_args=ref_args, path=path):
             kernels.check(ref(*ref_args), path)
 
         new_args = bake_args(binning, colors, TEX_RES, TEX_RES, outs["new"])
@@ -648,10 +661,10 @@ def phase_bake_timing(trainer, bake_inputs):
         mean, turns = in_turns(calls, 10)
         log(
             f"timing, K6 {TEX_RES}x{TEX_RES}: uv_bake alone {mean['new']:.4f} ms, {path} "
-            f"{'with the zero-fill it needs ' if legacy else ''}{mean['ref']:.4f} ms ({mean['ref'] / mean['new']:.2f}x; "
+            f"{mean['ref']:.4f} ms ({mean['ref'] / mean['new']:.2f}x; "
             "turns " + ", ".join(f"{n} {t:.4f}" for n, t in turns) + "); canvases equal bit for bit"
         )
-        refs[path] = {"ms": mean["ref"], "kernel_ms": mean["new"], "with_zero_fill": legacy, "turns": turns}
+        refs[path] = {"ms": mean["ref"], "kernel_ms": mean["new"], "turns": turns}
     ms_plain = cuda_ms(lambda: bake_canvas_plain(binning, colors, TEX_RES, TEX_RES), iters=2, warmup=1)
     b_ms, by, pairs = bake_bound(binning, colors, TEX_RES, TEX_RES)
     torch.cuda.synchronize()
@@ -726,15 +739,18 @@ def build_main_path(grid=(92, 90), size=(375, 512)):
     from topo4d_tpu_torch.pipeline.data import SyntheticSequence
     from topo4d_tpu_torch.pipeline.scene import build_scene
     from topo4d_tpu_torch.pipeline.trainer import Trainer
-    from topo4d_tpu_torch.testing import make_camera_ring, make_grid_mesh, make_head_fixture, make_synthetic_regions
+    from topo4d_tpu_torch.testing import (
+        grid_uvs,
+        make_camera_ring,
+        make_grid_mesh,
+        make_head_fixture,
+        make_synthetic_regions,
+    )
     from topo4d_tpu_torch.topology.obj_io import MeshObj
 
     rows, cols = grid
     verts, faces = make_grid_mesh(rows, cols, extent=0.5)
-    uvs = np.stack(
-        np.meshgrid(np.linspace(0.05, 0.95, cols), np.linspace(0.05, 0.95, rows), indexing="xy"), -1
-    ).reshape(-1, 2).astype(np.float32)
-    mesh = MeshObj(vertices=verts, uvs=uvs, faces=faces, uv_faces=[list(f) for f in faces])
+    mesh = MeshObj(vertices=verts, uvs=grid_uvs(rows, cols), faces=faces, uv_faces=[list(f) for f in faces])
     regions = make_synthetic_regions(verts.shape[0], faces)
     cfg = Config()
     cfg.data.output_dir = OUT_DIR
@@ -1092,20 +1108,14 @@ def phase_texture_card_vs_cpu(cfg, trainer, scene, steps: int = 3):
     )
 
 
-REFS = {}  # kernel symbol -> {path: (ctypes function, takes the interface before the empty-tile list)}
-# K6's C interface before the empty-tile list; that kernel expects a zeroed canvas
-BAKE_ARGTYPES_BEFORE_EMPTY_LIST = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+REFS = {}  # kernel symbol -> {path: ctypes function}
 
 
 def load_ref(symbol, path):
     """Build ``path``, a source of kernel ``symbol`` (an earlier commit's
     file, or a variant), with the kernels' nvcc flags and ``csrc/`` on the
     include path into ``build/``, log what ``-Xptxas -v`` says and load it
-    -> (ctypes function, legacy): ``legacy`` for a K6 source with the
-    interface before the empty-tile list (its C signature's parameter
-    count tells)."""
+    -> its ctypes function, which must take the kernel's C interface."""
     import hashlib
     import re
 
@@ -1121,10 +1131,7 @@ def load_ref(symbol, path):
         raise ValueError(f"--ref {symbol}={path}: the source has no extern \"C\" {symbol}")
     params = sig.group(1).count(b",") + 1
     argtypes = kernels.KERNELS[symbol][1]
-    legacy = symbol == "uv_bake" and params == len(BAKE_ARGTYPES_BEFORE_EMPTY_LIST)
-    if legacy:
-        argtypes = BAKE_ARGTYPES_BEFORE_EMPTY_LIST
-    elif params != len(argtypes):
+    if params != len(argtypes):
         raise ValueError(f"--ref {symbol}={path}: {params} parameters, the kernel takes {len(argtypes)}")
     digest = hashlib.sha256(text + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:12]
     out = kernels.BUILD_DIR / f"ref_{symbol}-{digest}.so"
@@ -1137,7 +1144,7 @@ def load_ref(symbol, path):
     fn = getattr(ctypes.CDLL(str(out)), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn, legacy
+    return fn
 
 
 def in_turns(calls, iters: int):
@@ -1157,7 +1164,7 @@ def time_blend_refs(symbol, want, row_args, stream, label: str, iters: int):
 
     new = kernels.kernel(symbol)
     res = {}
-    for path, (ref, _) in REFS.get(symbol, {}).items():
+    for path, ref in REFS.get(symbol, {}).items():
         outs = {"new": torch.empty_like(want), "ref": torch.empty_like(want)}
         calls = {
             "new": lambda: kernels.check(new(*row_args, outs["new"].data_ptr(), stream), symbol),
@@ -1666,16 +1673,506 @@ def phase_batched(cfg, src, trainer, scene, frames):
     return out
 
 
-def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
+CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+# the CLI's schedule, cut for time: frame 0 from 7,000 to 100 init steps, frame 1 from 1,100 to 200 track
+# steps, each dense phase from 301 to 51 steps; log rows every 100 geometry and 50 dense steps
+CLI_SCHEDULE = ["-ion", "100", "-on", "200", "-don", "51", "-lf", "100", "-dlf", "50"]
+CLI_GRID = (92, 90)  # the head grid: 8,280 vertices
+CLI_SIZE = (375, 512)  # the working views (portrait; the sensors are landscape)
+CLI_RATIO = 8  # working views at down_ratio 8, the dense tree at dense_down_ratio 1
+CLI_COMPONENT = np.array([[0.0, -1.0, 0.0, 0.05], [1.0, 0.0, 0.0, -0.02], [0.0, 0.0, 1.0, 0.1], [0.0, 0.0, 0.0, 1.0]])
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def hold_loader(tree):
+    """``DiskSequence`` on the written tree: views, cameras (1e-5 relative),
+    ``trans_g`` (exact), and every frame's images and parsing images, working
+    and dense, on the card (``frame_tensor``) equal to the written targets
+    quantised (``round(x * 255) / 255`` in float32 on the host) bit for bit;
+    the loader's seconds per frame, frame 1's PNG decode and its rotation
+    into planes on one thread, and ``frame_tensor``'s transfer and
+    conversion -> {(t, full_res): timings}."""
+    from topo4d_tpu_torch.config import Config
+    from topo4d_tpu_torch.pipeline.data import LOAD_THREADS, DiskSequence, frame_tensor
+    from topo4d_tpu_torch.utils.png import read_png
+
+    cfg = Config()
+    cfg.data.input_dir, cfg.data.dense_input_dir, cfg.data.seq = tree.input_dir, tree.dense_input_dir, tree.seq
+    cfg.data.down_ratio = CLI_RATIO
+    cfg.data.use_mask_dense = True
+    src = DiskSequence(cfg, device=DEVICE)
+    if src.view_names != tree.view_names:
+        raise AssertionError(f"the loader's views {src.view_names} against {tree.view_names}")
+    errs = {}
+    for name, got, want in (("cameras", src.cameras, tree.cameras), ("cameras_full", src.cameras_full, tree.cameras_full)):
+        if (got.width, got.height) != (want.width, want.height):
+            raise AssertionError(f"{name}: {got.width}x{got.height} against {want.width}x{want.height}")
+        for f in ("w2c", "fx", "fy", "cx", "cy"):
+            errs[f"{name}.{f}"] = rel_err(getattr(got, f), getattr(want, f))
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"loaded cameras against the rig they were written from: {errs}")
+    if not np.array_equal(src.trans_g, CLI_COMPONENT):
+        raise AssertionError(f"trans_g {src.trans_g} against {CLI_COMPONENT}")
+    times = {}
+    for t in range(1, FRAMES + 1):
+        for full in (False, True):
+            t0 = time.perf_counter()
+            fd = src.frame(t, full_res=full)
+            frame_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_card = (frame_tensor(fd.images, DEVICE), frame_tensor(fd.masks, DEVICE))
+            torch.cuda.synchronize()
+            h2d_s = time.perf_counter() - t0
+            for what, got, want in (("images", on_card[0], tree.images[(t, full)]),
+                                    ("masks", on_card[1], tree.masks[(t, full)])):
+                for v in range(want.shape[0]):
+                    if not torch.equal(got[v], torch.from_numpy(want[v].astype(np.float32) / 255.0).to(DEVICE)):
+                        raise AssertionError(f"frame {t} {'dense' if full else 'working'} {what} of view {v} differ")
+            # frame 1's work again on one thread, in its two parts
+            base = tree.dense_input_dir if full else tree.input_dir
+            decode_s = rotate_s = 0.0
+            for name in src.view_names if t == 1 else ():
+                for path in (os.path.join(base, tree.seq, "%06d" % t, name + ".png"),
+                             os.path.join(base, tree.seq, "mask", "%06d" % t, name + ".png")):
+                    t0 = time.perf_counter()
+                    raw = read_png(path)
+                    t1 = time.perf_counter()
+                    np.ascontiguousarray(np.rot90(raw, cfg.data.rotate_mask[name], axes=(0, 1)).transpose(2, 0, 1))
+                    decode_s, rotate_s = decode_s + t1 - t0, rotate_s + time.perf_counter() - t1
+            times[(t, full)] = {"frame_s": frame_s, "decode_s": decode_s, "rotate_s": rotate_s, "h2d_s": h2d_s,
+                                "bytes": fd.images.nbytes + fd.masks.nbytes}
+            del fd, on_card
+    log(
+        f"loader: {src.num_views} views, cameras within {max(errs.values()):.2e} relative of the rig written, trans_g "
+        "exact; every frame's images and parsing images equal the written targets quantised, bit for bit; "
+        + "; ".join(
+            f"frame {t} {'dense ' + str(src.cameras_full.width) + 'x' + str(src.cameras_full.height) if full else 'working'}:"
+            f" {v['frame_s']:.3f} s per frame on {LOAD_THREADS} threads"
+            + (f" (on one: PNG decode {v['decode_s']:.3f} s, rotation into planes {v['rotate_s']:.3f} s)" if t == 1 else "")
+            + f", transfer and conversion on the card {v['h2d_s']:.3f} s ({v['bytes']} B of uint8)"
+            for (t, full), v in times.items()
+        )
+    )
+    return times
+
+
+def filtered_png(img, kind):
+    """PNG bytes of (H, W, 3) uint8 ``img`` with filter type ``kind`` (0-4)
+    on every row (PNG spec, section 9.2)."""
+    from topo4d_tpu_torch.utils.png import SIGNATURE, _chunk
+
+    h, w, _ = img.shape
+    x = img.reshape(h, 3 * w).astype(np.int32)
+    up = np.concatenate([np.zeros((1, 3 * w), np.int32), x[:-1]])
+    left = np.concatenate([np.zeros((h, 3), np.int32), x[:, :-3]], axis=1)
+    upleft = np.concatenate([np.zeros((h, 3), np.int32), up[:, :-3]], axis=1)
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    pred = [np.zeros_like(x), left, up, (left + up) // 2,
+            np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))][kind]
+    raw = np.concatenate([np.full((h, 1), kind, np.uint8), ((x - pred) % 256).astype(np.uint8)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + _chunk(b"IEND", b"")
+
+
+def decode_cost(img):
+    """``utils/png.py``'s decode of ``img`` with each filter type on every
+    row, on this host -> {kind: s}; each decode equal to ``img``."""
+    from topo4d_tpu_torch.utils.png import decode_png
+
+    out = {}
+    for kind in range(5):
+        data = filtered_png(img, kind)
+        t0 = time.perf_counter()
+        got = decode_png(data)
+        out[kind] = time.perf_counter() - t0
+        if not np.array_equal(got, img):
+            raise AssertionError(f"filter {kind}: the decode differs from the image")
+    return out
+
+
+def instrument_cli():
+    """Class-level wraps for the CLI's own ``Trainer`` and ``DiskSequence``:
+    each fit part (as ``instrument``), ``run``'s wall, each progress render,
+    the inner-mouth dimming (the pixels it changed) and each frame read (its
+    interval on the read-ahead thread) -> (record, restore)."""
+    from topo4d_tpu_torch.pipeline import trainer as trainer_mod
+    from topo4d_tpu_torch.pipeline.data import DiskSequence
+
+    rec = {"parts": [], "progress": [], "dimmed": [], "reads": [], "run": []}
+    saved = [(trainer_mod.Trainer, "fit_frame_geometry"), (trainer_mod.Trainer, "fit_frame_texture"),
+             (trainer_mod.Trainer, "run"), (trainer_mod, "report_progress"), (trainer_mod, "dim_inner_mouth"),
+             (DiskSequence, "frame")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in saved]
+    originals = {name: fn for _, name, fn in saved}
+
+    def part(kind):
+        fit = originals[f"fit_frame_{kind}"]
+
+        def wrapped(self, t, frame):
+            torch.cuda.synchronize()
+            before, n_rows, n_prog = read_counts(), len(self.metrics_log), len(rec["progress"])
+            t0 = time.perf_counter()
+            m = fit(self, t, frame)
+            torch.cuda.synchronize()
+            wall, after = time.perf_counter() - t0, read_counts()
+            p = {"kind": kind, "frame": t, "wall": wall, "start": t0, "counts": {k: after[k] - before[k] for k in after},
+                 "rows": self.metrics_log[n_rows:], "last": m,
+                 "progress_s": sum(x[1] for x in rec["progress"][n_prog:])}
+            if kind == "texture":
+                p["colors"] = self.texture_state.params["dense_rgb_colors"].clone()
+                p["masked"] = self._texture_masked
+            rec["parts"].append(p)
+            return m
+
+        return wrapped
+
+    def run(self, resume=True):
+        t0 = time.perf_counter()
+        originals["run"](self, resume)
+        torch.cuda.synchronize()
+        rec["run"].append(time.perf_counter() - t0)
+
+    def progress(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psnr = originals["report_progress"](*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["progress"].append((args[8], time.perf_counter() - t0, psnr))
+        return psnr
+
+    def dim(gt, mask_rgb, cmap_index):
+        out = originals["dim_inner_mouth"](gt, mask_rgb, cmap_index)
+        rec["dimmed"].append(int((out != gt).any(0).sum()))
+        return out
+
+    def frame(self, t, full_res=False):
+        t0 = time.perf_counter()
+        fd = originals["frame"](self, t, full_res)
+        rec["reads"].append((t, full_res, t0, time.perf_counter()))
+        return fd
+
+    trainer_mod.Trainer.fit_frame_geometry = part("geometry")
+    trainer_mod.Trainer.fit_frame_texture = part("texture")
+    trainer_mod.Trainer.run = run
+    trainer_mod.report_progress = progress
+    trainer_mod.dim_inner_mouth = dim
+    DiskSequence.frame = frame
+
+    def restore():
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+    return rec, restore
+
+
+def cli_expected(sched):
+    """Each part's launches from the schedule: K1/K2 once per geometry and
+    dense step, K1 once more per progress render (one log view, every
+    logged geometry step) and per dense eval render (every logged dense step
+    and one after the last), K5 twice per geometry step and never in a
+    masked dense step -> ([(kind, frame, counts)], progress renders)."""
+    parts, renders = [], 0
+    for t, n in enumerate((sched.init_opt_num, sched.opt_num)):
+        logged = len({i for i in range(n) if i % sched.log_freq == 0 or i == n - 1})
+        renders += logged
+        parts.append(("geometry", t, {"tile_blend_fwd": n + logged, "tile_blend_bwd": n, "gauss_blur": 2 * n}))
+        d = sched.dense_opt_num
+        evals = len(range(0, d, sched.dense_log_freq)) + 1
+        parts.append(("texture", t, {"tile_blend_fwd": d + evals, "tile_blend_bwd": d, "gauss_blur": 0}))
+    return parts, renders
+
+
+def backends_check(trainer, frame):
+    """At geometry view 0 of the disk sequence, with the fitted parameters:
+    the tiled and oracle renderers on the card against K1 (the tolerances of
+    ``tests/test_rasterizer_tiled.py``: image and alpha rtol 1e-4 / atol
+    1e-5, depth atol 1e-4, at every pixel), and the gradients of a track
+    step's photometric loss through each against K2's (max-scaled rtol 2e-3
+    / atol 2e-5)."""
+    from topo4d_tpu_torch.core.gaussian import activate_params
+    from topo4d_tpu_torch.losses.image import photometric_loss
+    from topo4d_tpu_torch.pipeline.data import frame_tensor
+    from topo4d_tpu_torch.rasterizer.reference import render_gaussians as oracle
+    from topo4d_tpu_torch.rasterizer.render import render_gaussians
+    from topo4d_tpu_torch.rasterizer.tiled import render_gaussians_tiled
+
+    cam = trainer.source.cameras[0]
+    gt = frame_tensor(frame.images[0], DEVICE)
+    renders = {
+        "K1/K2": lambda rv: render_gaussians(rv, cam, max_span=8),
+        "tiled": lambda rv: render_gaussians_tiled(rv, cam, max_span=8, capacity=1024),
+        "oracle": lambda rv: oracle(rv, cam, remat=True),
+    }
+    res = {}
+    for name, render in renders.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in trainer.state.params.items()}
+        out = render(activate_params(p))
+        im = torch.exp(p["cam_m"][0])[:, None, None] * out.image + p["cam_c"][0][:, None, None]
+        loss = photometric_loss(im, gt)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        out = type(out)(*(x.detach() if torch.is_tensor(x) else x for x in out))
+        res[name] = (out, dict(zip(p, grads)), float(loss.detach()), time.perf_counter() - t0)
+    ref, ref_g = res["K1/K2"][0], res["K1/K2"][1]
+    if int(ref.num_cropped) != 0:
+        raise AssertionError(f"K1 cropped {int(ref.num_cropped)} Gaussians at max_span 8")
+    msgs = []
+    for name in ("tiled", "oracle"):
+        out, g, loss, secs = res[name]
+        if name == "tiled" and (int(out.num_overflow) or int(out.num_cropped)):
+            raise AssertionError(f"tiled dropped {int(out.num_overflow)} entries, cropped {int(out.num_cropped)}")
+        outside = 0
+        for field, rtol, atol in (("image", 1e-4, 1e-5), ("depth", 1e-4, 1e-4), ("alpha", 1e-4, 1e-5)):
+            a, b = getattr(out, field), getattr(ref, field)
+            bad = ((a - b).abs() > atol + rtol * b.abs()).any(0)
+            outside = max(outside, int(bad.sum()))
+        if outside:
+            raise AssertionError(f"{name}: {outside} pixels outside the tolerance against K1")
+        worst = {}
+        for k, gk in g.items():
+            d, scale = float((gk - ref_g[k]).abs().max()), float(ref_g[k].abs().max())
+            if d > 2e-3 * scale + 2e-5:
+                raise AssertionError(f"{name}: d loss / d {k} differs from K2's by {d:.3e} (max |g| {scale:.3e})")
+            worst[k] = d / max(scale, 1e-30)
+        msgs.append(
+            f"{name}: image max|d| {float((out.image - ref.image).abs().max()):.2e}, loss rel err {abs(loss - res['K1/K2'][2]) / res['K1/K2'][2]:.2e}, gradients max rel err "
+            f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}), forward + backward {secs:.3f} s"
+        )
+    log(f"backends at geometry view 0 ({cam.width}x{cam.height}), against K1/K2 "
+        f"({res['K1/K2'][3]:.3f} s): " + "; ".join(msgs))
+
+
+SWEEP_THREADS = (1, 2, 4)  # loader threads at which the geometry loop is timed beside a frame read
+
+
+def loader_sweep(trainer):
+    """Does a frame read on the host slow the host-bound geometry loop? The
+    ms per step of ``trainer.fit_frame_geometry`` on the tracked frame 2
+    alone, then while another thread reads the dense frame 2 over and over
+    with ``LOAD_THREADS`` at each of ``SWEEP_THREADS`` (the fit lies wholly
+    inside the reads), then alone again; the seconds per dense read at each
+    -> [(threads, 0 for none; ms per step; s per read or None)]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from topo4d_tpu_torch.pipeline import data
+
+    src, saved, n = trainer.source, data.LOAD_THREADS, trainer.cfg.schedule.opt_num
+    frame = src.frame(2)
+    rows = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for k in (0, *SWEEP_THREADS, 0):
+            data.LOAD_THREADS = k or saved
+            stop, reads = [], []
+
+            def read():
+                while not stop:
+                    t0 = time.perf_counter()
+                    src.frame(2, full_res=True)
+                    reads.append(time.perf_counter() - t0)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reader = pool.submit(read) if k else None
+            try:
+                trainer.fit_frame_geometry(1, frame)
+                torch.cuda.synchronize()
+            finally:  # the reader stops whether or not the fit raised
+                stop.append(True)
+            wall = time.perf_counter() - t0
+            if reader is not None:
+                reader.result()
+            rows.append((k, wall / n * 1e3, sum(reads) / len(reads) if reads else None))
+    data.LOAD_THREADS = saved
+    alone = (rows[0][1] + rows[-1][1]) / 2
+    log(f"the geometry loop beside a dense frame read ({n} track steps, progress renders included): "
+        f"{rows[0][1]:.3f} and {rows[-1][1]:.3f} ms per step alone, before and after; "
+        + "; ".join(f"{ms:.3f} ms per step ({ms / alone - 1:+.1%} on the mean alone) while {k} loader threads read, "
+                    f"{read_s:.3f} s per dense read" for k, ms, read_s in rows[1:-1])
+        + f"; LOAD_THREADS is {saved}")
+    return rows
+
+
+def phase_cli(run4):
+    """Phase 9: the CLI on a disk tree. Writes the reference layout with
+    ``write_disk_sequence`` (24 views named after ``DEFAULT_ROTATE_MASK``'s
+    labels on landscape 4096x3000 sensors, the 8,280-vertex head, a
+    component transform, parsing masks, the 3000x4096 dense tree, 2 frames),
+    holds the loader, runs ``cli.main`` in process with the launch counters
+    set to 0 just before it and read just after (and per part), checks the
+    outputs, runs ``python -m topo4d_tpu_torch`` again as a subprocess (it
+    resumes and writes nothing) and ``cli.main`` once more in process (it
+    launches nothing), holds the tiled and oracle renderers to K1/K2, and
+    times the geometry loop beside a frame read at 1, 2 and 4 loader
+    threads."""
+    from topo4d_tpu_torch import cli
+    from topo4d_tpu_torch.config import DEFAULT_ROTATE_MASK, Config
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda
+    from topo4d_tpu_torch.testing import write_disk_sequence
+    from topo4d_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = write_disk_sequence(
+        os.path.join(CLI_DIR, "tree"), num_views=len(DEFAULT_ROTATE_MASK), num_frames=FRAMES, rows=CLI_GRID[0],
+        cols=CLI_GRID[1], width=CLI_SIZE[0], height=CLI_SIZE[1], ratio=CLI_RATIO, view_names=sorted(DEFAULT_ROTATE_MASK),
+        component=CLI_COMPONENT, level=1, device=DEVICE,
+    )
+    log(f"disk tree: {len(tree.view_names)} views x {FRAMES} frames at {tree.cameras.width}x{tree.cameras.height} and "
+        f"{tree.cameras_full.width}x{tree.cameras_full.height} with parsing masks, written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    loader = hold_loader(tree)
+    img = tree.images[(1, False)][0].transpose(1, 2, 0)
+    cost = decode_cost(np.ascontiguousarray(img))
+    mpx = img.shape[0] * img.shape[1] / 1e6
+    log(f"PNG decode of a {img.shape[1]}x{img.shape[0]} RGB view (utils/png.py) with every row of filter type "
+        + ", ".join(f"{k}: {v:.4f} s ({v / mpx:.3f} s per Mpx)" for k, v in cost.items()))
+    tree.images.clear()  # host memory: the CLI run holds two frames of its own
+    tree.masks.clear()
+
+    config_path = os.path.join(CLI_DIR, "config.json")
+    with open(config_path, "w") as fh:
+        json.dump({"data": {"use_mask_dense": True}}, fh)
+    argv = ["-id", tree.input_dir, "-did", tree.dense_input_dir, "-s", tree.seq, "-od", os.path.join(CLI_DIR, "out"),
+            "-e", "cli", "--config", config_path, "-fn", str(FRAMES), "-t", "-tr", str(TEX_RES), "-dn", str(DENSITY),
+            "-cf", "1", "-dr", str(CLI_RATIO), "-ddr", "1", "-lv", "K98707293", "--device", DEVICE] + CLI_SCHEDULE
+    rec, restore = instrument_cli()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    restore()
+    cfg = trainer.cfg
+    out = os.path.join(cfg.data.output_dir, cfg.data.exp, cfg.data.seq)
+
+    expected, renders = cli_expected(cfg.schedule)
+    got_parts = [(p["kind"], p["frame"]) for p in rec["parts"]]
+    if got_parts != [(k, t) for k, t, _ in expected]:
+        raise AssertionError(f"the CLI run's parts: {got_parts}")
+    plain = {"tile_blend_plain": 0, "gauss_blur_plain": 0, "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0}
+    for p, (kind, t, want) in zip(rec["parts"], expected):
+        check_rows(p["rows"])
+        check_counts(p["counts"], f"CLI {kind} frame {t}", {**want, **plain})
+    total = {k: sum(w[k] for _, _, w in expected) for k in ("tile_blend_fwd", "tile_blend_bwd", "gauss_blur")}
+    check_counts(counts, "the CLI run", {**total, **plain, "uv_bake": FRAMES, "uv_bake_plain": 0})
+    if len(rec["progress"]) != renders:
+        raise AssertionError(f"{len(rec['progress'])} progress renders, expected {renders}")
+
+    # the outputs
+    def f_lines(t):
+        with open(os.path.join(out, "%06d" % (t + 1), "face.obj")) as fh:
+            return [line for line in fh if line.startswith("f ")]
+
+    topo = [f_lines(t) for t in range(FRAMES)]
+    if not topo[0] or any(x != topo[0] for x in topo):
+        raise AssertionError("CLI: face.obj topology differs between frames")
+    for p in rec["parts"]:
+        if p["kind"] != "texture":
+            continue
+        t = p["frame"]
+        png = read_png(os.path.join(out, "%06d" % (t + 1), "face.png"))
+        want = (bake_canvas_cuda(trainer._bake_binning, torch.clamp(p["colors"], 0.0, 1.0), TEX_RES, TEX_RES) * 255)
+        if not np.array_equal(png, want.to(torch.uint8).cpu().numpy()):
+            raise AssertionError(f"CLI frame {t}: face.png differs from K6's bytes")
+        if p["masked"] is not True:
+            raise AssertionError(f"CLI frame {t}: the dense phase did not take the masked step")
+    for t in range(FRAMES):
+        n = cfg.schedule.init_opt_num if t == 0 else cfg.schedule.opt_num
+        for i in sorted({i for i in range(n) if i % cfg.schedule.log_freq == 0 or i == n - 1}):
+            img = read_png(os.path.join(out, "%06d" % (t + 1), f"visK98707293_{i}.png"))
+            if img.shape != (CLI_SIZE[1], CLI_SIZE[0], 3):
+                raise AssertionError(f"visK98707293_{i}.png is {img.shape}")
+    with open(os.path.join(out, "config.json")) as fh:
+        if Config.from_json(fh.read()) != cfg:
+            raise AssertionError("config.json does not read back to the effective config")
+    with open(os.path.join(out, "timings.json")) as fh:
+        timings = json.load(fh)
+    if set(timings) != {"geometry", "texture", "checkpoint", "export"}:
+        raise AssertionError(f"timings.json phases {sorted(timings)}")
+    if not (rec["dimmed"] and sum(rec["dimmed"]) > 0):
+        raise AssertionError(f"the tracked frame's inner mouth was not dimmed: {rec['dimmed']}")
+    if len(rec["dimmed"]) != len(tree.view_names) * (FRAMES - 1):
+        raise AssertionError(f"{len(rec['dimmed'])} views dimmed, expected each view of each tracked frame")
+
+    # the read-ahead: frame 2's reads run while frame 0 fits
+    geo = [p for p in rec["parts"] if p["kind"] == "geometry"]
+    reads = {(t, f): (a, b) for t, f, a, b in rec["reads"]}
+    frame0_end = max(p["start"] + p["wall"] for p in rec["parts"] if p["frame"] == 0)
+    ahead_end = max(b for (t, _), (_, b) in reads.items() if t == 2)
+    wait = geo[1]["start"] - frame0_end
+    geo_ms = [(p["wall"] - p["progress_s"]) / n * 1e3 for p, n in zip(geo, (cfg.schedule.init_opt_num, cfg.schedule.opt_num))]
+    p4 = [p for p in run4["parts"] if p["kind"] == "geometry"]
+    p4_ms = [p["wall"] / n * 1e3 for p, n in zip(p4, (INIT_ITERS, Config().schedule.opt_num))]
+    tex = [p for p in rec["parts"] if p["kind"] == "texture"]
+    log(
+        f"CLI run: {wall:.3f} s in cli.main ({wall - rec['run'][0]:.3f} s before run: the loader's cameras, the OBJ, "
+        f"the scene, the trainer); {rec['run'][0] / FRAMES:.3f} s per frame through run; launches {counts}; geometry "
+        f"ms per step {geo_ms[0]:.3f} (frame 0, {cfg.schedule.init_opt_num} init steps, while the read-ahead decodes "
+        f"frame 2) and {geo_ms[1]:.3f} (frame 1, {cfg.schedule.opt_num} track steps), phase 4's in this call "
+        f"{p4_ms[0]:.3f} (init) and {p4_ms[1]:.3f} (track); the read-ahead of frame 2 (working and dense) ended "
+        f"{ahead_end - rec['parts'][0]['start']:.3f} s after frame 0's fit began, which took "
+        f"{frame0_end - rec['parts'][0]['start']:.3f} s; the main thread then waited {wait:.3f} s before frame 1 "
+        f"({'hidden' if ahead_end <= frame0_end else 'not hidden'}); dense s per frame "
+        + ", ".join(f"{p['wall']:.3f}" for p in tex)
+        + f" ({cfg.schedule.dense_opt_num} masked steps at {tree.cameras_full.width}x{tree.cameras_full.height}); "
+        f"progress renders {len(rec['progress'])}, "
+        f"{sum(x[1] for x in rec['progress']) / len(rec['progress']):.4f} s each (psnr "
+        + ", ".join(f"{x[2]:.3f}" for x in rec["progress"])
+        + f"); inner-mouth pixels dimmed in frame 1: {sum(rec['dimmed'])} over {len(rec['dimmed'])} views; timings "
+        + ", ".join(f"{k} {v['seconds']:.3f} s over {v['count']}" for k, v in timings.items())
+    )
+
+    # resume through the module entry point, then in process
+    stamps = {f: os.path.getmtime(os.path.join(out, "%06d" % (t + 1), f)) for t in range(FRAMES)
+              for f in ("face.obj", "face.png")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "topo4d_tpu_torch", *argv], capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "frame " in proc.stdout:
+        raise AssertionError(f"python -m topo4d_tpu_torch (resume): rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    reset_counts()
+    again = cli.main(argv)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError(f"the resumed CLI run launched kernels: {read_counts()}")
+    if {f: os.path.getmtime(os.path.join(out, "%06d" % (t + 1), f)) for t in range(FRAMES)
+            for f in ("face.obj", "face.png")} != stamps:
+        raise AssertionError("a resumed CLI run rewrote a frame's export")
+    log(f"resume: python -m topo4d_tpu_torch exited 0 in {sub_s:.3f} s and wrote no frame; cli.main again launched "
+        "nothing")
+
+    frame1 = again.source.frame(1)
+    backends_check(trainer, frame1)
+    del frame1, again
+    sweep = loader_sweep(trainer)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    log(f"phase 9 (the CLI on a disk tree): {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "parts": rec["parts"], "wall": wall, "loader": loader, "decode": cost, "sweep": sweep}
+
+
+def kernel_rows(run, batched, v3, cli, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
     bake), the geometry shapes' numbers beside them; launches over each
     path's run with the counts set to 0 just before it: the parity
-    ``Trainer.run`` (K1/K2, K5, K6), by part, and the batched one; K4's over
-    the v3 path (the first v3 run of its geometry and dense steps)."""
+    ``Trainer.run`` (K1/K2, K5, K6), by part, the batched one and the CLI's
+    (``launches_cli``, and by part); K4's over the v3 path (the first v3 run
+    of its geometry and dense steps)."""
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
     by_part.update({f"batched geometry frame {p['frame']}": p["counts"] for p in batched["parts"]})
+    by_part.update({f"cli {p['kind']} frame {p['frame']}": p["counts"] for p in cli["parts"]})
 
     def by_path(name):
         return {part: c[name] for part, c in by_part.items()}
@@ -1696,6 +2193,7 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
             "max_abs_err": max_err(0 if key == "fwd" else 1),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": "4K dense view 0, compact", "geometry_shape": geo_timing[key],
+            "launches_cli": cli["counts"][name],
         })
     for row in rows:  # K1 and K2
         row["redesigned"] = True
@@ -1708,7 +2206,7 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
         t = blend4k[key]  # the same work as K1/K2: their bounds and plain version
         rows.append({
             "name": name, "route": "cuda", "source": f"topo4d_tpu_torch/csrc/{src}", "replaces": tpu,
-            "launches": sum(c[name] for c in v3["counts"].values()),
+            "launches": sum(c[name] for c in v3["counts"].values()), "launches_cli": cli["counts"][name],
             "launches_by_path": {f"v3 path, {path}": c[name] for path, c in v3["counts"].items()},
             "max_abs_err": max_err(2 if key == "fwd" else 3),
             "ms": blend4k["v3"][tps0][f"{key}_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1726,11 +2224,13 @@ def kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake):
         "max_abs_err": errs["blur"], "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": big["library_ms"], "shape": [15, FULL_H, FULL_W],
         "kernel_ms": big["kernel_ms"], "geometry_shape": small, "redesigned": True,
+        "launches_cli": cli["counts"]["gauss_blur"],
     })
     rows.append({
         "name": "uv_bake", "route": "cuda", "source": "topo4d_tpu_torch/csrc/bake.cu",
         "replaces": "topo4d_tpu/texture/bake_pallas.py:216",
-        "launches": counts["uv_bake"], "launches_by_path": {"export": counts["uv_bake"]},
+        "launches": counts["uv_bake"], "launches_by_path": {"export": counts["uv_bake"], "cli export": cli["counts"]["uv_bake"]},
+        "launches_cli": cli["counts"]["uv_bake"],
         "max_abs_err": errs["bake"], "ms": bake["ms"], "plain_ms": bake["plain_ms"], "bound_ms": bake["bound_ms"],
         "bound_by": bake["bound_by"], "library_ms": None, "shape": [TEX_RES, TEX_RES, 3],
         "wrapper_ms": bake["wrapper_ms"], "culled_share": bake["cull"]["culled_share"],
@@ -1795,6 +2295,7 @@ def main() -> int:
     dense = phase_profile_dense(trainer, last_tex)
     v3 = phase_v3(trainer, frames)
     batched = phase_batched(cfg, src, trainer, scene, frames)
+    cli = phase_cli(run)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
@@ -1807,7 +2308,7 @@ def main() -> int:
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(run, batched, v3, errs, geo_timing, blend4k, blur, bake)}))
+    print(json.dumps({"kernels": kernel_rows(run, batched, v3, cli, errs, geo_timing, blend4k, blur, bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -365,15 +365,16 @@ def test_resumed_run_equals_uninterrupted(scene, tmp_path):
 
 
 def test_run_refuses_what_is_not_ported(scene, tmp_path):
-    """Masked targets wait for the mask module."""
+    """A dense re-binning cadence other than once per frame and view
+    (``texture.rebin_freq``) is not ported; masked targets are
+    (``tests/test_torch_cli.py``)."""
     mesh, regions, params, js = scene
     cfg = _configure(Config(), tmp_path, 1)
-    cfg.data.use_mask = True
+    cfg.texture.rebin_freq = 1
     source = SyntheticSequence(params=params, cameras=make_camera_ring(4, width=48, height=32, distance=2.0, device=CPU))
-    frame = source.frame(1)
     trainer = Trainer(cfg, source, params, convert.statics_from_numpy(js), device=CPU)
-    with pytest.raises(NotImplementedError, match="use_mask"):
-        trainer.fit_frame_geometry(0, frame._replace(masks=frame.images))
+    with pytest.raises(NotImplementedError, match="rebin_freq"):
+        trainer.fit_frame_texture(0, source.frame(1))
 
 
 def test_save_resume_cuts_an_orphan_record(tmp_path):

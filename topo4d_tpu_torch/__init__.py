@@ -1,7 +1,9 @@
-"""PyTorch + CUDA port of ``topo4d_tpu`` (slices 1-4: parity-mode geometry
-tracking, the dense texture phase, the per-frame export through
-``Trainer.run``, and the batched all-views geometry mode with its segmented
-multi-steps and frozen binnings; the renderer's ``variant`` argument).
+"""PyTorch + CUDA port of ``topo4d_tpu``: parity-mode and batched all-views
+geometry tracking, the dense texture phase, the per-frame export through
+``Trainer.run``, and the command line (``python -m topo4d_tpu_torch``) on a
+capture in the reference's disk layout, with its face-parsing masks,
+progress renders and the tiled and oracle renderers. Multi-GPU is not
+ported yet.
 
 The JAX package beside this one is the reference; this package mirrors its
 layout (``core/``, ``rasterizer/``, ``losses/``, ``opt/``, ``parallel/``,
@@ -13,7 +15,9 @@ Device rule: every entry point takes ``device`` and defaults to ``"cuda"``;
 it raises when no card is present and never falls back to the CPU. The tile
 blend (K1/K2, or K4f/K4b under ``variant="v3"``), the SSIM blur and the UV
 bake run the hand-written CUDA kernels (``csrc/``) on CUDA tensors and their
-plain PyTorch versions only on CPU tensors.
+plain PyTorch versions only on CPU tensors. The tiled and oracle renderers
+are plain PyTorch on whichever device the caller picks. Host IO (XML, PNG,
+pickle) is NumPy.
 
 Contract paths run in float32 with TF32 off (cuBLAS and cuDNN).
 """

@@ -1,22 +1,44 @@
-"""The subset of ``topo4d_tpu.config`` that the geometry tracking path (parity
-and batched all-views modes), the dense texture phase and the per-frame
-export read.
+"""The run configuration (``topo4d_tpu/config.py``): every field the port
+reads, with the JAX package's names and defaults, and the JSON file the CLI
+saves beside its outputs.
 
-Same field names and defaults as the reference's dataclasses; learning rates
-and loss weights stay host floats (they are passed to the step as Python
-scalars, so a phase change moves no data to the card).
+Learning rates and loss weights stay host floats (they are passed to the
+step as Python scalars, so a phase change moves no data to the card).
+``Config.from_json`` also loads the ``config.json`` that the JAX CLI writes:
+a key the port has no field for is accepted only at the JAX default
+(``JAX_ONLY_DEFAULTS``), where it changes nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import json
+from typing import Dict, List, Tuple
 
 from topo4d_tpu_torch.topology.regions import (
     ISO_REGION_MULTIPLIERS,
     RIGID_REGION_MULTIPLIERS,
     ROT_REGION_MULTIPLIERS,
 )
+
+# Per-camera +/-90-degree rotation of the input views (reference
+# train.py:28-35): -1 clockwise, +1 anticlockwise.
+DEFAULT_ROTATE_MASK: Dict[str, int] = {
+    "J87351627": -1, "K19210959": -1, "K98707288": 1, "K98707289": 1,
+    "K98707290": -1, "K98707291": 1, "K98707292": -1, "K98707293": -1,
+    "K98707294": -1, "K98707295": -1, "K98707296": 1, "K98707297": -1,
+    "K99216880": -1, "K99216881": -1, "K99216882": 1, "K99216883": 1,
+    "K99216885": 1, "K99216886": -1, "K99216887": 1, "K99216888": 1,
+    "K99216890": -1, "K99216891": -1, "K99216892": 1, "K99216893": 1,
+}
+
+# Face-parsing label colormap indices (reference train.py:50-55).
+DEFAULT_CMAP_INDEX: Dict[str, int] = {
+    "background": 0, "skin": 1, "l_eyebrow": 2, "r_eyebrow": 3,
+    "l_eye": 4, "r_eye": 5, "nose": 6, "upper_lip": 7,
+    "inner_mouth": 8, "lower_lip": 9, "hair": 10, "l_ear": 11,
+    "r_ear": 12, "glasses": 13,
+}
 
 
 @dataclasses.dataclass
@@ -83,7 +105,15 @@ class LearningRates:
 
 @dataclasses.dataclass
 class RasterizerConfig:
+    # "pallas": the hand-written blend kernels on CUDA tensors (their plain
+    # versions on CPU tensors); "tiled" and "oracle": the plain PyTorch
+    # renderers of rasterizer/tiled.py and rasterizer/reference.py, on the
+    # tensors' device. The JAX package's names, so its command lines run.
+    backend: str = "pallas"
     max_span: int = 4  # tiles per axis per Gaussian before cropping
+    capacity: int = 1024  # the tiled backend's entries per tile (more are dropped and counted)
+    near: float = 0.01
+    far: float = 100.0
     bg: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     # geometry-phase frozen binning: a segment of identically configured
     # steps computes each view's binning once at its entry and every step
@@ -137,12 +167,24 @@ class ScheduleConfig:
 
 @dataclasses.dataclass
 class DataConfig:
+    input_dir: str = ""
+    dense_input_dir: str = ""
     output_dir: str = "output"
     exp: str = "exp_op1"  # reference argparse default (train.py:762)
     seq: str = "seq_01"
-    # dim the inner mouth of tracked frames' targets with the parsing masks;
-    # a source that has masks raises until the mask module is ported
+    down_ratio: int = 8
+    dense_down_ratio: int = 1
+    # dim the inner mouth of tracked frames' targets with the parsing masks
     use_mask: bool = True
+    # the dense phase's loss: L1 over the parsing mask's facial regions
+    use_mask_dense: bool = False
+    startup_mesh: str = "face_v5.obj"
+    regions_pkl: str = "assets/facial_regions.pkl"
+    rotate_mask: Dict[str, int] = dataclasses.field(default_factory=lambda: dict(DEFAULT_ROTATE_MASK))
+    blacklist: List[str] = dataclasses.field(default_factory=list)
+    cmap_index: Dict[str, int] = dataclasses.field(default_factory=lambda: dict(DEFAULT_CMAP_INDEX))
+    # views rendered to <out>/%06d/vis<name>_<iter>.png at each geometry log row
+    log_views: List[str] = dataclasses.field(default_factory=lambda: ["K98707293"])
 
 
 @dataclasses.dataclass
@@ -183,6 +225,79 @@ class Config:
     rot_region_multipliers: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict(ROT_REGION_MULTIPLIERS)
     )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        """A config from the JSON of ``to_json`` or of the JAX package's
+        ``Config.to_json``. Missing keys keep their defaults. A key the port
+        has no field for raises ``ValueError`` naming it, unless it holds the
+        JAX default of ``JAX_ONLY_DEFAULTS``; ``data.checkpoint_backend``
+        "orbax" raises ``NotImplementedError``."""
+        raw = dict(json.loads(text))
+        sections = {f.name: f for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for key, value in raw.items():
+            if key not in sections:
+                _accept_jax_only(key, value)
+                continue
+            ftype = _SECTIONS.get(key)
+            if ftype is None:  # the per-region multiplier tables
+                kwargs[key] = dict(value)
+                continue
+            known = {f.name for f in dataclasses.fields(ftype)}
+            fields = {}
+            for k, v in value.items():
+                if k in known:
+                    fields[k] = v
+                else:
+                    _accept_jax_only(f"{key}.{k}", v)
+            if ftype is RasterizerConfig and "bg" in fields:
+                fields["bg"] = tuple(fields["bg"])
+            kwargs[key] = ftype(**fields)
+        return cls(**kwargs)
+
+
+_SECTIONS = {
+    "data": DataConfig, "schedule": ScheduleConfig, "raster": RasterizerConfig, "weights": LossWeights,
+    "dense_weights": DenseLossWeights, "lrs": LearningRates, "texture": TextureConfig,
+}
+
+# any value of a JAX-only key that changes no result
+ANY = object()
+
+# Keys of the JAX package's config that the port has no field for, each at
+# the value for which the port's behaviour is the JAX package's: the Pallas
+# interpreter off, any entry window of the Pallas blend (it changes no
+# result), the bake knobs (one bake here), the photometric loss without
+# remat, no tile sharding, the pickle checkpoints, the one-ring weight
+# sharpness the port computes with, the 24-camera cap of scenes built
+# without a view count (the port always passes the source's).
+JAX_ONLY_DEFAULTS = {
+    "raster.interpret": False,
+    "raster.chunk": ANY,
+    "texture.bake_window": 16,
+    "texture.bake_bands": 8,
+    "texture.bake_backend": "auto",
+    "texture.tile_shard": False,
+    "texture.remat_photometric": False,
+    "data.checkpoint_backend": "pickle",
+    "neighbor_weight_k": 2000.0,
+    "data.max_cams": 24,
+}
+
+
+def _accept_jax_only(key: str, value) -> None:
+    if key == "data.checkpoint_backend" and value == "orbax":
+        raise NotImplementedError("data.checkpoint_backend 'orbax' is not ported (it waits for multi-GPU)")
+    if key not in JAX_ONLY_DEFAULTS:
+        raise ValueError(f"config key {key!r} is not a field of topo4d_tpu_torch's Config")
+    if JAX_ONLY_DEFAULTS[key] is not ANY and value != JAX_ONLY_DEFAULTS[key]:
+        raise ValueError(
+            f"config key {key!r} = {value!r}: topo4d_tpu_torch runs only with {JAX_ONLY_DEFAULTS[key]!r}"
+        )
 
 
 def check_schedule(cfg: Config) -> None:

@@ -1,23 +1,196 @@
-"""Sequence sources: a synthetic sequence and the per-frame view schedule
-(pipeline/data.py :163, :223)."""
+"""Sequence sources (``pipeline/data.py``): the reference-layout disk
+sequence (:43), a synthetic sequence (:163) and the per-frame view schedule
+(:223).
+
+The disk layout follows the reference (train.py:58-112): a sequence
+directory holding ``cameras.xml`` (Agisoft), per-frame subdirectories
+``%06d`` of per-view images named by camera label, and optionally a
+parallel ``mask/%06d/`` tree of face-parsing images. Views in the blacklist
+are skipped; each image is rotated by its camera's +/-90-degree portrait
+rotation. Images are decoded on the host by ``utils/png.py`` (PNG only: a
+``.jpg`` view raises ``NotImplementedError``) and stay uint8 there;
+``frame_tensor`` moves them to the card and converts them there.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
+from glob import glob
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from topo4d_tpu_torch.core.camera import Camera
+from topo4d_tpu_torch.config import Config
+from topo4d_tpu_torch.core.agisoft import load_camera
+from topo4d_tpu_torch.core.camera import Camera, make_camera
 from topo4d_tpu_torch.core.gaussian import activate_params
 from topo4d_tpu_torch.rasterizer.render import render_gaussians
+from topo4d_tpu_torch.utils.png import read_png
+
+# threads that decode and turn a frame's views (zlib and NumPy release the
+# interpreter lock). A read slows the host-bound geometry loop while it
+# runs; 4 threads end it soonest and cost the loop the least time in all of
+# 1, 2 and 4 on an 8-core H100 host (PERF.md, chip_smoke.py phase 9's sweep)
+LOAD_THREADS = 4
 
 
 class FrameData(NamedTuple):
-    images: np.ndarray  # (V, 3, H, W) float32 in [0, 1]
-    masks: Optional[np.ndarray]  # (V, 3, H, W) or None
+    images: np.ndarray  # (V, 3, H, W): float32 in [0, 1], or uint8 (``DiskSequence``'s)
+    masks: Optional[np.ndarray]  # (V, 3, H, W) likewise, or None
     view_names: List[str]
+
+
+def frame_tensor(x: np.ndarray, device) -> torch.Tensor:
+    """A frame's images or parsing images on ``device`` as float32 in
+    [0, 1]. A uint8 array moves as uint8 and is divided there:
+    float32(x) / float32(255), the JAX loader's values bit for bit. The
+    divisor is a tensor on ``device``: PyTorch's CUDA division by a host
+    scalar multiplies by its reciprocal, which differs in the last bit for
+    126 of the 256 values."""
+    t = torch.as_tensor(x)
+    if t.dtype != torch.uint8:
+        return t.to(device=device, dtype=torch.float32)
+    return t.to(device).to(torch.float32) / torch.tensor(255.0, device=device)
+
+
+def _stack_cameras(cam_dicts: List[Dict], near: float, far: float, device) -> Camera:
+    ks = np.stack([c["intrinsics"] for c in cam_dicts])
+    w2cs = np.stack([np.concatenate([c["extrinsics"], np.array([[0.0, 0.0, 0.0, 1.0]])], axis=0) for c in cam_dicts])
+    h, w = cam_dicts[0]["image_size"]
+    return make_camera(ks, w2cs, int(w), int(h), near, far, device=device)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as ``np.asarray(PIL.Image.open(path))`` gives it (uint8);
+    PNG only."""
+    if os.path.splitext(path)[1].lower() != ".png":
+        raise NotImplementedError(f"{path}: only PNG images are read (no JPEG decoder is ported)")
+    return read_png(path)
+
+
+@dataclasses.dataclass
+class DiskSequence:
+    """Reference-layout sequence reader: the cameras at ``data.down_ratio``
+    (``cameras``) and ``data.dense_down_ratio`` (``cameras_full``) on
+    ``device``, ``trans_g`` (the calibration's component transform), and
+    ``frame(t, full_res)`` -> host ``FrameData`` of uint8 pixels."""
+
+    cfg: Config
+    device: str = "cuda"
+
+    def __post_init__(self):
+        data = self.cfg.data
+        seq_dir = os.path.join(data.input_dir, data.seq)
+        calib = os.path.join(seq_dir, "cameras.xml")
+        first = sorted(glob(os.path.join(seq_dir, "000001", "*.jpg"))) + sorted(
+            glob(os.path.join(seq_dir, "000001", "*.png"))
+        )
+        self.view_files = [
+            os.path.basename(f) for f in first
+            if not any(os.path.basename(f).startswith(b) for b in data.blacklist)
+        ]
+        self.view_names = [os.path.splitext(v)[0] for v in self.view_files]
+        cams, cams_full = [], []
+        self.trans_g = np.eye(4)
+        for name in self.view_names:
+            rt = data.rotate_mask.get(name, 0)
+            cam, trans_g = load_camera(calib, name, resize_factor=data.down_ratio, rt=rt)
+            cam_full, _ = load_camera(calib, name, resize_factor=data.dense_down_ratio, rt=rt)
+            cams.append(cam)
+            cams_full.append(cam_full)
+            self.trans_g = trans_g
+        near, far = self.cfg.raster.near, self.cfg.raster.far
+        self.cameras = _stack_cameras(cams, near, far, self.device)
+        self.cameras_full = _stack_cameras(cams_full, near, far, self.device)
+        self._warned_no_mask = self._warned_missing_mask = False
+
+    @property
+    def num_views(self) -> int:
+        return len(self.view_names)
+
+    def frame(self, t: int, full_res: bool = False) -> Optional[FrameData]:
+        """1-based frame ``t`` (images uint8, rotated to the cameras' frame;
+        the parsing images likewise, or None) or None when a view's image is
+        missing."""
+        data = self.cfg.data
+        root = data.dense_input_dir if full_res else data.input_dir
+        frame_dir = os.path.join(root, data.seq, "%06d" % t)
+        mask_root = os.path.join(root, data.seq, "mask")
+        want_mask = data.use_mask_dense if full_res else data.use_mask
+        use_mask = want_mask and os.path.isdir(mask_root)
+        if want_mask and not use_mask and not self._warned_no_mask:
+            print(f"[topo4d_tpu_torch] mask dir {mask_root} not found - proceeding without face-parsing masks")
+            self._warned_no_mask = True
+        cam = self.cameras_full if full_res else self.cameras
+        paths, mpaths, rts = [], [], []
+        for fname, name in zip(self.view_files, self.view_names):
+            path = os.path.join(frame_dir, fname)
+            if not os.path.exists(path):
+                alt = os.path.splitext(path)[0]
+                for ext in (".jpg", ".png"):
+                    if os.path.exists(alt + ext):
+                        path = alt + ext
+                        break
+                else:
+                    break  # the views before it are still read, and checked
+            paths.append(path)
+            rts.append(data.rotate_mask.get(name, 0))
+            if use_mask:
+                mbase = os.path.join(root, data.seq, "mask", "%06d" % t, os.path.splitext(fname)[0])
+                # the images' extension fallback; a missing per-view mask
+                # turns the frame maskless (one warning)
+                for ext in (".png", ".jpg"):
+                    if os.path.exists(mbase + ext):
+                        mpaths.append(mbase + ext)
+                        break
+                else:
+                    if not self._warned_missing_mask:
+                        print(f"[topo4d_tpu_torch] mask {mbase}.png missing - frame {t} proceeds without masks")
+                        self._warned_missing_mask = True
+                    use_mask = False
+        if not use_mask:
+            mpaths = []
+        with ThreadPoolExecutor(max_workers=LOAD_THREADS) as pool:
+            views = list(pool.map(_load_view, paths, mpaths or [None] * len(paths), rts))
+            for path, (im, _) in zip(paths, views):
+                if im.shape[:2] != (cam.height, cam.width):
+                    raise ValueError(
+                        f"{path} is {im.shape[1]}x{im.shape[0]} but the calibration at "
+                        f"{'dense_' if full_res else ''}down_ratio="
+                        f"{data.dense_down_ratio if full_res else data.down_ratio}"
+                        f" expects {cam.width}x{cam.height}; point "
+                        f"{'--dense_input_dir' if full_res else '--input_dir'} "
+                        f"at images of that size or adjust the ratio"
+                    )
+            if len(paths) < len(self.view_files):
+                return None
+            images = np.empty((len(views),) + views[0][0].transpose(2, 0, 1).shape, np.uint8)
+            masks = np.empty((len(views),) + views[0][1].transpose(2, 0, 1).shape, np.uint8) if use_mask else None
+            list(pool.map(_to_planes, views, range(len(views)), [images] * len(views), [masks] * len(views)))
+        return FrameData(images=images, masks=masks, view_names=self.view_names)
+
+
+def _load_view(path: str, mpath: Optional[str], rt: int):
+    """One view's image and parsing image (or None), decoded and rotated by
+    ``rt`` quarter turns (``rotate_image``'s turn, as a view: the copy into
+    planes moves the pixels once); the parsing image cropped to the image's
+    size before the rotation."""
+    raw = read_image(path)
+    mk = None if mpath is None else np.rot90(read_image(mpath)[: raw.shape[0], : raw.shape[1]], rt, axes=(0, 1))
+    return np.rot90(raw, rt, axes=(0, 1)), mk
+
+
+def _to_planes(view, v: int, images: np.ndarray, masks: Optional[np.ndarray]) -> None:
+    # one NumPy copy per array, which takes the interpreter lock once: a copy
+    # in cache-sized tiles reads 3x faster but takes the lock at every tile,
+    # and slowed the geometry loop on the fitting thread far more (PERF.md)
+    im, mk = view
+    images[v] = im.transpose(2, 0, 1)
+    if masks is not None:
+        masks[v] = mk.transpose(2, 0, 1)
 
 
 @dataclasses.dataclass

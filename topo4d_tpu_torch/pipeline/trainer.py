@@ -17,8 +17,15 @@ identically configured steps through a multi-step, and with a resolved
 segment freezes per-view binnings computed at its entry, capped at that
 many steps. Segment boundaries are semantics, not scheduling: a binning is
 recomputed at each entry, so they fall exactly where the JAX package's do.
-Masks, progress renders, the orbax checkpoint backend, multi-device meshes
-and multi-host resume are later slices.
+
+A source with face-parsing masks dims the inner mouth of tracked frames'
+targets (``data.use_mask``), and the dense phase takes the masked L1 loss
+under ``data.use_mask_dense``. At each geometry log row the views of
+``data.log_views`` are rendered to ``<out>/%06d/vis<name>_<iter>.png``.
+``raster.backend`` picks the renderer: "pallas" (the blend kernels on the
+card), "tiled" or "oracle" (plain PyTorch renderers; frozen binnings are
+pallas-only). The orbax checkpoint backend, multi-device meshes and
+multi-host resume are later slices.
 """
 
 from __future__ import annotations
@@ -49,8 +56,10 @@ from topo4d_tpu_torch.opt.step import (
 )
 from topo4d_tpu_torch.parallel.batched import make_batched_geometry_multi_step, make_batched_geometry_step
 from topo4d_tpu_torch.pipeline import checkpoint as ckpt
-from topo4d_tpu_torch.pipeline.data import view_order
+from topo4d_tpu_torch.pipeline.data import frame_tensor, view_order
 from topo4d_tpu_torch.pipeline.export import build_bake_binning, save_mesh
+from topo4d_tpu_torch.pipeline.masks import dim_inner_mouth
+from topo4d_tpu_torch.pipeline.progress import report_progress
 from topo4d_tpu_torch.pipeline.scene import (
     SceneStatics,
     build_constraints,
@@ -71,8 +80,23 @@ from topo4d_tpu_torch.utils.profiling import PhaseTimer, mpix_per_s
 
 
 def make_render_fn(cfg: Config, device):
+    """``render(rv, cam) -> RenderOutput`` of ``raster.backend``
+    (``pipeline/trainer.py:72-93``)."""
     bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=device)
-    return lambda rv, cam: render_gaussians(rv, cam, bg=bg, max_span=cfg.raster.max_span)
+    backend = cfg.raster.backend
+    if backend == "pallas":
+        return lambda rv, cam: render_gaussians(rv, cam, bg=bg, max_span=cfg.raster.max_span)
+    if backend == "tiled":
+        from topo4d_tpu_torch.rasterizer.tiled import render_gaussians_tiled
+
+        return lambda rv, cam: render_gaussians_tiled(
+            rv, cam, bg=bg, max_span=cfg.raster.max_span, capacity=cfg.raster.capacity
+        )
+    if backend == "oracle":
+        from topo4d_tpu_torch.rasterizer.reference import render_gaussians as render_oracle
+
+        return lambda rv, cam: render_oracle(rv, cam, bg=bg)
+    raise ValueError(f"unknown rasterizer backend {backend!r}")
 
 
 def make_geo_binning_fns(cfg: Config, device):
@@ -80,8 +104,8 @@ def make_geo_binning_fns(cfg: Config, device):
     binnings (``pipeline/trainer.py:96-138``), or (None, None) when the
     resolved ``raster.track_rebin_freq`` is 0 (a fresh binning every
     render). The binned render takes no compact list and no static rows, as
-    in JAX."""
-    if effective_track_rebin_freq(cfg) <= 0:
+    in JAX. Frozen binnings are the pallas backend's (``:108-112``)."""
+    if cfg.raster.backend != "pallas" or effective_track_rebin_freq(cfg) <= 0:
         return None, None
     bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=device)
     span = cfg.raster.max_span
@@ -100,7 +124,10 @@ def make_dense_render_fn(cfg: Config, device):
     """Dense-loop renderer ``(rv, cam, binning)``: a manual
     ``texture.tile_capacity`` (> 0) rides every render; the auto capacity
     (-1) rides the compact list the trainer attaches to each frozen
-    binning."""
+    binning. Backends other than pallas take no binning (``:140-160``)."""
+    if cfg.raster.backend != "pallas":
+        base = make_render_fn(cfg, device)
+        return lambda rv, cam, binning: base(rv, cam)
     bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=device)
     cap = cfg.texture.tile_capacity if cfg.texture.tile_capacity > 0 else None
     return lambda rv, cam, binning: render_gaussians(
@@ -115,7 +142,7 @@ class Trainer:
     def __init__(
         self,
         cfg: Config,
-        source,  # SyntheticSequence (any object with .cameras)
+        source,  # DiskSequence | SyntheticSequence
         params_np: Dict[str, np.ndarray],
         statics: SceneStatics,
         device="cuda",
@@ -179,6 +206,7 @@ class Trainer:
         self._con_cache: Dict[str, tuple] = {}
         # the texture phase, built at its first frame
         self.texture_step = self.texture_eval = None
+        self._texture_masked: Optional[bool] = None  # the mask state the texture step was built for
         self.texture_state: Optional[TextureState] = None
         self.dense_means3d: Optional[torch.Tensor] = None
         self.dense_anchor: Optional[torch.Tensor] = None
@@ -202,7 +230,10 @@ class Trainer:
 
     def fit_frame_geometry(self, t: int, frame_data) -> Dict[str, float]:
         """Fit frame ``t``: "init" for t == 0, "track" after. Returns the last
-        logged metrics row (also appended to ``metrics_log``).
+        logged metrics row (also appended to ``metrics_log``). A tracked
+        frame's targets have their inner mouth dimmed when the source has
+        masks and ``data.use_mask`` (``pipeline/trainer.py:369-382``); each
+        log row renders ``data.log_views`` (``:475-480``, ``:524-529``).
 
         After frame 0 the frame-0 color snapshot that the track constraints
         restore is cached, as the reference's frame loop does.
@@ -211,9 +242,10 @@ class Trainer:
         sched = cfg.schedule
         is_init = t == 0
         num_iters = sched.init_opt_num if is_init else sched.opt_num
-        if cfg.data.use_mask and frame_data.masks is not None:
-            raise NotImplementedError("masked targets (data.use_mask with a source that has masks) are not ported")
-        images = torch.as_tensor(np.asarray(frame_data.images, np.float32), device=self.device)
+        images = frame_tensor(frame_data.images, self.device)
+        if not is_init and cfg.data.use_mask and frame_data.masks is not None:
+            masks = frame_tensor(frame_data.masks, self.device)
+            images = torch.stack([dim_inner_mouth(im, mk, cfg.data.cmap_index) for im, mk in zip(images, masks)])
         cams = self.source.cameras
         step_phase = "init" if is_init else "track"
 
@@ -230,23 +262,31 @@ class Trainer:
             )
 
         weights = self.weights_for(step_phase)
+
+        def report(i):  # the single process is host 0
+            if cfg.data.log_views:
+                report_progress(
+                    self.state.params, self.render_fn, cams, images, frame_data.view_names, cfg.data.log_views,
+                    self._out_dir, t + 1, i,
+                )
+
         if sched.views_per_step == 0:
-            metrics = self._fit_batched(t, images, cams, step_phase, weights)
+            metrics = self._fit_batched(t, images, cams, step_phase, weights, report)
         else:
-            metrics = self._fit_parity(t, images, cams, num_iters, step_phase, weights)
+            metrics = self._fit_parity(t, images, cams, num_iters, step_phase, weights, report)
         if is_init:
             self.first_frame_attrs = cache_first_frame_attrs(self.state.params, self.statics.regions)
         return metrics
 
-    def _walk(self, t: int, n: int, attrs, multi: bool, run_segment, run_step) -> Dict[str, float]:
+    def _walk(self, t: int, n: int, attrs, multi: bool, run_segment, run_step, report) -> Dict[str, float]:
         """Run steps 0..n-1 of frame ``t``; ``attrs(i)`` is step i's
         (constraint phase, lr key, log?). With the multi-step (``multi``),
         each run of unlogged steps of one configuration is one
         ``run_segment(i, j, constraints, lr)``, capped at the resolved
         ``track_rebin_freq`` when binnings are frozen
         (``pipeline/trainer.py:434-455``, ``:489-508``); every other step is
-        ``run_step(i, constraints, lr, log?) -> metrics``. Returns the last
-        logged row."""
+        ``run_step(i, constraints, lr, log?) -> metrics``, and a logged one
+        is followed by ``report(i)``. Returns the last logged row."""
         seg_cap = effective_track_rebin_freq(self.cfg) if self._binnings_fn is not None else n
         metrics: Dict[str, float] = {}
         i = 0
@@ -267,10 +307,11 @@ class Trainer:
                 metrics["frame"] = t
                 metrics["iter"] = i
                 self.metrics_log.append(dict(metrics))
+                report(i)
             i += 1
         return metrics
 
-    def _fit_parity(self, t, images, cams, num_iters, step_phase, weights) -> Dict[str, float]:
+    def _fit_parity(self, t, images, cams, num_iters, step_phase, weights, report) -> Dict[str, float]:
         """One view per step (``pipeline/trainer.py:484-531``)."""
         sched = self.cfg.schedule
         is_init = t == 0
@@ -300,7 +341,7 @@ class Trainer:
             )
             return m
 
-        return self._walk(t, num_iters, attrs, self.multi_step is not None, run_segment, run_step)
+        return self._walk(t, num_iters, attrs, self.multi_step is not None, run_segment, run_step, report)
 
     def batched_schedule(self, t: int, num_views: int):
         """The batched mode's contraction of frame ``t``'s schedule
@@ -327,7 +368,7 @@ class Trainer:
 
         return nb, log_every, attrs
 
-    def _fit_batched(self, t, images, cams, step_phase, weights) -> Dict[str, float]:
+    def _fit_batched(self, t, images, cams, step_phase, weights, report) -> Dict[str, float]:
         """All views per step (``pipeline/trainer.py:405-482``)."""
         nb, _, attrs = self.batched_schedule(t, images.shape[0])
         self._last_geo_renders = nb * images.shape[0]  # every batched step renders all views
@@ -343,7 +384,7 @@ class Trainer:
             )
             return m
 
-        return self._walk(t, nb, attrs, self.batched_multi_step is not None, run_segment, run_step)
+        return self._walk(t, nb, attrs, self.batched_multi_step is not None, run_segment, run_step, report)
 
     def _auto_tile_capacity(self, occ: int, total_tiles: int) -> int:
         """Sticky auto tile capacity (``texture.tile_capacity = -1``):
@@ -394,9 +435,12 @@ class Trainer:
         PSNR over all views), then a terminal row after the last step.
 
         Each view's binning is frozen for the frame (the dense means3D do not
-        move within it), with the split pack's static rows and, under the
-        auto capacity, one compact tile list sized from the frame's largest
-        occupancy: one read back from the card per frame.
+        move within it; pallas backend only), with the split pack's static
+        rows and, under the auto capacity, one compact tile list sized from
+        the frame's largest occupancy: one read back from the card per frame.
+        Under ``data.use_mask_dense`` a frame with masks takes the masked L1
+        step; the step is rebuilt when that state flips
+        (``pipeline/trainer.py:575-595``).
         """
         cfg = self.cfg
         dev = self.device
@@ -410,12 +454,19 @@ class Trainer:
         else:
             # update_dense_states (train.py:498-508)
             self.dense_anchor = self.texture_state.params["dense_rgb_colors"]
-        if self.texture_step is None:
+        # masked dense loss (train.py:392-405); a frame without masks takes
+        # the unmasked objective (the loader has warned)
+        masks = None
+        if cfg.data.use_mask_dense and frame_data.masks is not None:
+            masks = frame_tensor(frame_data.masks, dev)
+        use_mask = masks is not None
+        if self.texture_step is None or self._texture_masked != use_mask:
             # built apart from the state, so that a resumed run, whose
             # texture_state comes from the checkpoint, gets them too
             render = make_dense_render_fn(cfg, dev)
-            self.texture_step = make_texture_step(render)
+            self.texture_step = make_texture_step(render, use_mask, cfg.data.cmap_index)
             self.texture_eval = make_texture_eval(render)
+            self._texture_masked = use_mask
             self._dense_pre = build_dense_pre_constraints(
                 ckpt.to_numpy(self.texture_state.params), self.statics.regions, dev
             )
@@ -425,7 +476,7 @@ class Trainer:
             )
         with torch.no_grad():
             self.dense_means3d = interpolate_dense_attribute(self.state.params["means3D"], *self._dense_interp)
-        images = torch.as_tensor(np.asarray(frame_data.images, np.float32), device=dev)
+        images = frame_tensor(frame_data.images, dev)
         cams = self.source.cameras_full
         num_views = images.shape[0]
         sched = cfg.schedule
@@ -436,7 +487,7 @@ class Trainer:
         lr = dict(cfg.lrs.dense)
         weights = cfg.dense_weights.as_dict()
 
-        binnings = self.dense_binnings(t)
+        binnings = self.dense_binnings(t) if cfg.raster.backend == "pallas" else [None] * num_views
 
         def eval_row(i: int) -> Dict[str, float]:
             state, means = self.texture_state, self.dense_means3d
@@ -456,6 +507,7 @@ class Trainer:
             self.texture_state, m = self.texture_step(
                 self.texture_state, self.dense_means3d, images[v], cams, v, self.dense_anchor,
                 self._dense_pre, lr, weights, binnings[v], with_metrics=log_this,
+                mask=None if masks is None else masks[v],
             )
             if log_this:
                 row = {("tex_" + k): float(val) for k, val in m.items()}

@@ -1,16 +1,23 @@
-"""Synthetic fixtures (host NumPy), counterparts of ``topo4d_tpu/testing.py``.
+"""Synthetic fixtures (host NumPy), counterparts of ``topo4d_tpu/testing.py``
+and ``scripts/fabricate_dataset.py``.
 
 Same shapes, statistics and random streams as the reference's fixtures: the
 8,280-vertex head patch, the 24-view camera ring, 375x512 geometry images.
-Functions that return a Camera take ``device``.
+``write_disk_sequence`` writes a sequence in the reference's disk layout.
+Functions that return a Camera or render take ``device``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import os
+import pickle
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from topo4d_tpu_torch.config import DEFAULT_CMAP_INDEX, DEFAULT_ROTATE_MASK
 from topo4d_tpu_torch.core.camera import Camera, make_camera
 from topo4d_tpu_torch.topology.adjacency import triangulate_faces
 from topo4d_tpu_torch.topology.regions import FACE_REGION_NAMES, FacialRegions
@@ -167,3 +174,213 @@ def make_crowded_bake_tile(n_tris: int = 100, seed: int = 8) -> Tuple[np.ndarray
     z[::5] = 0.25
     verts = np.concatenate([corners, z], -1).reshape(-1, 3).astype(np.float32)
     return verts, np.arange(3 * n_tris).reshape(n_tris, 3)
+
+
+def grid_uvs(rows: int, cols: int) -> np.ndarray:
+    """The grid head's UV map: vertex (r, c) at (u_c, v_r) on [0.05, 0.95]^2."""
+    return np.stack(
+        np.meshgrid(np.linspace(0.05, 0.95, cols), np.linspace(0.05, 0.95, rows), indexing="xy"), -1
+    ).reshape(-1, 2).astype(np.float32)
+
+
+@dataclasses.dataclass
+class DiskTree:
+    """What ``write_disk_sequence`` wrote: the roots (``-id`` / ``-did``) and
+    sequence name, the views, the rigs the targets were rendered on, the
+    component transform, and each frame's targets and parsing images as
+    stored, uint8 (V, 3, H, W) in the cameras' orientation, keyed by
+    (frame, full_res)."""
+
+    input_dir: str
+    dense_input_dir: str
+    seq: str
+    view_names: List[str]
+    cameras: Camera
+    cameras_full: Camera
+    trans_g: np.ndarray
+    images: Dict[Tuple[int, bool], np.ndarray]
+    masks: Dict[Tuple[int, bool], np.ndarray]
+
+
+def _sensor_xml(i, f, cx, cy, width, height, ratio, rt) -> str:
+    """Invert ``extract_intrinsics``: the sensor whose calibration at
+    ``resize_factor`` ``ratio`` gives a camera of focal ``f``, principal
+    point (cx, cy) and size width x height, for a view rotated by ``rt``
+    (a landscape sensor for a portrait camera: agisoft.py's swap)."""
+    sw, sh = (height, width) if rt else (width, height)  # the sensor at the working ratio
+    full_w, full_h = sw * ratio, sh * ratio
+    if rt:  # K = [[f, 0, cy_s], [0, f, w_s - cx_s]] after the swap
+        cx_xml = (sw - cy) * ratio - full_w / 2.0
+        cy_xml = cx * ratio - full_h / 2.0
+    else:
+        cx_xml = cx * ratio - full_w / 2.0
+        cy_xml = cy * ratio - full_h / 2.0
+    return (
+        f'<sensor id="{i}" label="s{i}" type="frame"><resolution width="{full_w}" height="{full_h}"/>'
+        '<property name="pixel_width" value="0.004"/><property name="pixel_height" value="0.004"/>'
+        f"<calibration><f>{f * ratio:.17g}</f><cx>{cx_xml:.17g}</cx><cy>{cy_xml:.17g}</cy>"
+        "<k1>0.0</k1><k2>0.0</k2></calibration></sensor>"
+    )
+
+
+def _camera_xml(i, name, w2c, rt) -> str:
+    """Invert ``extract_extrinsics``: undo the OpenGL -> COLMAP flip, the
+    inverse, the per-view z rotation and the OpenGL column flip."""
+    flip = np.diag([1.0, -1.0, -1.0])
+    gl = np.eye(4)
+    gl[:3, :3] = flip @ w2c[:3, :3]
+    gl[:3, 3] = flip @ w2c[:3, 3]
+    t = np.linalg.inv(gl)
+    theta = -1 * rt * 90 * np.pi / 180
+    c, s = np.cos(theta), np.sin(theta)
+    rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    t[:3, :3] = t[:3, :3] @ rz.T
+    t[:3, 1:3] *= -1
+    vals = " ".join(f"{v:.17g}" for v in t.reshape(-1))
+    return f'<camera id="{i}" sensor_id="{i}" label="{name}"><transform>{vals}</transform></camera>'
+
+
+def _parsing_image(height, width, face_label="skin", mouth_label="inner_mouth") -> np.ndarray:
+    """(H, W, 3) uint8 parsing image in the cameras' orientation: the
+    center half ``face_label``, a block at its center ``mouth_label``, the
+    rest background (the reference's BGR-swapped colormap)."""
+    from topo4d_tpu_torch.pipeline.masks import bgr_colormap
+
+    cmap = bgr_colormap(14)
+    mk = np.zeros((height, width, 3), np.uint8)
+    mk[height // 4 : 3 * height // 4, width // 4 : 3 * width // 4] = cmap[DEFAULT_CMAP_INDEX[face_label]]
+    bh, bw = max(height // 8, 1), max(width // 8, 1)
+    mk[height // 2 - bh // 2 : height // 2 - bh // 2 + bh, width // 2 - bw // 2 : width // 2 - bw // 2 + bw] = cmap[
+        DEFAULT_CMAP_INDEX[mouth_label]
+    ]
+    return mk
+
+
+def write_disk_sequence(
+    root: str,
+    num_views: int = 4,
+    num_frames: int = 2,
+    rows: int = 10,
+    cols: int = 10,
+    width: int = 48,
+    height: int = 32,
+    ratio: int = 8,
+    view_names: Optional[Sequence[str]] = None,
+    component: Optional[np.ndarray] = None,
+    bg: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    level: int = 6,
+    device="cuda",
+) -> DiskTree:
+    """A sequence in the reference's disk layout, the port's counterpart of
+    ``scripts/fabricate_dataset.py``: under ``root/seq01``, ``cameras.xml``
+    (the loader's math inverted), the startup mesh ``face_v5.obj`` with UVs,
+    ``face_v5.png``, ``%06d/<view>.png`` frames rendered by this package's
+    renderer (a head grid of ``rows`` x ``cols`` vertices that wobbles from
+    frame 2 on) and ``mask/%06d/<view>.png`` parsing images;
+    ``root/assets/facial_regions.pkl``; and the same frames and masks at
+    ``ratio`` times the size under ``root + "_dense"`` (a dense ratio of 1).
+
+    Views are named ``view_names`` (default ``view00``, ...), in sorted
+    order (the loader's, and that of ``DiskTree``'s arrays). A view whose
+    ``DEFAULT_ROTATE_MASK`` entry is +/-1 gets a landscape sensor and is
+    stored rotated back, so the loader's portrait swap and rotation give the
+    ``width`` x ``height`` camera. ``component`` (4, 4): a ``<components>``
+    transform; the OBJ then holds the mesh in the component's frame, as
+    ``build_scene`` expects. ``bg``: the targets' background color. PNGs are
+    written at deflate ``level`` (1 keeps the full-size frames quick)."""
+    from topo4d_tpu_torch.core.gaussian import activate_params
+    from topo4d_tpu_torch.rasterizer.render import render_gaussians
+    from topo4d_tpu_torch.topology.obj_io import write_obj_with_uv
+    from topo4d_tpu_torch.utils.png import encode_png, write_png
+
+    names = sorted(view_names) if view_names is not None else [f"view{i:02d}" for i in range(num_views)]
+    if len(names) != num_views:
+        raise ValueError(f"{len(names)} view names for {num_views} views")
+    rts = [DEFAULT_ROTATE_MASK.get(n, 0) for n in names]
+    seq = "seq01"
+    seq_dir = os.path.join(root, seq)
+    os.makedirs(seq_dir, exist_ok=True)
+
+    verts, faces = make_grid_mesh(rows, cols, extent=0.5)
+    n = verts.shape[0]
+    uvs = grid_uvs(rows, cols)
+    trans_g = np.eye(4) if component is None else np.asarray(component, np.float64)
+    verts_g = (verts @ trans_g[:3, :3].T + trans_g[:3, 3]).astype(np.float32)
+    write_obj_with_uv(os.path.join(seq_dir, "face_v5.obj"), verts_g, faces, uvs, [list(f) for f in faces])
+    ty, tx = np.meshgrid(np.linspace(0, 1, 64), np.linspace(0, 1, 64), indexing="ij")
+    tex = np.stack([tx, ty, 0.5 * np.ones_like(tx)], -1)
+    write_png(os.path.join(seq_dir, "face_v5.png"), (tex * 255).astype(np.uint8))
+    os.makedirs(os.path.join(root, "assets"), exist_ok=True)
+    with open(os.path.join(root, "assets", "facial_regions.pkl"), "wb") as fh:
+        pickle.dump(make_synthetic_regions(n, faces).to_dict(), fh)
+
+    cams = make_camera_ring(num_views, width=width, height=height, distance=2.0, device=device)
+    k = np.stack([cams.fx.cpu().numpy(), cams.cx.cpu().numpy(), cams.cy.cpu().numpy()], 1).astype(np.float64)
+    w2c = cams.w2c.cpu().numpy().astype(np.float64)
+    sensors = [_sensor_xml(i, *k[i], width, height, ratio, rts[i]) for i in range(num_views)]
+    cameras = [_camera_xml(i, names[i], w2c[i], rts[i]) for i in range(num_views)]
+    comp = ""
+    if component is not None:
+        comp = (
+            '<components><component id="0" label="c0"><transform>'
+            f"<rotation>{' '.join(f'{v:.17g}' for v in trans_g[:3, :3].reshape(-1))}</rotation>"
+            f"<translation>{' '.join(f'{v:.17g}' for v in trans_g[:3, 3])}</translation>"
+            "</transform></component></components>"
+        )
+    with open(os.path.join(seq_dir, "cameras.xml"), "w") as fh:
+        fh.write(
+            '<?xml version="1.0" encoding="UTF-8"?>\n<document><chunk>'
+            f'<sensors>{"".join(sensors)}</sensors>{comp}<cameras>{"".join(cameras)}</cameras>'
+            "</chunk></document>"
+        )
+
+    # the truth: the head grid with random colors, wobbling from frame 2 on
+    rng = np.random.default_rng(0)
+    pitch = 1.0 / max(rows, cols)
+    truth = {
+        "means3D": verts.astype(np.float32),
+        "rgb_colors": rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
+        "unnorm_rotations": np.tile(np.array([1.0, 0, 0, 0], np.float32), (n, 1)),
+        "logit_opacities": np.full((n, 1), 6.0, np.float32),
+        "log_scales": np.full((n, 3), np.log(pitch / 2), np.float32),
+    }
+    cams_full = make_camera(
+        np.stack([np.array([[f * ratio, 0, cx * ratio], [0, f * ratio, cy * ratio], [0, 0, 1.0]]) for f, cx, cy in k]),
+        w2c, width * ratio, height * ratio, device=device,
+    )
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=cams.device)
+    tree = DiskTree(
+        input_dir=root, dense_input_dir=root + "_dense", seq=seq, view_names=names,
+        cameras=cams, cameras_full=cams_full, trans_g=trans_g, images={}, masks={},
+    )
+    for t in range(1, num_frames + 1):
+        params = dict(truth)
+        if t > 1:
+            wobble = 0.002 * np.sin(0.5 * t + np.linspace(0, 6.28, n))
+            params["means3D"] = (verts + wobble[:, None] * np.array([0.3, 1.0, 0.2])).astype(np.float32)
+        rv = activate_params({k_: torch.as_tensor(v, device=cams.device) for k_, v in params.items()})
+        for full_res, base, rig in ((False, root, cams), (True, root + "_dense", cams_full)):
+            fdir = os.path.join(base, seq, "%06d" % t)
+            mdir = os.path.join(base, seq, "mask", "%06d" % t)
+            os.makedirs(fdir, exist_ok=True)
+            os.makedirs(mdir, exist_ok=True)
+            ims, mks = [], []
+            mk = _parsing_image(rig.height, rig.width)
+            mask_png = {}  # one parsing image per tree: encoded once per rotation
+            for v, name in enumerate(names):
+                with torch.no_grad():
+                    im = render_gaussians(rv, rig[v], bg=bg_t, max_span=4).image
+                    im = torch.round(torch.clamp(im, 0.0, 1.0) * 255).to(torch.uint8)
+                im = im.permute(1, 2, 0).cpu().numpy()
+                ims.append(im.transpose(2, 0, 1))
+                # stored so that the loader's rotation by rt * 90 degrees restores it
+                with open(os.path.join(fdir, f"{name}.png"), "wb") as fh:
+                    fh.write(encode_png(np.ascontiguousarray(np.rot90(im, -rts[v])), level=level))
+                mks.append(mk.transpose(2, 0, 1))
+                if rts[v] not in mask_png:
+                    mask_png[rts[v]] = encode_png(np.ascontiguousarray(np.rot90(mk, -rts[v])), level=level)
+                with open(os.path.join(mdir, f"{name}.png"), "wb") as fh:
+                    fh.write(mask_png[rts[v]])
+            tree.images[(t, full_res)] = np.stack(ims)
+            tree.masks[(t, full_res)] = np.stack(mks)
+    return tree

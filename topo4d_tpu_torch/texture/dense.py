@@ -9,8 +9,9 @@ before every step. The dense means3D follow the tracked geometry each frame
 (``topology.interpolate``) and take no gradient.
 
 One step is eager PyTorch; the JAX package's scanned multi-step is the
-trainer's plain loop over this step. The masked dense loss
-(``use_mask_dense``) is not ported yet.
+trainer's plain loop over this step. Under ``use_mask_dense`` the
+photometric term is the L1 over the parsing mask's facial regions
+(``DENSE_MASK_LABELS``), without SSIM (train.py:392-405).
 """
 
 from __future__ import annotations
@@ -25,7 +26,14 @@ from topo4d_tpu_torch.core.quaternion import quat_normalize
 from topo4d_tpu_torch.losses.image import l1_loss_sum_last, photometric_loss, psnr
 from topo4d_tpu_torch.opt.adam import AdamState, adam_update
 from topo4d_tpu_torch.opt.constraints import DenseConstraint, apply_constraints
+from topo4d_tpu_torch.pipeline.masks import get_mask
 from topo4d_tpu_torch.rasterizer.tiles import Binning
+
+# facial regions kept in the masked dense loss (reference train.py:396-398)
+DENSE_MASK_LABELS = (
+    "skin", "l_eyebrow", "r_eyebrow", "nose", "upper_lip", "lower_lip",
+    "l_ear", "r_ear", "hair",
+)
 
 
 class TextureState(NamedTuple):
@@ -44,16 +52,23 @@ def dense_rendervars(params: Dict[str, torch.Tensor], dense_means3d: torch.Tenso
     )
 
 
-def make_texture_step(render_fn: Callable) -> Callable:
+def make_texture_step(
+    render_fn: Callable, use_mask: bool = False, cmap_index: Optional[Dict[str, int]] = None
+) -> Callable:
     """The single texture iteration: pre-step color zeroing -> render ->
     loss -> Adam (train.py:729-741).
 
     ``render_fn(rv, cam, binning) -> RenderOutput``; ``binning`` is a frozen
     per-view binning (``rasterizer.render.binning_for``) or None. Returns
     ``step(state, dense_means3d, gt, cams, view_id, anchor_colors,
-    pre_constraints, lr, weights, binning, with_metrics) -> (state,
+    pre_constraints, lr, weights, binning, with_metrics, mask) -> (state,
     metrics)``; metrics are detached 0-d tensors (PSNR only
     ``with_metrics``), so a step reads nothing back from the card.
+
+    ``use_mask`` (the reference's ``use_mask_dense``): the photometric term
+    is the sum of |im - gt| over the pixels of ``DENSE_MASK_LABELS`` in the
+    view's (3, H, W) parsing image ``mask`` (colors per ``cmap_index``)
+    over max(their count, 1).
     """
 
     def step(
@@ -68,13 +83,19 @@ def make_texture_step(render_fn: Callable) -> Callable:
         weights: Dict[str, float],
         binning: Optional[Binning] = None,
         with_metrics: bool = True,
+        mask: Optional[torch.Tensor] = None,  # (3, H, W) parsing image when use_mask
     ) -> Tuple[TextureState, Dict[str, torch.Tensor]]:
         params = apply_constraints(state.params, pre_constraints)
         keys = list(params)
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         out = render_fn(dense_rendervars(p, dense_means3d), cams[view_id], binning)
+        if use_mask:
+            m = get_mask(DENSE_MASK_LABELS, mask, cmap_index)
+            im_loss = torch.sum(torch.abs((out.image - gt) * m)) / torch.clamp(torch.sum(m), min=1.0)
+        else:
+            im_loss = photometric_loss(out.image, gt)
         losses = {
-            "im": photometric_loss(out.image, gt),
+            "im": im_loss,
             "soft_color": l1_loss_sum_last(p["dense_rgb_colors"], anchor_colors),
         }
         total = sum(weights[k] * v for k, v in losses.items() if k in weights)

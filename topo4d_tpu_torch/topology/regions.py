@@ -1,8 +1,11 @@
-"""Facial region masks and per-region loss-weight tables (topology/regions.py)."""
+"""Facial region masks and per-region loss-weight tables (topology/regions.py):
+the ``facial_regions.pkl`` schema (26 named regions, the derived masks, the
+flatten-face subsets) and its loader."""
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, List, Mapping
 
 import numpy as np
@@ -18,6 +21,22 @@ FACE_REGION_NAMES: List[str] = [
 ]
 
 
+# Derived masks present in the pkl (SURVEY §2.2).
+DERIVED_MASK_KEYS: List[str] = [
+    "face_flat_masks", "lip_socket_flat_masks", "eye_lid_up_masks",
+    "lip_flat_edge_masks", "face_masks", "face_bottom_masks",
+    "dynamic_masks", "dynamic_eye_masks", "dynamic_mouth_masks",
+    "eye_around_masks", "eye_inner_masks", "eye_del_masks",
+    "mouth_around_masks", "mouth_inner_masks", "static_masks",
+]
+
+# Precomputed flatten-loss face subsets in the pkl.
+FLAT_FACE_KEYS: List[str] = [
+    "flat_faces", "lip_bottom_flat_faces", "lip_flat_faces",
+    "mouth_flat_faces", "lid_top_flat_faces", "lid_bottom_flat_faces",
+]
+
+
 @dataclasses.dataclass
 class FacialRegions:
     """The facial_regions schema: named regions, derived masks, flat faces."""
@@ -30,6 +49,31 @@ class FacialRegions:
         if key in self.masks:
             return self.masks[key]
         return self.region_masks[key]
+
+    @classmethod
+    def from_pickle(cls, path: str) -> "FacialRegions":
+        """The regions of a ``facial_regions.pkl`` (a file this pipeline's
+        assets provide: unpickling runs code, so never load one of unknown
+        origin)."""
+        with open(path, "rb") as fh:
+            raw = pickle.load(fh)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: Mapping) -> "FacialRegions":
+        region_masks = {k: np.asarray(v, np.int32) for k, v in raw["region_masks"].items()}
+        masks = {k: np.asarray(raw[k], np.int32) for k in DERIVED_MASK_KEYS if k in raw}
+        flat_faces = {k: np.asarray(raw[k], np.int32) for k in FLAT_FACE_KEYS if k in raw}
+        return cls(region_masks=region_masks, masks=masks, flat_faces=flat_faces)
+
+    def to_dict(self) -> Dict[str, object]:
+        """The pkl's schema: ``region_masks`` and the derived masks and
+        flat-face subsets as top-level keys (``from_dict``'s inverse)."""
+        return {"region_masks": dict(self.region_masks), **self.masks, **self.flat_faces}
+
+
+def load_facial_regions(path: str) -> FacialRegions:
+    return FacialRegions.from_pickle(path)
 
 
 # Raw per-region multipliers of train.py:546-585 (applied as mult / weight).

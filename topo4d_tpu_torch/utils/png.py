@@ -1,8 +1,12 @@
-"""An 8-bit RGB PNG writer on ``zlib`` and ``struct`` alone.
+"""An 8-bit PNG writer and reader on ``zlib`` and ``struct`` alone.
 
-The JAX package writes its textures through PIL (``pipeline/export.py``);
-this package must not need it. One IDAT chunk, filter type 0 (none) on
-every row, deflate at ``level`` (6, PIL's default).
+The JAX package reads and writes images through PIL (``pipeline/data.py``,
+``pipeline/export.py``); this package must not need it. The writer emits
+8-bit RGB, one IDAT chunk, filter type 0 (none) on every row, deflate at
+``level`` (6, PIL's default). The reader takes what PIL writes for 8-bit
+gray, gray+alpha, RGB and RGBA images: non-interlaced, any number of IDAT
+chunks, a filter type from 0 to 4 chosen per row. Anything else (16-bit
+samples, palettes, interlacing) raises, naming the file.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # color type -> samples per pixel (gray, gray+alpha, RGB, RGBA)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -39,3 +44,85 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     with open(path, "wb") as fh:
         fh.write(encode_png(img, level=level))
+
+
+def _unfilter_sequential(kind: int, line: np.ndarray, prev: np.ndarray, c: int) -> np.ndarray:
+    """Average (3) and Paeth (4): each pixel depends on the one decoded
+    before it, so walk the pixels with the channels as a vector (int16,
+    reduced mod 256 per pixel)."""
+    w = line.shape[0] // c
+    cur = line.reshape(w, c).astype(np.int16)
+    up = prev.reshape(w, c).astype(np.int16)
+    left = np.zeros(c, np.int16)
+    upleft = np.zeros(c, np.int16)
+    for x in range(w):
+        b = up[x]
+        if kind == 3:
+            pred = (left + b) >> 1
+        else:
+            p = left + b - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - b), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, b, upleft))
+        left = (cur[x] + pred) & 255
+        cur[x] = left
+        upleft = b
+    return cur.reshape(-1).astype(np.uint8)
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The bytes of a PNG file -> what ``np.asarray(PIL.Image.open(...))``
+    gives for it: (H, W) uint8 for gray, (H, W, C) for gray+alpha (2), RGB
+    (3) and RGBA (4). ``name`` labels the errors."""
+    if data[:8] != SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos + 12 <= len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if zlib.crc32(kind + body) != struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])[0]:
+            raise ValueError(f"{name}: bad CRC in its {kind.decode('latin-1')} chunk")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if header is None:
+        raise ValueError(f"{name}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{name}: bit depth {depth}, color type {ctype}, interlace {interlace}; only 8-bit gray, gray+alpha, "
+            "RGB and RGBA without interlace are read"
+        )
+    c = CHANNELS[ctype]
+    stride = c * w
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + stride):
+        raise ValueError(f"{name}: {raw.size} bytes of image data, expected {h * (1 + stride)}")
+    raw = raw.reshape(h, 1 + stride)
+    kinds = raw[:, 0]
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"{name}: filter type {int(kinds.max())} in row {int(np.argmax(kinds > 4))}")
+    out = raw[:, 1:].copy()
+    if not kinds.any():
+        return out.reshape(h, w, c) if c > 1 else out.reshape(h, w)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        line = out[y]
+        kind = kinds[y]
+        if kind == 1:  # Sub: a running sum mod 256 per channel
+            line[:] = np.cumsum(line.reshape(w, c), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            line += prev
+        elif kind in (3, 4):
+            line[:] = _unfilter_sequential(int(kind), line, prev, c)
+        prev = line
+    return out.reshape(h, w, c) if c > 1 else out.reshape(h, w)
+
+
+def read_png(path: str) -> np.ndarray:
+    """``decode_png`` of the file at ``path``."""
+    with open(path, "rb") as fh:
+        return decode_png(fh.read(), path)
