@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port ``topo4d_tpu_torch``.
 
-    python3 chip_smoke.py [--ref NAME=PATH [NAME=PATH ...]]
+    python3 chip_smoke.py [--ref NAME=PATH [NAME=PATH ...]] [--log PATH]
 
 ``--ref NAME=PATH`` builds PATH, a source of kernel NAME (an earlier
 commit's file from ``git show``, or a variant, with the kernel's C
 interface), and times it beside the kernel in phase 6, both alone on the
 same inputs, in turns: NAME ``tile_blend_fwd`` (K1) and
 ``tile_blend_v3_fwd`` (K4f, at each tps) must give K1's rows 0-5 bit for
-bit, ``uv_bake`` (K6) the kernel's canvas. Without arguments only the
+bit, ``uv_bake`` (K6) the kernel's canvas. ``--log PATH`` also appends
+every log line to the file PATH. Without arguments only the
 phases below run.
 
 Needs one CUDA card (exits non-zero without one) and ``nvcc``. Phases, in
 order; any failure raises and exits non-zero:
 
 1. device: card name and power limit, torch and CUDA versions;
-2. build: every kernel of ``topo4d_tpu_torch/csrc`` with nvcc, in parallel;
+2. build: every kernel of ``topo4d_tpu_torch/csrc`` with nvcc, in parallel,
+   and the host C library (``csrc/imgdec.c``) with the host compiler;
    the scene: the head grid and its dense mesh at density 5 (277,780 dense
    Gaussians, 546,028 dense triangles);
 3. kernels vs their plain PyTorch versions: K1/K2 at head scale (8,280
@@ -75,7 +77,14 @@ order; any failure raises and exits non-zero:
    steps; frame 1 the full 1,100, 46 batched steps): K1/K2 24 times and K5
    48 times per batched step, no K4, no plain version; the segments and
    frozen binnings; a profile of one 3-step segment; three batched steps on
-   the card against the CPU;
+   the card against the CPU (the CPU's plain blend padded per count bucket);
+   then the fused batched mode, a third ``Trainer.run`` as the batched one
+   with ``fuse_views``: K1/K2 once per batched step (every view in one
+   launch on a tall canvas), K5 48 times, no K4, no plain version, no
+   segments; three fused steps against three sequential batched steps on
+   the card (loss rtol 1e-4, each leaf within 2 * lr * steps), both timed
+   in turns (fused, sequential, sequential, fused), and a profile of the
+   fused steps;
 9. the CLI on a disk tree: ``write_disk_sequence`` writes the reference
    layout under ``build/`` (24 views named after ``DEFAULT_ROTATE_MASK``'s
    labels on landscape 4096x3000 sensors, so the loader's portrait swap and
@@ -91,9 +100,14 @@ order; any failure raises and exits non-zero:
    topology, each face.png decoded by ``utils/png.py`` equal to K6's bytes,
    the progress renders, config.json, the dimmed pixels), a resume through
    ``python -m topo4d_tpu_torch`` and one in process that launches
-   nothing, the tiled and oracle renderers on the card against K1/K2, and
-   the geometry loop's ms per step beside a dense frame read at 1, 2 and 4
-   loader threads.
+   nothing, the tiled and oracle renderers on the card against K1/K2; the
+   host C library: the PNG unfilter against its NumPy mirror on rows of
+   each filter type (s per Mpx of each), the JPEG decoder against the
+   committed fixtures' SHA-256 (PIL's decodes); a 24-view JPEG tree of the
+   4096x3000 fixture read and turned on the card, each view bit for bit
+   against the fixture's decode turned on the host; and the geometry
+   loop's ms per step beside a dense PNG read and a dense JPEG read at 1, 2
+   and 4 loader threads.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -129,8 +143,15 @@ DEVICE = "cuda"
 CARD = ""
 
 
+LOG_FILE = None  # --log: every log line is appended there too
+
+
 def log(msg: str) -> None:
-    print(f"[{CARD}] {msg}", flush=True)
+    line = f"[{CARD}] {msg}"
+    print(line, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as fh:
+            fh.write(line + "\n")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1560,8 +1581,6 @@ def phase_batched(cfg, src, trainer, scene, frames):
     import copy
 
     from topo4d_tpu_torch.config import effective_track_rebin_freq
-    from topo4d_tpu_torch.opt.adam import AdamState
-    from topo4d_tpu_torch.opt.step import TrainState
     from topo4d_tpu_torch.parallel.batched import make_batched_geometry_step
     from topo4d_tpu_torch.pipeline.scene import build_constraints
     from topo4d_tpu_torch.pipeline.trainer import Trainer, make_render_fn
@@ -1649,12 +1668,7 @@ def phase_batched(cfg, src, trainer, scene, frames):
         ("cpu", cpu_step, camera_to(src.cameras, "cpu"),
          build_constraints("track", tr.params0, st.regions, tr.first_frame_attrs, "cpu")),
     ):
-        state = TrainState(
-            params=to_device(tr.state.params, dev),
-            opt=AdamState(dict(tr.state.opt.step), to_device(tr.state.opt.mu, dev), to_device(tr.state.opt.nu, dev)),
-            max_2d_radius=to_device(tr.state.max_2d_radius, dev),
-        )
-        priors = to_device(tr.priors, dev)
+        state, priors = batched_state(tr, dev)
         imgs = images.to(dev)
         losses = []
         for _ in range(steps):
@@ -1665,11 +1679,145 @@ def phase_batched(cfg, src, trainer, scene, frames):
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     lr = args[1]
     worst = [assert_leaf_close(k, res[DEVICE][1][k], pc, 2 * lr[k] * steps) for k, pc in res["cpu"][1].items()]
+    out["cpu_check_s"] = time.perf_counter() - t0
     log(
-        f"card vs CPU, {steps} batched track steps of {views} views ({time.perf_counter() - t0:.1f} s): loss rel err "
+        f"card vs CPU, {steps} batched track steps of {views} views ({out['cpu_check_s']:.1f} s): loss rel err "
         f"{float(np.max(np.abs(lg - lc) / np.abs(lc))):.2e}; " + "; ".join(worst)
     )
     shutil.rmtree(BATCHED_OUT_DIR, ignore_errors=True)
+    return out
+
+
+FUSED_OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_fused")
+FUSED_CHECK_STEPS = 3  # fused batched steps held against sequential ones, and timed in turns with them
+
+
+def batched_state(tr, dev):
+    """A copy of ``tr``'s train state and priors on ``dev``."""
+    from topo4d_tpu_torch.opt.adam import AdamState
+    from topo4d_tpu_torch.opt.step import TrainState
+
+    state = TrainState(
+        params=to_device(tr.state.params, dev),
+        opt=AdamState(dict(tr.state.opt.step), to_device(tr.state.opt.mu, dev), to_device(tr.state.opt.nu, dev)),
+        max_2d_radius=to_device(tr.state.max_2d_radius, dev),
+    )
+    return state, to_device(tr.priors, dev)
+
+
+def phase_fused(cfg, src, trainer, scene, frames, batched):
+    """The fused batched mode (``schedule.fuse_views``) at full width: a
+    third ``Trainer.run(resume=False)`` over ``FRAMES`` frames, as phase
+    8's batched run (geometry only, frame 0 cut to ``BATCHED_INIT_ITERS``),
+    with every view of a step in one K1 and one K2 launch: K1 and K2 once
+    per batched step, K5 48 times, no K4, no plain version, no segments.
+    Then, from the trained state, ``FUSED_CHECK_STEPS`` fused steps against
+    as many sequential batched steps on the card (loss rtol 1e-4, leaves as
+    phase 8's), both timed in turns (fused, sequential, sequential, fused),
+    and a profile of the fused steps."""
+    import copy
+
+    from topo4d_tpu_torch.parallel.batched import make_batched_geometry_step
+    from topo4d_tpu_torch.pipeline.trainer import Trainer
+
+    fcfg = copy.deepcopy(cfg)
+    fcfg.data.output_dir = FUSED_OUT_DIR
+    fcfg.schedule.views_per_step = 0
+    fcfg.schedule.fuse_views = True
+    fcfg.schedule.init_opt_num = BATCHED_INIT_ITERS
+    fcfg.texture.gen_tex = False
+    shutil.rmtree(FUSED_OUT_DIR, ignore_errors=True)
+    _, _, _, params_np = scene
+    tr = Trainer(fcfg, src, params_np, trainer.statics, device=DEVICE)
+    if tr.batched_multi_step is not None:
+        raise AssertionError("the fused trainer built a batched multi-step")
+    parts = instrument(tr)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.run(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    views = src.num_views
+    total = 0
+    for part in parts:
+        t, rows, m = part["frame"], part["rows"], part["last"]
+        nb = tr.batched_schedule(t, views)[0]
+        total += nb
+        check_rows(rows)
+        check_counts(part["counts"], f"fused geometry frame {t}", {
+            "tile_blend_fwd": nb, "tile_blend_bwd": nb, "gauss_blur": 2 * views * nb,
+            "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "tile_blend_plain": 0, "gauss_blur_plain": 0,
+        })
+        part["steps"] = nb
+        log(
+            f"fused geometry frame {t} ({'init' if t == 0 else 'track'}, {nb} batched steps of {views} views in one "
+            f"K1 and one K2 launch each): {part['wall']:.3f} s, {part['wall'] / nb * 1e3:.3f} ms per batched step "
+            f"(phase 8's sequential, frozen binnings: {batched['parts'][t]['wall'] / nb * 1e3:.3f}); loss "
+            f"{rows[0]['loss_total']:.6f} -> {m['loss_total']:.6f}, psnr {rows[0]['psnr']:.3f} -> {m['psnr']:.3f}; "
+            f"launches {part['counts']}"
+        )
+        if t > 0 and not rows[-1]["loss_total"] < rows[0]["loss_total"]:
+            raise AssertionError(f"fused tracked frame's loss did not fall: {rows[0]} -> {rows[-1]}")
+    check_counts(counts, "fused Trainer.run", {
+        "tile_blend_fwd": total, "tile_blend_bwd": total, "gauss_blur": 2 * views * total,
+        "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "uv_bake": 0, "tile_blend_plain": 0,
+        "gauss_blur_plain": 0, "uv_bake_plain": 0,
+    })
+    if tr.geo_segments:
+        raise AssertionError(f"the fused run ran segments: {tr.geo_segments}")
+    geo = parts[-1]
+    out = {"counts": counts, "wall": wall, "parts": parts, "tracked_frame_s": geo["wall"],
+           "ms_per_step": geo["wall"] / geo["steps"] * 1e3, "psnr": geo["last"]["psnr"]}
+
+    # fused against sequential steps on the card, from the trained state, timed in turns
+    images = torch.as_tensor(frames[FRAMES][0].images, device=DEVICE)
+    st = tr.statics
+    seq_step = make_batched_geometry_step(
+        st.quadruples, st.umbrellas, tr.render_fn, st.ring.indices.shape[0], ring_indices=st.ring.indices,
+        device=DEVICE,
+    )
+    args = (tr._constraints("track"), tr.lrs_for("track"), tr.weights_for("track"), "track")
+    res, times = {}, {"fused": [], "sequential": []}
+    for name in ("fused", "sequential", "sequential", "fused"):
+        step = tr.batched_step if name == "fused" else seq_step
+        state, priors = batched_state(tr, DEVICE)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(FUSED_CHECK_STEPS):
+            state, priors, m = step(state, images, src.cameras, priors, *args)
+            losses.append(m["loss_total"])
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / FUSED_CHECK_STEPS * 1e3)
+        c = read_counts()
+        launches = 1 if name == "fused" else views
+        check_counts(c, f"{name} steps", {"tile_blend_fwd": launches * FUSED_CHECK_STEPS,
+                                          "tile_blend_bwd": launches * FUSED_CHECK_STEPS, "tile_blend_plain": 0})
+        res[name] = ([float(x) for x in losses], {k: v.detach().clone() for k, v in state.params.items()})
+    lf, ls = np.array(res["fused"][0]), np.array(res["sequential"][0])
+    np.testing.assert_allclose(lf, ls, rtol=1e-4)
+    lr = args[1]
+    worst = [assert_leaf_close(k, res["fused"][1][k], ps, 2 * lr[k] * FUSED_CHECK_STEPS)
+             for k, ps in res["sequential"][1].items()]
+    out["turns_ms"] = {k: float(np.mean(v)) for k, v in times.items()}
+    log(
+        f"fused against sequential, {FUSED_CHECK_STEPS} batched track steps of {views} views on the card (fresh "
+        f"binnings both): loss rel err {float(np.max(np.abs(lf - ls) / np.abs(ls))):.2e}; " + "; ".join(worst)
+        + "; ms per batched step in turns: fused " + ", ".join(f"{x:.3f}" for x in times["fused"])
+        + ", sequential " + ", ".join(f"{x:.3f}" for x in times["sequential"])
+    )
+
+    def fused_steps():
+        state, priors = batched_state(tr, DEVICE)
+        for _ in range(FUSED_CHECK_STEPS):
+            state, priors, _ = tr.batched_step(state, images, src.cameras, priors, *args)
+
+    out["profile"] = device_profile(fused_steps, FUSED_CHECK_STEPS, "fused batched",
+                                    ("tile_blend_fwd_kernel", "tile_blend_bwd_kernel", "gauss_blur_kernel"))
+    shutil.rmtree(FUSED_OUT_DIR, ignore_errors=True)
     return out
 
 
@@ -1692,12 +1840,11 @@ def hold_loader(tree):
     ``trans_g`` (exact), and every frame's images and parsing images, working
     and dense, on the card (``frame_tensor``) equal to the written targets
     quantised (``round(x * 255) / 255`` in float32 on the host) bit for bit;
-    the loader's seconds per frame, frame 1's PNG decode and its rotation
-    into planes on one thread, and ``frame_tensor``'s transfer and
-    conversion -> {(t, full_res): timings}."""
+    the loader's seconds per frame, frame 1's PNG decode on one thread, and
+    ``frame_tensor``'s transfer, turn and conversion on the card ->
+    {(t, full_res): timings}."""
     from topo4d_tpu_torch.config import Config
-    from topo4d_tpu_torch.pipeline.data import LOAD_THREADS, DiskSequence, frame_tensor
-    from topo4d_tpu_torch.utils.png import read_png
+    from topo4d_tpu_torch.pipeline.data import LOAD_THREADS, DiskSequence, frame_tensor, read_image
 
     cfg = Config()
     cfg.data.input_dir, cfg.data.dense_input_dir, cfg.data.seq = tree.input_dir, tree.dense_input_dir, tree.seq
@@ -1732,18 +1879,13 @@ def hold_loader(tree):
                 for v in range(want.shape[0]):
                     if not torch.equal(got[v], torch.from_numpy(want[v].astype(np.float32) / 255.0).to(DEVICE)):
                         raise AssertionError(f"frame {t} {'dense' if full else 'working'} {what} of view {v} differ")
-            # frame 1's work again on one thread, in its two parts
+            # frame 1's decodes again on one thread
             base = tree.dense_input_dir if full else tree.input_dir
-            decode_s = rotate_s = 0.0
+            t0 = time.perf_counter()
             for name in src.view_names if t == 1 else ():
-                for path in (os.path.join(base, tree.seq, "%06d" % t, name + ".png"),
-                             os.path.join(base, tree.seq, "mask", "%06d" % t, name + ".png")):
-                    t0 = time.perf_counter()
-                    raw = read_png(path)
-                    t1 = time.perf_counter()
-                    np.ascontiguousarray(np.rot90(raw, cfg.data.rotate_mask[name], axes=(0, 1)).transpose(2, 0, 1))
-                    decode_s, rotate_s = decode_s + t1 - t0, rotate_s + time.perf_counter() - t1
-            times[(t, full)] = {"frame_s": frame_s, "decode_s": decode_s, "rotate_s": rotate_s, "h2d_s": h2d_s,
+                read_image(os.path.join(base, tree.seq, "%06d" % t, name + ".png"))
+                read_image(os.path.join(base, tree.seq, "mask", "%06d" % t, name + ".png"))
+            times[(t, full)] = {"frame_s": frame_s, "decode_s": time.perf_counter() - t0, "h2d_s": h2d_s,
                                 "bytes": fd.images.nbytes + fd.masks.nbytes}
             del fd, on_card
     log(
@@ -1752,8 +1894,8 @@ def hold_loader(tree):
         + "; ".join(
             f"frame {t} {'dense ' + str(src.cameras_full.width) + 'x' + str(src.cameras_full.height) if full else 'working'}:"
             f" {v['frame_s']:.3f} s per frame on {LOAD_THREADS} threads"
-            + (f" (on one: PNG decode {v['decode_s']:.3f} s, rotation into planes {v['rotate_s']:.3f} s)" if t == 1 else "")
-            + f", transfer and conversion on the card {v['h2d_s']:.3f} s ({v['bytes']} B of uint8)"
+            + (f" (PNG decode on one {v['decode_s']:.3f} s)" if t == 1 else "")
+            + f", transfer, turn and conversion on the card {v['h2d_s']:.3f} s ({v['bytes']} B of uint8)"
             for (t, full), v in times.items()
         )
     )
@@ -1781,18 +1923,106 @@ def filtered_png(img, kind):
 
 def decode_cost(img):
     """``utils/png.py``'s decode of ``img`` with each filter type on every
-    row, on this host -> {kind: s}; each decode equal to ``img``."""
-    from topo4d_tpu_torch.utils.png import decode_png
+    row, on this host: the whole decode (its rows through the C unfilter)
+    and the unfilter alone, C and its NumPy mirror (``unfilter_plain``) on
+    the same rows -> {kind: (decode s, C unfilter s, NumPy mirror s)}; each
+    decode equal to ``img``, the C unfilter equal to the mirror."""
+    from topo4d_tpu_torch.utils.png import decode_png, unfilter, unfilter_plain
 
+    h, w, _ = img.shape
     out = {}
     for kind in range(5):
         data = filtered_png(img, kind)
         t0 = time.perf_counter()
         got = decode_png(data)
-        out[kind] = time.perf_counter() - t0
+        decode_s = time.perf_counter() - t0
         if not np.array_equal(got, img):
             raise AssertionError(f"filter {kind}: the decode differs from the image")
+        raw = np.frombuffer(zlib.decompress(data[8 + 25 + 8 : -12 - 4]), np.uint8).reshape(h, 1 + 3 * w)
+        t0 = time.perf_counter()
+        c_rows = unfilter(raw, 3)
+        t1 = time.perf_counter()
+        plain_rows = unfilter_plain(raw, 3)
+        t2 = time.perf_counter()
+        if not np.array_equal(c_rows, plain_rows):
+            raise AssertionError(f"filter {kind}: the C unfilter differs from its NumPy mirror")
+        out[kind] = (decode_s, t1 - t0, t2 - t1)
     return out
+
+
+def hold_fixtures():
+    """The C JPEG decoder on this host against the committed fixtures:
+    each decode's shape and SHA-256 as PIL's decode of the file (the
+    manifest) -> {name: (s, Mpx)}."""
+    from topo4d_tpu_torch import fixtures
+    from topo4d_tpu_torch.utils.jpeg import read_jpeg
+
+    out = {}
+    for name, entry in fixtures.manifest().items():
+        t0 = time.perf_counter()
+        px = read_jpeg(fixtures.path(name))
+        secs = time.perf_counter() - t0
+        if list(px.shape) != entry["shape"] or fixtures.sha256(px) != entry["sha256"]:
+            raise AssertionError(f"{name}: the C decode {px.shape} is not PIL's (manifest {entry['shape']})")
+        out[name] = (secs, px.shape[0] * px.shape[1] / 1e6)
+    log("JPEG fixtures decoded by the C library, each equal to PIL's decode (SHA-256): "
+        + "; ".join(f"{n} {s:.4f} s ({s / mpx:.4f} s per Mpx)" for n, (s, mpx) in out.items()))
+    return out
+
+
+def jpeg_tree(tree):
+    """A dense tree of JPEG views: ``tree``'s ``cameras.xml`` and, for each
+    view, a copy of the dense fixture (4096x3000, each view's landscape
+    sensor), one frame -> a ``DiskSequence`` on it (no masks), and the
+    fixture's pixels."""
+    from topo4d_tpu_torch import fixtures
+    from topo4d_tpu_torch.config import Config
+    from topo4d_tpu_torch.pipeline.data import DiskSequence
+    from topo4d_tpu_torch.utils.jpeg import read_jpeg
+
+    root = os.path.join(CLI_DIR, "jpeg")
+    fdir = os.path.join(root, tree.seq, "000001")
+    os.makedirs(fdir, exist_ok=True)
+    shutil.copyfile(os.path.join(tree.input_dir, tree.seq, "cameras.xml"),
+                    os.path.join(root, tree.seq, "cameras.xml"))
+    for name in tree.view_names:
+        shutil.copyfile(fixtures.path(fixtures.DENSE), os.path.join(fdir, name + ".jpg"))
+    cfg = Config()
+    cfg.data.input_dir = cfg.data.dense_input_dir = root
+    cfg.data.seq = tree.seq
+    cfg.data.down_ratio = CLI_RATIO
+    cfg.data.use_mask_dense = False
+    return DiskSequence(cfg, device=DEVICE), read_jpeg(fixtures.path(fixtures.DENSE))
+
+
+def hold_jpeg_read(src, pixels):
+    """A dense read of the JPEG tree: every view on the card after
+    ``frame_tensor`` equal to the fixture's decode turned by its view's
+    quarter turns on the host, bit for bit -> (s per frame on
+    ``LOAD_THREADS`` threads, s of transfer, turn and conversion)."""
+    from topo4d_tpu_torch.pipeline.data import LOAD_THREADS, frame_tensor
+
+    t0 = time.perf_counter()
+    fd = src.frame(1, full_res=True)
+    frame_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = frame_tensor(fd.images, DEVICE)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    turned = {}
+    for v, name in enumerate(src.view_names):
+        rt = src.cfg.data.rotate_mask.get(name, 0)
+        if rt not in turned:
+            want = np.ascontiguousarray(np.rot90(pixels, rt, axes=(0, 1)).transpose(2, 0, 1))
+            turned[rt] = torch.from_numpy(want).to(DEVICE).to(torch.float32) / torch.tensor(255.0, device=DEVICE)
+        if not torch.equal(on_card[v], turned[rt]):
+            raise AssertionError(f"JPEG tree: view {name} on the card differs from the fixture's decode turned by {rt}")
+    log(f"JPEG tree: a dense frame of {len(src.view_names)} views at {src.cameras_full.width}x"
+        f"{src.cameras_full.height} read in {frame_s:.3f} s on {LOAD_THREADS} threads ({fd.images.nbytes} B of "
+        f"uint8), transfer, turn and conversion on the card {h2d_s:.3f} s; every view equal on the card to the "
+        "fixture's decode after its turn, bit for bit")
+    return frame_s, h2d_s
 
 
 def instrument_cli():
@@ -1902,7 +2132,7 @@ def backends_check(trainer, frame):
     from topo4d_tpu_torch.rasterizer.tiled import render_gaussians_tiled
 
     cam = trainer.source.cameras[0]
-    gt = frame_tensor(frame.images[0], DEVICE)
+    gt = frame_tensor(frame.images, DEVICE)[0]
     renders = {
         "K1/K2": lambda rv: render_gaussians(rv, cam, max_span=8),
         "tiled": lambda rv: render_gaussians_tiled(rv, cam, max_span=8, capacity=1024),
@@ -1952,13 +2182,14 @@ def backends_check(trainer, frame):
 SWEEP_THREADS = (1, 2, 4)  # loader threads at which the geometry loop is timed beside a frame read
 
 
-def loader_sweep(trainer):
+def loader_sweep(trainer, read_frame, label):
     """Does a frame read on the host slow the host-bound geometry loop? The
     ms per step of ``trainer.fit_frame_geometry`` on the tracked frame 2
-    alone, then while another thread reads the dense frame 2 over and over
-    with ``LOAD_THREADS`` at each of ``SWEEP_THREADS`` (the fit lies wholly
-    inside the reads), then alone again; the seconds per dense read at each
-    -> [(threads, 0 for none; ms per step; s per read or None)]."""
+    alone, then while another thread runs ``read_frame()`` (a dense read)
+    over and over with ``LOAD_THREADS`` at each of ``SWEEP_THREADS`` (the
+    fit lies wholly inside the reads), then alone again; the seconds per
+    read at each -> [(threads, 0 for none; ms per step; s per read or
+    None)]."""
     from concurrent.futures import ThreadPoolExecutor
 
     from topo4d_tpu_torch.pipeline import data
@@ -1974,7 +2205,7 @@ def loader_sweep(trainer):
             def read():
                 while not stop:
                     t0 = time.perf_counter()
-                    src.frame(2, full_res=True)
+                    read_frame()
                     reads.append(time.perf_counter() - t0)
 
             torch.cuda.synchronize()
@@ -1991,12 +2222,36 @@ def loader_sweep(trainer):
             rows.append((k, wall / n * 1e3, sum(reads) / len(reads) if reads else None))
     data.LOAD_THREADS = saved
     alone = (rows[0][1] + rows[-1][1]) / 2
-    log(f"the geometry loop beside a dense frame read ({n} track steps, progress renders included): "
+    log(f"the geometry loop beside {label} ({n} track steps, progress renders included): "
         f"{rows[0][1]:.3f} and {rows[-1][1]:.3f} ms per step alone, before and after; "
-        + "; ".join(f"{ms:.3f} ms per step ({ms / alone - 1:+.1%} on the mean alone) while {k} loader threads read, "
-                    f"{read_s:.3f} s per dense read" for k, ms, read_s in rows[1:-1])
+        + "; ".join(f"{ms:.3f} ms per step ({ms / alone - 1:+.1%} on the mean alone) while {k} loader threads run, "
+                    f"{read_s:.3f} s per read" for k, ms, read_s in rows[1:-1])
         + f"; LOAD_THREADS is {saved}")
     return rows
+
+
+def memory_load(nbytes: int, count: int):
+    """A stand-in for a dense read that opens no file and takes no
+    interpreter lock: ``count`` buffers of ``nbytes`` each allocated,
+    written by ``memset`` through ctypes and freed, on ``LOAD_THREADS``
+    threads: what a read does to the host's memory, without its decode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from topo4d_tpu_torch.pipeline import data
+
+    libc = ctypes.CDLL(None)
+    libc.memset.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t]
+    libc.memset.restype = ctypes.c_void_p
+
+    def one(_):
+        buf = np.empty(nbytes, np.uint8)
+        libc.memset(buf.ctypes.data, 1, nbytes)
+
+    def load():
+        with ThreadPoolExecutor(max_workers=data.LOAD_THREADS) as pool:
+            list(pool.map(one, range(count)))
+
+    return load
 
 
 def phase_cli(run4):
@@ -2008,9 +2263,11 @@ def phase_cli(run4):
     set to 0 just before it and read just after (and per part), checks the
     outputs, runs ``python -m topo4d_tpu_torch`` again as a subprocess (it
     resumes and writes nothing) and ``cli.main`` once more in process (it
-    launches nothing), holds the tiled and oracle renderers to K1/K2, and
-    times the geometry loop beside a frame read at 1, 2 and 4 loader
-    threads."""
+    launches nothing), holds the tiled and oracle renderers to K1/K2, holds
+    the C unfilter and JPEG decoder (``decode_cost``, ``hold_fixtures``),
+    reads a JPEG tree (``jpeg_tree``, ``hold_jpeg_read``), and times the
+    geometry loop beside a dense PNG and a dense JPEG read at 1, 2 and 4
+    loader threads."""
     from topo4d_tpu_torch import cli
     from topo4d_tpu_torch.config import DEFAULT_ROTATE_MASK, Config
     from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda
@@ -2033,7 +2290,13 @@ def phase_cli(run4):
     cost = decode_cost(np.ascontiguousarray(img))
     mpx = img.shape[0] * img.shape[1] / 1e6
     log(f"PNG decode of a {img.shape[1]}x{img.shape[0]} RGB view (utils/png.py) with every row of filter type "
-        + ", ".join(f"{k}: {v:.4f} s ({v / mpx:.3f} s per Mpx)" for k, v in cost.items()))
+        + ", ".join(f"{k}: {d:.4f} s" for k, (d, _, _) in cost.items())
+        + "; the unfilter alone, C against its NumPy mirror (equal), s per Mpx: "
+        + ", ".join(f"{k}: {c / mpx:.5f} against {p / mpx:.3f}" for k, (_, c, p) in cost.items()))
+    jpeg = {"fixtures": hold_fixtures()}
+    jsrc, jpixels = jpeg_tree(tree)
+    jpeg["frame_s"], jpeg["h2d_s"] = hold_jpeg_read(jsrc, jpixels)
+    del jpixels
     tree.images.clear()  # host memory: the CLI run holds two frames of its own
     tree.masks.clear()
 
@@ -2155,13 +2418,19 @@ def phase_cli(run4):
     frame1 = again.source.frame(1)
     backends_check(trainer, frame1)
     del frame1, again
-    sweep = loader_sweep(trainer)
+    src = trainer.source
+    sweep = loader_sweep(trainer, lambda: src.frame(2, full_res=True), "a dense read of PNG views and masks")
+    jpeg["sweep"] = loader_sweep(trainer, lambda: jsrc.frame(1, full_res=True), "a dense read of JPEG views")
+    # the PNG read's memory traffic alone: 48 dense-view buffers of 36.9 MB (24 views and 24 masks)
+    jpeg["memory_sweep"] = loader_sweep(trainer, memory_load(4096 * 3000 * 3, 48),
+                                        "48 buffers of 36.9 MB allocated and written in C (no file, no lock)")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     log(f"phase 9 (the CLI on a disk tree): {time.perf_counter() - t_phase:.1f} s")
-    return {"counts": counts, "parts": rec["parts"], "wall": wall, "loader": loader, "decode": cost, "sweep": sweep}
+    return {"counts": counts, "parts": rec["parts"], "wall": wall, "loader": loader, "decode": cost, "sweep": sweep,
+            "jpeg": jpeg}
 
 
-def kernel_rows(run, batched, v3, cli, errs, geo_timing, blend4k, blur, bake):
+def kernel_rows(run, batched, fused, v3, cli, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
     bake), the geometry shapes' numbers beside them; launches over each
@@ -2172,6 +2441,7 @@ def kernel_rows(run, batched, v3, cli, errs, geo_timing, blend4k, blur, bake):
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
     by_part.update({f"batched geometry frame {p['frame']}": p["counts"] for p in batched["parts"]})
+    by_part.update({f"fused batched geometry frame {p['frame']}": p["counts"] for p in fused["parts"]})
     by_part.update({f"cli {p['kind']} frame {p['frame']}": p["counts"] for p in cli["parts"]})
 
     def by_path(name):
@@ -2241,18 +2511,24 @@ def kernel_rows(run, batched, v3, cli, errs, geo_timing, blend4k, blur, bake):
 
 
 def main() -> int:
-    global CARD
+    global CARD, LOG_FILE
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke run of topo4d_tpu_torch.")
     parser.add_argument("--ref", metavar="NAME=PATH", nargs="+", default=[],
                         help="sources of kernel NAME (tile_blend_fwd, tile_blend_v3_fwd or uv_bake: an earlier "
                         "commit's file, or a variant) to time beside the kernel in phase 6, each alone, in turns")
+    parser.add_argument("--log", metavar="PATH", default=None,
+                        help="also append every log line to the file PATH")
     args = parser.parse_args()
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        open(args.log, "w").close()
+        LOG_FILE = args.log
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from topo4d_tpu_torch import kernels  # the package import turns TF32 off
+    from topo4d_tpu_torch import kernels, native  # the package import turns TF32 off
 
     t_start = time.perf_counter()
     CARD = subprocess.run(
@@ -2263,6 +2539,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     log(f"kernels built in {kernels.build_all(verbose=True):.2f} s")
+    t0 = time.perf_counter()
+    log(f"host C library {native.library()._name} (PNG unfilter, JPEG decoder) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
     for spec in args.ref:
         symbol, _, path = spec.partition("=")
         REFS.setdefault(symbol, {})[path] = load_ref(symbol, path)
@@ -2295,6 +2574,7 @@ def main() -> int:
     dense = phase_profile_dense(trainer, last_tex)
     v3 = phase_v3(trainer, frames)
     batched = phase_batched(cfg, src, trainer, scene, frames)
+    fused = phase_fused(cfg, src, trainer, scene, frames, batched)
     cli = phase_cli(run)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
@@ -2302,13 +2582,18 @@ def main() -> int:
         f"final tex_psnr_fixed {run['psnr_fixed']:.3f}; batched mode: s per tracked frame "
         f"{batched['tracked_frame_s']:.3f} ({batched['parts'][-1]['steps']} batched steps), ms per batched step "
         f"{batched['ms_per_step']:.3f}, busy {batched['profile'][1]:.3f} ms per step in a frozen-binning segment "
-        f"({100 * batched['profile'][1] / batched['profile'][0]:.1f}% busy), psnr {batched['psnr']:.3f}; "
+        f"({100 * batched['profile'][1] / batched['profile'][0]:.1f}% busy), psnr {batched['psnr']:.3f}; fused "
+        f"batched mode: s per tracked frame {fused['tracked_frame_s']:.3f}, ms per batched step "
+        f"{fused['ms_per_step']:.3f}, in turns with sequential steps {fused['turns_ms']['fused']:.3f} against "
+        f"{fused['turns_ms']['sequential']:.3f}, busy {fused['profile'][1]:.3f} ms per step "
+        f"({100 * fused['profile'][1] / fused['profile'][0]:.1f}% busy), psnr {fused['psnr']:.3f}; JPEG tree: dense "
+        f"frame {cli['jpeg']['frame_s']:.3f} s, on the card {cli['jpeg']['h2d_s']:.3f} s; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(run, batched, v3, cli, errs, geo_timing, blend4k, blur, bake)}))
+    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, errs, geo_timing, blend4k, blur, bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

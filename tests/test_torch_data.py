@@ -8,12 +8,15 @@ rotated, a ``<components>`` transform) are read by both loaders at working
 and full resolution with masks on: images and masks bit for bit, view
 names, ``trans_g`` and the cameras exactly (float32 fields from the same
 float64 calibration), and the port's tree equal to the targets it was
-written from (its rig within 1e-6). The port's frames are uint8 on the
-host and ``frame_tensor`` converts them; its values are held to JAX's
-float32 ones. Then the refusals and degradations (a size mismatch with
-JAX's message, a missing mask dir, a missing per-view mask, a ``.jpg``
-view) and the asset loaders (``load_obj`` with its ``vt`` fallback,
-``sample_vertex_colors`` through the port's PNG decoder,
+written from (its rig within 1e-6). The port's frames stay on the host
+as their files hold them (``HostViews``: uint8 pixels and each view's
+quarter turns) and ``frame_tensor`` turns and converts them; its values are
+held to JAX's float32 ones. The same tree re-saved by PIL as JPEG (views
+and parsing images, at several qualities and chroma samplings) reads alike
+too. Then the refusals and degradations (a size mismatch with JAX's
+message, a missing mask dir, a missing per-view mask, a progressive
+``.jpg`` view) and the asset loaders (``load_obj`` with its ``vt``
+fallback, ``sample_vertex_colors`` through the port's PNG decoder,
 ``load_facial_regions``).
 """
 
@@ -35,7 +38,7 @@ from topo4d_tpu.topology.obj_io import sample_vertex_colors as j_sample_vertex_c
 from topo4d_tpu.topology.regions import load_facial_regions as j_load_facial_regions
 
 from topo4d_tpu_torch.config import Config
-from topo4d_tpu_torch.pipeline.data import DiskSequence, frame_tensor
+from topo4d_tpu_torch.pipeline.data import DiskSequence, HostViews, frame_tensor
 from topo4d_tpu_torch.testing import write_disk_sequence
 from topo4d_tpu_torch.topology.obj_io import load_obj, sample_vertex_colors
 from topo4d_tpu_torch.topology.regions import load_facial_regions
@@ -90,12 +93,28 @@ def _unit(x):
 
 def test_frame_tensor_divides_as_jax_loader():
     # every uint8 value, and a float32 frame passed through
-    x = np.arange(256, dtype=np.uint8).reshape(1, 1, 16, 16)
-    got = frame_tensor(x, CPU)
+    x = np.arange(256 * 3, dtype=np.uint16).astype(np.uint8).reshape(1, 3, 16, 16)
+    got = frame_tensor(HostViews([np.ascontiguousarray(x[0].transpose(1, 2, 0))], [0]), CPU)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), x.astype(np.float32) / 255.0)
     f = np.linspace(0, 1, 12, dtype=np.float32).reshape(1, 3, 2, 2)
     np.testing.assert_array_equal(frame_tensor(f, CPU).numpy(), f)
+
+
+def test_frame_tensor_turns_host_views():
+    """Each view's quarter turns (np.rot90 over axes (0, 1), any sign) and
+    the permute into planes, then the JAX loader's division."""
+    rng = np.random.default_rng(3)
+    turns = [0, 1, -1, 2, 3]
+    planes = rng.integers(0, 256, (len(turns), 3, 5, 5), dtype=np.uint8)  # square: every turn fits one stack
+    views = HostViews([np.ascontiguousarray(np.rot90(p.transpose(1, 2, 0), -k)) for p, k in zip(planes, turns)], turns)
+    got = frame_tensor(views, CPU)
+    assert got.dtype == torch.float32 and got.shape == planes.shape
+    np.testing.assert_array_equal(got.numpy(), planes.astype(np.float32) / 255.0)
+    wide = rng.integers(0, 256, (2, 3, 4, 7), dtype=np.uint8)  # stored landscape, read portrait and back
+    views = HostViews([np.ascontiguousarray(np.rot90(p.transpose(1, 2, 0), -k)) for p, k in zip(wide, (1, -1))], [1, -1])
+    assert views.pixels[0].shape == (7, 4, 3) and views.nbytes == wide.nbytes
+    np.testing.assert_array_equal(frame_tensor(views, CPU).numpy(), wide.astype(np.float32) / 255.0)
 
 
 def _assert_loaders_agree(src, jsrc, frames):
@@ -107,7 +126,9 @@ def _assert_loaders_agree(src, jsrc, frames):
         for full in (False, True):
             got, want = src.frame(t, full_res=full), jsrc.frame(t, full_res=full)
             assert got.view_names == want.view_names
-            assert got.images.dtype == got.masks.dtype == np.uint8 and want.images.dtype == np.float32
+            assert isinstance(got.images, HostViews) and isinstance(got.masks, HostViews)
+            assert all(p.dtype == np.uint8 for p in got.images.pixels + got.masks.pixels)
+            assert want.images.dtype == np.float32
             np.testing.assert_array_equal(_unit(got.images), want.images)
             assert want.masks is not None
             np.testing.assert_array_equal(_unit(got.masks), want.masks)
@@ -135,9 +156,12 @@ def test_port_tree_reads_alike(port_tree):
     np.testing.assert_array_equal(src.trans_g, COMPONENT)
     for (t, full), want in tree.images.items():
         fd = src.frame(t, full_res=full)
-        np.testing.assert_array_equal(fd.images, want)
-        np.testing.assert_array_equal(fd.masks, tree.masks[(t, full)])
+        assert fd.images.turns == fd.masks.turns == tree.turns == [1, -1, 0]
+        for v, k in enumerate(tree.turns):  # the pixels as the files hold them
+            np.testing.assert_array_equal(fd.images.pixels[v], np.rot90(want[v].transpose(1, 2, 0), -k))
+            np.testing.assert_array_equal(fd.masks.pixels[v], np.rot90(tree.masks[(t, full)][v].transpose(1, 2, 0), -k))
         np.testing.assert_array_equal(_unit(fd.images), want.astype(np.float32) / 255.0)
+        np.testing.assert_array_equal(_unit(fd.masks), tree.masks[(t, full)].astype(np.float32) / 255.0)
 
 
 def test_size_mismatch_error(port_tree):
@@ -180,15 +204,48 @@ def test_missing_view_mask_turns_the_frame_maskless(port_tree, tmp_path, capsys)
     assert capsys.readouterr().out.count("[topo4d_tpu_torch] mask") == 1
 
 
+def _to_jpeg(root, quality, subsampling):
+    """Re-save every PNG view and parsing image under ``root`` (working and
+    dense trees) as PIL's JPEG beside it, the PNG removed."""
+    for base in (root, root + "_dense"):
+        for dirpath, _, files in os.walk(base):
+            for f in files:
+                if f.endswith(".png") and f != "face_v5.png":
+                    path = os.path.join(dirpath, f)
+                    with Image.open(path) as im:
+                        im.save(path[:-4] + ".jpg", quality=quality, subsampling=subsampling)
+                    os.remove(path)
+
+
+@pytest.mark.parametrize("quality,subsampling", [(75, 2), (95, 0), (90, 1)])
+def test_jpeg_tree_reads_alike(port_tree, tmp_path, quality, subsampling):
+    """The port's tree as PIL's JPEGs, views and parsing images alike: both
+    loaders' frames and masks, working and dense, bit for bit."""
+    root = str(tmp_path / "jpg")
+    shutil.copytree(port_tree.input_dir, root)
+    shutil.copytree(port_tree.dense_input_dir, root + "_dense")
+    _to_jpeg(root, quality, subsampling)
+    cfg, jcfg = _cfgs(root, 2, seq=port_tree.seq)
+    src = DiskSequence(cfg, device=CPU)
+    assert src.view_files == ["K98707288.jpg", "K98707293.jpg", "view02.jpg"]
+    _assert_loaders_agree(src, JDiskSequence(jcfg), frames=[1, 2])
+
+
 def test_jpg_view_raises_naming_the_path(port_tree, tmp_path):
+    """A ``.jpg`` view among PNGs reads as JAX reads it (listed first, as in
+    JAX); a progressive one raises, naming its path."""
     root = _copy_tree(port_tree, tmp_path / "jpg")
     fdir = os.path.join(root, port_tree.seq, "000001")
     Image.open(os.path.join(fdir, "view02.png")).save(os.path.join(fdir, "view02.jpg"))
     os.remove(os.path.join(fdir, "view02.png"))
-    cfg, _ = _cfgs(root, 2, dense_root=root, seq=port_tree.seq)
+    cfg, jcfg = _cfgs(root, 2, dense_root=root, seq=port_tree.seq)
     src = DiskSequence(cfg, device=CPU)
     assert src.view_files == ["view02.jpg", "K98707288.png", "K98707293.png"]  # .jpg first, as in JAX
-    with pytest.raises(NotImplementedError, match="000001/view02.jpg"):
+    got, want = src.frame(1), JDiskSequence(jcfg).frame(1)
+    np.testing.assert_array_equal(_unit(got.images), want.images)
+    np.testing.assert_array_equal(_unit(got.masks), want.masks)
+    Image.open(os.path.join(fdir, "view02.jpg")).save(os.path.join(fdir, "view02.jpg"), progressive=True)
+    with pytest.raises(ValueError, match="000001/view02.jpg: progressive JPEG"):
         src.frame(1)
 
 

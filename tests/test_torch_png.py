@@ -5,7 +5,10 @@ dtype and shape included, on files PIL writes (gray, gray+alpha, RGB, RGBA,
 odd widths; PIL picks a filter per row) and on files built here row by row
 with each filter type 0-4 and the image data split over several IDAT
 chunks. It round-trips the port's writer and refuses what it does not read
-(16-bit samples, palettes, interlacing, a bad CRC, a JPEG view).
+(16-bit samples, palettes, interlacing, a bad CRC); ``read_image`` reads a
+JPEG view as PIL does, whatever its extension, and refuses a progressive
+one. The C unfilter (``unfilter``) equals its NumPy mirror
+(``unfilter_plain``) and PIL on rows of each filter type.
 """
 
 import io
@@ -17,7 +20,16 @@ import pytest
 from PIL import Image
 
 from topo4d_tpu_torch.pipeline.data import read_image
-from topo4d_tpu_torch.utils.png import CHANNELS, SIGNATURE, _chunk, decode_png, encode_png, read_png
+from topo4d_tpu_torch.utils.png import (
+    CHANNELS,
+    SIGNATURE,
+    _chunk,
+    decode_png,
+    encode_png,
+    read_png,
+    unfilter,
+    unfilter_plain,
+)
 
 MODES = {"L": 0, "LA": 4, "RGB": 2, "RGBA": 6}
 
@@ -113,6 +125,60 @@ def test_each_filter_type_built_by_hand(kind, mode):
     np.testing.assert_array_equal(got, arr)
 
 
+def _filtered_rows(arr, kinds, c):
+    """(H, 1 + W * c) raw rows of ``arr``, row y filtered with kinds[y]."""
+    h = arr.shape[0]
+    rows = arr.reshape(h, -1)
+    prev = np.zeros(rows.shape[1], np.uint8)
+    out = np.zeros((h, 1 + rows.shape[1]), np.uint8)
+    for y in range(h):
+        out[y, 0] = kinds[y]
+        out[y, 1:] = _filter_row(kinds[y], rows[y], prev, c)
+        prev = rows[y]
+    return out
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("size", [(1, 1), (6, 1), (23, 17)])
+def test_c_unfilter_equals_numpy_mirror_and_pil(kind, mode, size):
+    ctype = MODES[mode]
+    c = CHANNELS[ctype]
+    arr = _image(size if c == 1 else size + (c,), seed=size[0] + ctype, smooth=False)
+    kinds = [y % 5 for y in range(size[0])] if kind == "mixed" else [kind] * size[0]
+    raw = _filtered_rows(arr, kinds, c)
+    got = unfilter(raw, c)
+    np.testing.assert_array_equal(got, unfilter_plain(raw, c))
+    np.testing.assert_array_equal(got.reshape(arr.shape), arr)
+    np.testing.assert_array_equal(got.reshape(arr.shape), _pil_decode(_hand_built(arr, kinds, ctype, chunks=1)))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_c_unfilter_on_pil_files(mode):
+    """PIL's own filter choice per row (Average and Paeth among them on the
+    gradients) through both unfilters."""
+    c = CHANNELS[MODES[mode]]
+    arr = _image((40, 37) if c == 1 else (40, 37, c), seed=c, smooth=True)
+    data = _pil_bytes(arr)
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        if data[pos + 4 : pos + 8] == b"IDAT":
+            idat += data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(40, -1)
+    assert len(set(raw[:, 0].tolist())) > 1  # PIL filtered rows of more than one type
+    np.testing.assert_array_equal(unfilter(raw, c), unfilter_plain(raw, c))
+    np.testing.assert_array_equal(unfilter(raw, c).reshape(arr.shape), _pil_decode(data))
+
+
+def test_c_unfilter_refuses_a_bad_filter_type():
+    raw = _filtered_rows(np.zeros((3, 4, 3), np.uint8), [0, 0, 0], 3)
+    raw[2, 0] = 7
+    with pytest.raises(ValueError, match="filter type 7 in row 2"):
+        unfilter(raw, 3)
+
+
 @pytest.mark.parametrize("shape", [(1, 1, 3), (37, 53, 3), (20, 301, 3)])
 def test_round_trip_with_encode_png(shape, tmp_path):
     arr = np.random.default_rng(shape[1]).integers(0, 256, shape).astype(np.uint8)
@@ -138,9 +204,20 @@ def test_refusals(tmp_path):
         decode_png(bytes(data), "crc.png")
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a", "x.gif")
-    path = tmp_path / "view.jpg"
-    path.write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="view.jpg"):
+    # a JPEG view reads as PIL reads it, told apart by its leading bytes
+    # whatever its extension; a progressive one raises, naming the file
+    arr = _image((13, 21, 3), seed=5, smooth=True)
+    for name in ("view.jpg", "jpeg_named.png"):
+        path = tmp_path / name
+        Image.fromarray(arr).save(str(path), format="JPEG")
+        with Image.open(str(path)) as im:
+            np.testing.assert_array_equal(read_image(str(path)), np.asarray(im))
+    path = tmp_path / "progressive.jpg"
+    Image.fromarray(arr).save(str(path), format="JPEG", progressive=True)
+    with pytest.raises(ValueError, match="progressive.jpg: progressive JPEG"):
+        read_image(str(path))
+    path.write_bytes(b"GIF89a")
+    with pytest.raises(ValueError, match="progressive.jpg: neither a PNG nor a JPEG"):
         read_image(str(path))
 
 

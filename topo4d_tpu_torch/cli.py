@@ -139,12 +139,11 @@ def main(argv=None):
         )
         return None
 
-    from topo4d_tpu_torch.pipeline.data import DiskSequence
+    from topo4d_tpu_torch.pipeline.data import DiskSequence, read_image
     from topo4d_tpu_torch.pipeline.scene import build_scene
     from topo4d_tpu_torch.pipeline.trainer import Trainer
     from topo4d_tpu_torch.topology.obj_io import load_obj, sample_vertex_colors
     from topo4d_tpu_torch.topology.regions import load_facial_regions
-    from topo4d_tpu_torch.utils.png import read_png
 
     source = DiskSequence(cfg, device=device)
     seq_dir = os.path.join(cfg.data.input_dir, cfg.data.seq)
@@ -154,7 +153,7 @@ def main(argv=None):
     vertex_colors = None
     tex_path = os.path.join(seq_dir, "face_v5.png")
     if os.path.exists(tex_path):
-        tex = read_png(tex_path)
+        tex = read_image(tex_path)
         vertex_colors = sample_vertex_colors(tex, mesh.num_vertices, mesh.faces, mesh.uv_faces, mesh.uvs) / 255.0
 
     params, statics = build_scene(

@@ -158,7 +158,8 @@ class ScheduleConfig:
     # Python loop with the same semantics, and the unit that frozen
     # binnings live for)
     use_scan: bool = True
-    # render all views of a batched step in one fused launch: not ported
+    # batched mode, pallas backend: render all views of a step in one K1 and
+    # one K2 launch on a tall canvas (no batched multi-step then)
     fuse_views: bool = False
     # run a frame's checkpoint and export on a worker thread while the next
     # frame fits; at most one frame's IO in flight
@@ -302,11 +303,8 @@ def _accept_jax_only(key: str, value) -> None:
 
 def check_schedule(cfg: Config) -> None:
     """Raise on schedule settings the port does not run: ``views_per_step``
-    other than 1 or 0 (the JAX package has only these two) and
-    ``fuse_views``."""
+    other than 1 or 0 (the JAX package has only these two)."""
     if cfg.schedule.views_per_step not in (0, 1):
         raise ValueError(
             f"schedule.views_per_step must be 1 (parity) or 0 (all views batched), got {cfg.schedule.views_per_step}"
         )
-    if cfg.schedule.fuse_views:
-        raise NotImplementedError("schedule.fuse_views (one fused multi-view launch) is not ported")

@@ -1,6 +1,6 @@
 """The all-views batched geometry mode (``parallel/``).
 
 Only the single-device path is ported: views render one after another on
-one card. The multi-device mesh and the fused multi-view launch
-(``schedule.fuse_views``) are later slices.
+one card, or all in one fused launch (``schedule.fuse_views``). The
+multi-device mesh is a later slice.
 """

@@ -8,9 +8,9 @@ constraint writes: a deliberate semantic change of the JAX package, the
 scaling mode its README documents.
 
 Views render one after another through ``render_fn`` (the JAX package's
-``sequential_views`` path). The JAX ``mesh`` path (views sharded over
-devices) and ``multiview_render_fn`` (``schedule.fuse_views``) are not
-ported.
+``sequential_views`` path), or all at once through ``multiview_render_fn``
+(``schedule.fuse_views``: one K1 and one K2 launch per step). The JAX
+``mesh`` path (views sharded over devices) is not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ def _build_batched_step_impl(
     ring_indices: Optional[np.ndarray] = None,
     device="cuda",
     binned_render_fn: Optional[Callable] = None,
+    multiview_render_fn: Optional[Callable] = None,
 ) -> Callable:
     """The all-views step body (``parallel/batched.py:33``).
 
@@ -46,10 +47,23 @@ def _build_batched_step_impl(
     binnings are given), takes the mean of the per-view photometric losses
     and of the per-view mean PSNRs and the max of the radii over the views,
     adds the topological terms once, and applies Adam and the constraints.
+    With ``multiview_render_fn(rv, cams)`` (batched leaves) every view
+    renders in one call instead (``:79-89``), and frozen binnings are not
+    taken.
     """
     topo = build_topo_losses(quadruples, umbrellas, num_vertices, ring_indices, device)
 
     def per_view_losses(params, rv, images, cams, binnings, with_metrics):
+        if multiview_render_fn is not None:
+            out = multiview_render_fn(rv, cams)
+            v = images.shape[0]
+            im = torch.exp(params["cam_m"][:v])[:, :, None, None] * out.image + params["cam_c"][:v][:, :, None, None]
+            losses = torch.stack([photometric_loss(im[i], images[i]) for i in range(v)])
+            mean_psnr = None
+            if with_metrics:
+                with torch.no_grad():
+                    mean_psnr = torch.mean(torch.stack([torch.mean(psnr(im[i].detach(), images[i])) for i in range(v)]))
+            return torch.mean(losses), mean_psnr, torch.amax(out.radii, dim=0)
         losses, psnrs, radii = [], [], None
         for v in range(images.shape[0]):
             cam = cams[v]
@@ -99,11 +113,15 @@ def make_batched_geometry_step(
     num_vertices: int,
     ring_indices: Optional[np.ndarray] = None,
     device="cuda",
+    multiview_render_fn: Optional[Callable] = None,
 ) -> Callable:
     """The all-views step (``parallel/batched.py:174``): ``step(state,
     images, cams, priors, constraints, lr, weights, phase) -> (state,
-    priors, metrics)``, metrics with the mean PSNR over the views."""
-    return _build_batched_step_impl(quadruples, umbrellas, render_fn, num_vertices, ring_indices, device)
+    priors, metrics)``, metrics with the mean PSNR over the views. With
+    ``multiview_render_fn`` all views render in one fused call."""
+    return _build_batched_step_impl(
+        quadruples, umbrellas, render_fn, num_vertices, ring_indices, device, multiview_render_fn=multiview_render_fn
+    )
 
 
 def make_batched_geometry_multi_step(

@@ -7,9 +7,11 @@ directory holding ``cameras.xml`` (Agisoft), per-frame subdirectories
 ``%06d`` of per-view images named by camera label, and optionally a
 parallel ``mask/%06d/`` tree of face-parsing images. Views in the blacklist
 are skipped; each image is rotated by its camera's +/-90-degree portrait
-rotation. Images are decoded on the host by ``utils/png.py`` (PNG only: a
-``.jpg`` view raises ``NotImplementedError``) and stay uint8 there;
-``frame_tensor`` moves them to the card and converts them there.
+rotation. Images are decoded on the host by the C library (``utils/png.py``
+and ``utils/jpeg.py``; ``read_image`` tells them apart by their leading
+bytes) and stay there as their files hold them, uint8, beside each view's
+quarter turns (``HostViews``); ``frame_tensor`` moves them to the card and
+turns them into planes and converts them there.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -28,32 +30,53 @@ from topo4d_tpu_torch.core.agisoft import load_camera
 from topo4d_tpu_torch.core.camera import Camera, make_camera
 from topo4d_tpu_torch.core.gaussian import activate_params
 from topo4d_tpu_torch.rasterizer.render import render_gaussians
-from topo4d_tpu_torch.utils.png import read_png
+from topo4d_tpu_torch.utils.jpeg import SOI, decode_jpeg
+from topo4d_tpu_torch.utils.png import SIGNATURE, decode_png
 
-# threads that decode and turn a frame's views (zlib and NumPy release the
-# interpreter lock). A read slows the host-bound geometry loop while it
-# runs; 4 threads end it soonest and cost the loop the least time in all of
-# 1, 2 and 4 on an 8-core H100 host (PERF.md, chip_smoke.py phase 9's sweep)
+# threads that decode a frame's views (zlib and the C library release the
+# interpreter lock). On an 8-core H100 host (PERF.md, chip_smoke.py phase
+# 9's sweep) a JPEG read on 4 threads ends soonest and costs the host-bound
+# geometry loop little; a PNG read costs the loop more at 4 threads than
+# at 1 (memory traffic is part of the cause, PERF.md section 7)
 LOAD_THREADS = 4
 
 
+class HostViews(NamedTuple):
+    """A frame's views as their files hold them: ``pixels[v]`` (H, W, 3)
+    uint8 and ``turns[v]``, the quarter turns (``np.rot90`` over axes (0,
+    1)) that bring view v into its camera's frame."""
+
+    pixels: List[np.ndarray]
+    turns: List[int]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.pixels)
+
+
 class FrameData(NamedTuple):
-    images: np.ndarray  # (V, 3, H, W): float32 in [0, 1], or uint8 (``DiskSequence``'s)
-    masks: Optional[np.ndarray]  # (V, 3, H, W) likewise, or None
+    images: Union[np.ndarray, HostViews]  # (V, 3, H, W) float32 in [0, 1], or ``DiskSequence``'s HostViews
+    masks: Optional[Union[np.ndarray, HostViews]]  # likewise, or None
     view_names: List[str]
 
 
-def frame_tensor(x: np.ndarray, device) -> torch.Tensor:
-    """A frame's images or parsing images on ``device`` as float32 in
-    [0, 1]. A uint8 array moves as uint8 and is divided there:
-    float32(x) / float32(255), the JAX loader's values bit for bit. The
+def frame_tensor(x: Union[np.ndarray, HostViews], device) -> torch.Tensor:
+    """A frame's images or parsing images on ``device`` as (V, 3, H, W)
+    float32 in [0, 1]. ``HostViews`` move as uint8, as their files hold
+    them; each view's quarter turn and the permute into planes run on
+    ``device``, then the division: float32(x) / float32(255), the JAX
+    loader's values bit for bit (a turn moves values, it changes none). The
     divisor is a tensor on ``device``: PyTorch's CUDA division by a host
     scalar multiplies by its reciprocal, which differs in the last bit for
-    126 of the 256 values."""
-    t = torch.as_tensor(x)
-    if t.dtype != torch.uint8:
-        return t.to(device=device, dtype=torch.float32)
-    return t.to(device).to(torch.float32) / torch.tensor(255.0, device=device)
+    126 of the 256 values. A float32 array (``SyntheticSequence``'s) moves
+    as it is."""
+    if not isinstance(x, HostViews):
+        return torch.as_tensor(x).to(device=device, dtype=torch.float32)
+    t = torch.stack([
+        torch.rot90(torch.from_numpy(px).to(device), k, dims=(0, 1)).permute(2, 0, 1)
+        for px, k in zip(x.pixels, x.turns)
+    ])
+    return t.to(torch.float32) / torch.tensor(255.0, device=device)
 
 
 def _stack_cameras(cam_dicts: List[Dict], near: float, far: float, device) -> Camera:
@@ -64,11 +87,16 @@ def _stack_cameras(cam_dicts: List[Dict], near: float, far: float, device) -> Ca
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file as ``np.asarray(PIL.Image.open(path))`` gives it (uint8);
-    PNG only."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise NotImplementedError(f"{path}: only PNG images are read (no JPEG decoder is ported)")
-    return read_png(path)
+    """An image file as ``np.asarray(PIL.Image.open(path))`` gives it
+    (uint8): a PNG or a baseline JPEG, told apart by the file's leading
+    bytes (as PIL does), whatever its extension."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data.startswith(SIGNATURE):
+        return decode_png(data, path)
+    if data.startswith(SOI):
+        return decode_jpeg(data, path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 @dataclasses.dataclass
@@ -112,9 +140,9 @@ class DiskSequence:
         return len(self.view_names)
 
     def frame(self, t: int, full_res: bool = False) -> Optional[FrameData]:
-        """1-based frame ``t`` (images uint8, rotated to the cameras' frame;
-        the parsing images likewise, or None) or None when a view's image is
-        missing."""
+        """1-based frame ``t`` (images as ``HostViews``, turned into the
+        cameras' frame by ``frame_tensor``; the parsing images likewise, or
+        None) or None when a view's image is missing."""
         data = self.cfg.data
         root = data.dense_input_dir if full_res else data.input_dir
         frame_dir = os.path.join(root, data.seq, "%06d" % t)
@@ -154,43 +182,38 @@ class DiskSequence:
         if not use_mask:
             mpaths = []
         with ThreadPoolExecutor(max_workers=LOAD_THREADS) as pool:
-            views = list(pool.map(_load_view, paths, mpaths or [None] * len(paths), rts))
-            for path, (im, _) in zip(paths, views):
-                if im.shape[:2] != (cam.height, cam.width):
-                    raise ValueError(
-                        f"{path} is {im.shape[1]}x{im.shape[0]} but the calibration at "
-                        f"{'dense_' if full_res else ''}down_ratio="
-                        f"{data.dense_down_ratio if full_res else data.down_ratio}"
-                        f" expects {cam.width}x{cam.height}; point "
-                        f"{'--dense_input_dir' if full_res else '--input_dir'} "
-                        f"at images of that size or adjust the ratio"
-                    )
-            if len(paths) < len(self.view_files):
-                return None
-            images = np.empty((len(views),) + views[0][0].transpose(2, 0, 1).shape, np.uint8)
-            masks = np.empty((len(views),) + views[0][1].transpose(2, 0, 1).shape, np.uint8) if use_mask else None
-            list(pool.map(_to_planes, views, range(len(views)), [images] * len(views), [masks] * len(views)))
+            views = list(pool.map(_load_view, paths, mpaths or [None] * len(paths)))
+        for path, (im, _), rt in zip(paths, views, rts):
+            shape = im.shape[:2] if rt % 2 == 0 else im.shape[1::-1]  # after the turn
+            if shape != (cam.height, cam.width):
+                raise ValueError(
+                    f"{path} is {shape[1]}x{shape[0]} but the calibration at "
+                    f"{'dense_' if full_res else ''}down_ratio="
+                    f"{data.dense_down_ratio if full_res else data.down_ratio}"
+                    f" expects {cam.width}x{cam.height}; point "
+                    f"{'--dense_input_dir' if full_res else '--input_dir'} "
+                    f"at images of that size or adjust the ratio"
+                )
+        if len(paths) < len(self.view_files):
+            return None
+        images = HostViews([im for im, _ in views], rts)
+        masks = HostViews([mk for _, mk in views], rts) if use_mask else None
         return FrameData(images=images, masks=masks, view_names=self.view_names)
 
 
-def _load_view(path: str, mpath: Optional[str], rt: int):
-    """One view's image and parsing image (or None), decoded and rotated by
-    ``rt`` quarter turns (``rotate_image``'s turn, as a view: the copy into
-    planes moves the pixels once); the parsing image cropped to the image's
-    size before the rotation."""
+def _load_view(path: str, mpath: Optional[str]):
+    """One view's image and parsing image (or None) as their files hold
+    them, the parsing image cropped to the image's size (``frame_tensor``
+    turns both on the card)."""
     raw = read_image(path)
-    mk = None if mpath is None else np.rot90(read_image(mpath)[: raw.shape[0], : raw.shape[1]], rt, axes=(0, 1))
-    return np.rot90(raw, rt, axes=(0, 1)), mk
-
-
-def _to_planes(view, v: int, images: np.ndarray, masks: Optional[np.ndarray]) -> None:
-    # one NumPy copy per array, which takes the interpreter lock once: a copy
-    # in cache-sized tiles reads 3x faster but takes the lock at every tile,
-    # and slowed the geometry loop on the fitting thread far more (PERF.md)
-    im, mk = view
-    images[v] = im.transpose(2, 0, 1)
-    if masks is not None:
-        masks[v] = mk.transpose(2, 0, 1)
+    if raw.ndim != 3 or raw.shape[2] != 3:
+        raise ValueError(f"{path}: a view must be an RGB image, got shape {raw.shape}")
+    if mpath is None:
+        return raw, None
+    mk = read_image(mpath)
+    if mk.ndim != 3 or mk.shape[2] != 3:
+        raise ValueError(f"{mpath}: a parsing image must be RGB, got shape {mk.shape}")
+    return raw, mk[: raw.shape[0], : raw.shape[1]]
 
 
 @dataclasses.dataclass

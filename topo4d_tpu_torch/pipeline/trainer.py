@@ -17,6 +17,9 @@ identically configured steps through a multi-step, and with a resolved
 segment freezes per-view binnings computed at its entry, capped at that
 many steps. Segment boundaries are semantics, not scheduling: a binning is
 recomputed at each entry, so they fall exactly where the JAX package's do.
+With ``schedule.fuse_views`` (batched mode, pallas backend) every view of a
+step renders in one K1 and one K2 launch on a tall canvas, and each step
+bins afresh (no multi-step), as in JAX.
 
 A source with face-parsing masks dims the inner mouth of tracked frames'
 targets (``data.use_mask``), and the dense phase takes the masked L1 loss
@@ -67,7 +70,12 @@ from topo4d_tpu_torch.pipeline.scene import (
     cache_first_frame_attrs,
     init_dense_params,
 )
-from topo4d_tpu_torch.rasterizer.render import attach_compact, binning_for, render_gaussians
+from topo4d_tpu_torch.rasterizer.render import (
+    attach_compact,
+    binning_for,
+    render_gaussians,
+    render_gaussians_multiview,
+)
 from topo4d_tpu_torch.rasterizer.tiles import Binning
 from topo4d_tpu_torch.texture.dense import (
     TextureState,
@@ -165,9 +173,21 @@ class Trainer:
         self.multi_step = None
         if sched.views_per_step == 1 and sched.use_scan:
             self.multi_step = make_geometry_multi_step(*geo, ring_indices=ring, **frozen, device=dev)
-        self.batched_step = make_batched_geometry_step(*geo, ring_indices=ring, device=dev)
+        # single card, pallas backend: all views of a batched step in one K1
+        # and one K2 launch on a tall canvas (``pipeline/trainer.py:235-253``);
+        # then no batched multi-step, so every step bins afresh
+        multiview_fn = None
+        if sched.fuse_views and cfg.raster.backend == "pallas":
+            bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=dev)
+
+            def multiview_fn(rv, cams):
+                return render_gaussians_multiview(rv, cams, bg=bg, max_span=cfg.raster.max_span)
+
+        self.batched_step = make_batched_geometry_step(
+            *geo, ring_indices=ring, device=dev, multiview_render_fn=multiview_fn
+        )
         self.batched_multi_step = None
-        if sched.views_per_step == 0 and sched.use_scan:
+        if sched.views_per_step == 0 and sched.use_scan and multiview_fn is None:
             self.batched_multi_step = make_batched_geometry_multi_step(*geo, ring_indices=ring, **frozen, device=dev)
         self.params0 = {k: np.asarray(v, np.float32) for k, v in params_np.items()}
         params = {k: torch.as_tensor(v, device=dev) for k, v in self.params0.items()}

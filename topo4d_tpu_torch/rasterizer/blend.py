@@ -130,7 +130,7 @@ def _pixel_coords(tile_ids: torch.Tensor, tiles_x: int):
 def tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids=None):
     """Per (row, pixel, entry) alphas with the CUDA skip rules -> ((R, 256, M), entries).
 
-    Each tile's range padded to the largest count M as a dense batch;
+    Each row's range padded to the rows' largest count M as a dense batch;
     ``entries`` is the gathered (16, T, M) packed data (padding zeroed).
     The 0.99 clamp is straight-through in the backward
     (``reference.py:_alpha_at_pixels``).
@@ -207,23 +207,49 @@ def warp_block_cull_plain(packed, tile_start, tile_count, tiles_x: int, tile_ids
     return culled & valid[:, None, :]
 
 
-def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
-    """Plain PyTorch tile blend, differentiable by autograd -> (R, 8, 256).
+def _count_buckets(tile_count: torch.Tensor):
+    """Row indices grouped by entry count, each group's counts within
+    (2^(k-1), 2^k] (0 and 1 together), so that a group padded to its
+    largest count pads each row to at most twice its own."""
+    c = tile_count.detach().cpu().to(torch.int64).clamp(min=1)
+    key = torch.ceil(torch.log2(c.to(torch.float64))).to(torch.int64)
+    order = torch.argsort(key, stable=True)
+    sizes = torch.bincount(key)
+    return [idx.to(tile_count.device) for idx in torch.split(order, sizes[sizes > 0].tolist())]
 
-    The one oracle of every blend kernel: K1/K2 and K4f/K4b share this
-    contract (K4 differs only in the order blocks walk the entries)."""
-    LAUNCHES["tile_blend_plain"] += 1
+
+def _blend_rows(packed, tile_start, tile_count, tiles_x: int, tile_ids):
+    """The blend of the given rows, each padded to their largest count."""
     alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids)
-    w, t_final = blend_weights(alpha)  # (T, 256, M), (T, 256)
-    feat = ent[8:12].permute(1, 2, 0)  # (T, M, 4): r, g, b, depth
-    acc = torch.matmul(w, feat).transpose(1, 2)  # (T, 4, 256)
+    w, t_final = blend_weights(alpha)  # (R, 256, M), (R, 256)
+    feat = ent[8:12].permute(1, 2, 0)  # (R, M, 4): r, g, b, depth
+    acc = torch.matmul(w, feat).transpose(1, 2)  # (R, 4, 256)
     m = alpha.shape[-1]
     pos = torch.arange(1, m + 1, device=packed.device, dtype=torch.float32)
     n_contrib = torch.amax((w > 0) * pos, dim=-1)  # entries up to the last contributor
     zeros = torch.zeros_like(t_final)
-    return torch.cat(
-        [acc, torch.stack([t_final, n_contrib, zeros, zeros], dim=1)], dim=1
-    )
+    return torch.cat([acc, torch.stack([t_final, n_contrib, zeros, zeros], dim=1)], dim=1)
+
+
+def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
+    """Plain PyTorch tile blend, differentiable by autograd -> (R, 8, 256).
+
+    The one oracle of every blend kernel: K1/K2 and K4f/K4b share this
+    contract (K4 differs only in the order blocks walk the entries). Rows
+    are blended in groups of similar entry count (``_count_buckets``), each
+    padded to its group's largest count, not to the canvas's: each row's
+    math is that of a lone row."""
+    LAUNCHES["tile_blend_plain"] += 1
+    rows = tile_start.shape[0]
+    ids = torch.arange(rows, device=packed.device) if tile_ids is None else tile_ids
+    if rows == 0:
+        return packed.new_zeros((0, 8, PX))
+    groups = _count_buckets(tile_count)
+    parts = [_blend_rows(packed, tile_start[g], tile_count[g], tiles_x, ids[g]) for g in groups]
+    order = torch.cat(groups)
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(rows, device=order.device)
+    return torch.cat(parts)[inverse]
 
 
 # ---------------------------------------------------------------------------

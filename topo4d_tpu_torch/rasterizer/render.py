@@ -1,9 +1,11 @@
 """The renderer front end (counterpart of ``rasterizer/pallas.py``).
 
 project -> bin (fresh, on detached inputs) or take a frozen binning ->
-pack -> tile blend -> composite the background -> untile, for one view.
-The binning is not differentiated; gradients reach the Gaussians through
-the pack's inverse gather and the projection.
+pack -> tile blend -> composite the background -> untile, for one view
+(``render_gaussians``) or for every view of a batched camera in one blend
+launch on a tall canvas (``render_gaussians_multiview``). The binning is
+not differentiated; gradients reach the Gaussians through the pack's
+inverse gather and the projection.
 
 Compact mode (``tile_capacity``, or a frozen binning that carries a compact
 tile list): only the non-empty tiles are blended, and their rows are
@@ -127,6 +129,81 @@ def render_gaussians(
         depth=untile(out[:, 3:4, :]),
         alpha=untile(1.0 - out[:, 4:5, :]),
         num_cropped=bins.num_cropped,
+        num_overflow=overflow,
+    )
+
+
+def render_gaussians_multiview(
+    rv: GaussianRenderVars,
+    cams: Camera,
+    bg: Optional[torch.Tensor] = None,
+    max_span: int = 4,
+    tile_capacity: Optional[int] = None,
+    variant: str = "auto",
+) -> RenderOutput:
+    """Every view of the batched camera ``cams`` in one blend launch (the
+    contract of ``render_gaussians_pallas_multiview``,
+    ``pallas.py:192-332``).
+
+    Each view is projected, binned afresh and packed; then the views stand
+    on a tall canvas of V * tiles_y tile rows: view v's packed y row moves
+    down by v * tiles_y * 16 pixels (a float32 add, which rounds as JAX's
+    does), its tile-id row by v * T (its invalid sentinel T becomes -2,
+    which matches no tile), its entry ranges by v * E_pad, and the entries
+    are concatenated. Views share no tile, so one ``tile_blend`` over the
+    V * T tiles gives each view its own render. ``tile_capacity``: compact
+    mode across all views (non-empty tiles past it dropped and counted in
+    ``num_overflow``). The outputs have a leading view axis: images (V, 3,
+    H, W), radii (V, N); ``num_cropped`` is the sum over the views.
+    """
+    dev = rv.means3d.device
+    if bg is None:
+        bg = torch.zeros(3, dtype=torch.float32, device=dev)
+    width, height = cams.width, cams.height
+    v = int(cams.fx.shape[0])
+    tiles_x, tiles_y = num_tiles(width, height)
+    t = tiles_x * tiles_y
+    packed, starts, counts, radii, cropped = [], [], [], [], []
+    for i in range(v):
+        proj = project_gaussians(rv, cams[i])
+        bins = pack_with_binning(proj, rv.colors, rv.opacities, compute_binning(proj.detach(), width, height, max_span))
+        e_pad = bins.packed.shape[1]
+        tile_row = bins.packed[6:7]
+        tile_row = torch.where(
+            tile_row >= float(t), torch.full_like(tile_row, -2.0), torch.where(tile_row >= 0.0, tile_row + float(i * t), tile_row)
+        )
+        y_off = torch.tensor(float(i * tiles_y * TILE), dtype=torch.float32, device=dev)
+        packed.append(torch.cat([bins.packed[0:1], bins.packed[1:2] + y_off, bins.packed[2:6], tile_row, bins.packed[7:]]))
+        starts.append(bins.tile_start + i * e_pad)
+        counts.append(bins.tile_count)
+        radii.append(proj.radii)
+        cropped.append(bins.num_cropped)
+    packed = torch.cat(packed, dim=1)
+    tile_start, tile_count = torch.cat(starts), torch.cat(counts)
+    t_all = v * t
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if tile_capacity is not None and tile_capacity < t_all:
+        compact = compact_nonempty_tiles(tile_start, tile_count, tile_capacity)
+        overflow = compact.overflow
+        out_c = tile_blend(packed, compact.start, compact.count, tiles_x, v * tiles_y, compact.ids, variant=variant)
+        out = _ScatterTiles.apply(out_c, compact.ids, t_all)
+    else:
+        out = tile_blend(packed, tile_start, tile_count, tiles_x, v * tiles_y, variant=variant)
+    out = out.reshape(v, t, 8, PX)
+
+    def untile(x):
+        """(V, T, C, 256) -> (V, C, H, W)."""
+        c = x.shape[2]
+        x = x.reshape(v, tiles_y, tiles_x, c, TILE, TILE)
+        x = x.permute(0, 3, 1, 4, 2, 5).reshape(v, c, tiles_y * TILE, tiles_x * TILE)
+        return x[:, :, :height, :width]
+
+    return RenderOutput(
+        image=untile(out[:, :, 0:3, :] + out[:, :, 4:5, :] * bg[None, None, :, None]),
+        radii=torch.stack(radii),
+        depth=untile(out[:, :, 3:4, :]),
+        alpha=untile(1.0 - out[:, :, 4:5, :]),
+        num_cropped=torch.sum(torch.stack(cropped)).to(torch.int32),
         num_overflow=overflow,
     )
 

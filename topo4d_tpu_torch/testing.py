@@ -187,9 +187,11 @@ def grid_uvs(rows: int, cols: int) -> np.ndarray:
 class DiskTree:
     """What ``write_disk_sequence`` wrote: the roots (``-id`` / ``-did``) and
     sequence name, the views, the rigs the targets were rendered on, the
-    component transform, and each frame's targets and parsing images as
-    stored, uint8 (V, 3, H, W) in the cameras' orientation, keyed by
-    (frame, full_res)."""
+    component transform, each frame's targets and parsing images, uint8
+    (V, 3, H, W) in the cameras' orientation, keyed by (frame, full_res),
+    and each view's quarter turns (``turns``): the files hold view v's
+    pixels turned back by ``turns[v]``, and the loader's ``HostViews``
+    carry them so, with these turns."""
 
     input_dir: str
     dense_input_dir: str
@@ -200,6 +202,7 @@ class DiskTree:
     trans_g: np.ndarray
     images: Dict[Tuple[int, bool], np.ndarray]
     masks: Dict[Tuple[int, bool], np.ndarray]
+    turns: List[int]
 
 
 def _sensor_xml(i, f, cx, cy, width, height, ratio, rt) -> str:
@@ -351,7 +354,7 @@ def write_disk_sequence(
     bg_t = torch.as_tensor(bg, dtype=torch.float32, device=cams.device)
     tree = DiskTree(
         input_dir=root, dense_input_dir=root + "_dense", seq=seq, view_names=names,
-        cameras=cams, cameras_full=cams_full, trans_g=trans_g, images={}, masks={},
+        cameras=cams, cameras_full=cams_full, trans_g=trans_g, images={}, masks={}, turns=rts,
     )
     for t in range(1, num_frames + 1):
         params = dict(truth)

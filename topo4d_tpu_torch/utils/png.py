@@ -1,4 +1,5 @@
-"""An 8-bit PNG writer and reader on ``zlib`` and ``struct`` alone.
+"""An 8-bit PNG writer and reader on ``zlib``, ``struct`` and the host C
+library.
 
 The JAX package reads and writes images through PIL (``pipeline/data.py``,
 ``pipeline/export.py``); this package must not need it. The writer emits
@@ -6,7 +7,9 @@ The JAX package reads and writes images through PIL (``pipeline/data.py``,
 ``level`` (6, PIL's default). The reader takes what PIL writes for 8-bit
 gray, gray+alpha, RGB and RGBA images: non-interlaced, any number of IDAT
 chunks, a filter type from 0 to 4 chosen per row. Anything else (16-bit
-samples, palettes, interlacing) raises, naming the file.
+samples, palettes, interlacing) raises, naming the file. Filtered rows are
+undone by ``png_unfilter`` of ``csrc/imgdec.c`` (``unfilter``), which holds
+no interpreter lock; ``unfilter_plain`` is its NumPy mirror, for the tests.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from topo4d_tpu_torch import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # color type -> samples per pixel (gray, gray+alpha, RGB, RGBA)
@@ -69,17 +74,52 @@ def _unfilter_sequential(kind: int, line: np.ndarray, prev: np.ndarray, c: int) 
     return cur.reshape(-1).astype(np.uint8)
 
 
+def unfilter_plain(raw: np.ndarray, c: int) -> np.ndarray:
+    """(H, 1 + stride) filtered rows (the filter byte first) of ``c``
+    bytes per pixel -> (H, stride) pixels, in NumPy: Sub as a running sum,
+    Up as a sum, Average and Paeth pixel by pixel (``_unfilter_sequential``)."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    w = stride // c
+    out = raw[:, 1:].copy()
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        line = out[y]
+        kind = raw[y, 0]
+        if kind == 1:  # Sub: a running sum mod 256 per channel
+            line[:] = np.cumsum(line.reshape(w, c), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            line += prev
+        elif kind in (3, 4):
+            line[:] = _unfilter_sequential(int(kind), line, prev, c)
+        prev = line
+    return out
+
+
+def unfilter(raw: np.ndarray, c: int) -> np.ndarray:
+    """``unfilter_plain``'s result from the C library's ``png_unfilter``."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    bad = native.library().png_unfilter(raw.ctypes.data, h, stride, c, out.ctypes.data)
+    if bad:
+        raise ValueError(f"filter type {int(raw[bad - 1, 0])} in row {bad - 1}")
+    return out
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The bytes of a PNG file -> what ``np.asarray(PIL.Image.open(...))``
     gives for it: (H, W) uint8 for gray, (H, W, C) for gray+alpha (2), RGB
     (3) and RGBA (4). ``name`` labels the errors."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
+    # chunk bodies as views of ``data``: a reading thread copies as little
+    # as it can while it holds the interpreter lock
+    view = memoryview(data)
     pos, idat, header = 8, [], None
     while pos + 12 <= len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        if zlib.crc32(kind + body) != struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])[0]:
+        (n,) = struct.unpack(">I", view[pos : pos + 4])
+        kind, body = bytes(view[pos + 4 : pos + 8]), view[pos + 8 : pos + 8 + n]
+        if zlib.crc32(body, zlib.crc32(kind)) != struct.unpack(">I", view[pos + 8 + n : pos + 12 + n])[0]:
             raise ValueError(f"{name}: bad CRC in its {kind.decode('latin-1')} chunk")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -98,27 +138,17 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         )
     c = CHANNELS[ctype]
     stride = c * w
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    # the output's size is known: one inflate call, which holds no
+    # interpreter lock (a growing output buffer takes the lock at each step)
+    stream = idat[0] if len(idat) == 1 else b"".join(idat)
+    raw = np.frombuffer(zlib.decompress(stream, bufsize=h * (1 + stride) + 1), np.uint8)
     if raw.size != h * (1 + stride):
         raise ValueError(f"{name}: {raw.size} bytes of image data, expected {h * (1 + stride)}")
     raw = raw.reshape(h, 1 + stride)
     kinds = raw[:, 0]
     if kinds.max(initial=0) > 4:
         raise ValueError(f"{name}: filter type {int(kinds.max())} in row {int(np.argmax(kinds > 4))}")
-    out = raw[:, 1:].copy()
-    if not kinds.any():
-        return out.reshape(h, w, c) if c > 1 else out.reshape(h, w)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        line = out[y]
-        kind = kinds[y]
-        if kind == 1:  # Sub: a running sum mod 256 per channel
-            line[:] = np.cumsum(line.reshape(w, c), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            line += prev
-        elif kind in (3, 4):
-            line[:] = _unfilter_sequential(int(kind), line, prev, c)
-        prev = line
+    out = unfilter(raw, c) if kinds.any() else raw[:, 1:].copy()
     return out.reshape(h, w, c) if c > 1 else out.reshape(h, w)
 
 
