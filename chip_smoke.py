@@ -107,7 +107,34 @@ order; any failure raises and exits non-zero:
    4096x3000 fixture read and turned on the card, each view bit for bit
    against the fixture's decode turned on the host; and the geometry
    loop's ms per step beside a dense PNG read and a dense JPEG read at 1, 2
-   and 4 loader threads.
+   and 4 loader threads;
+10. several ranks on the one card: processes started with the spawn start
+   method, each on ``cuda:0`` over gloo through ``initialize_multihost``
+   (NCCL refuses two ranks on one device), so no time here says anything
+   of NCCL across cards:
+   a. a view-sharded batched ``Trainer.run`` of 2 ranks (phase 8's
+      configuration, 12 views each, no segments): K1/K2 12 times and K5 24
+      times per step on each rank, no plain version; both ranks' parameters,
+      Adam moments and radii equal after every step (SHA-256); rank 0 alone
+      writes (rank 1 is handed a directory of its own, which must not
+      appear); three sharded steps from phase 8's final state against three
+      single-rank steps (loss rtol 1e-4, each leaf as phase 8's, the
+      max-scaled errors logged), timed in turns (one rank, 2 ranks, 2
+      ranks, one rank);
+   b. three tile-sharded dense steps at 3840x2160 (the frame's frozen
+      binnings, compact and full canvas) through ``fit_frame_texture``,
+      equal to one rank's in every metric row and parameter, K1 once per
+      step and eval render and K2 once per step on each rank; the bytes of
+      each all-reduce, each size timed alone, ms per dense step of both;
+   c. the sharded 8192x8192 bake on 2 ranks (8 bands) and on 3 ranks (6
+      bands), each rank's canvas equal to phase 3's K6 canvas bit for bit
+      (SHA-256), K6 once per rank;
+   d. NCCL at world size 1 in this process: the sharded loss of the 24
+      views, its radii and gradients, and one sharded step, equal to the
+      unsharded step's bit for bit;
+   e. a 2-rank ``run(resume=True)`` that launches nothing, a rank on
+      another ``output_dir`` that makes both raise, and the orbax backend's
+      round trip on rank 0 under the initialised group.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1639,7 +1666,7 @@ def phase_batched(cfg, src, trainer, scene, frames):
     out = {
         "counts": counts, "wall": wall, "parts": parts, "tracked_frame_s": geo["wall"],
         "ms_per_step": geo["wall"] / geo["steps"] * 1e3, "psnr": geo["last"]["psnr"], "segments": segments,
-        "frozen_binnings": frozen,
+        "frozen_binnings": frozen, "trainer": tr,
     }
 
     # a profile of one segment of three batched steps with frozen binnings
@@ -2430,19 +2457,572 @@ def phase_cli(run4):
             "jpeg": jpeg}
 
 
-def kernel_rows(run, batched, fused, v3, cli, errs, geo_timing, blend4k, blur, bake):
+MULTI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_multi")
+MULTI_TIMEOUT = 420  # seconds one spawned world may take
+MULTI_CHECK_STEPS = 3  # sharded batched steps held against single-rank ones, and timed in turns with them
+DENSE_SHARD_STEPS = 3  # tile-sharded dense steps held against single-rank ones
+MULTI_BANDS = {2: 8, 3: 6}  # the sharded bake's row bands per world size
+MULTI_MAIN_PATH = {}  # build_main_path's arguments in the ranks (its defaults: the head grid at 375x512)
+# the settings a rank takes from the parent, so that a smaller run (a rehearsal on the CPU) is smaller there too
+MULTI_SETTINGS = ("DEVICE", "FULL_W", "FULL_H", "TEX_RES", "DENSITY", "INIT_ITERS", "FRAMES", "BATCHED_INIT_ITERS",
+                  "OUT_DIR", "MULTI_DIR", "MULTI_MAIN_PATH")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(world: int, task: str, args) -> list:
+    """``world`` processes of ``multi_rank`` (spawn start method: this one has
+    initialised CUDA), ranks on ``cuda:0`` over gloo; fails if a rank raises
+    or the world outlives ``MULTI_TIMEOUT`` -> each rank's report."""
+    import torch.multiprocessing as mp
+
+    path = os.path.join(MULTI_DIR, f"{task}_{world}")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    t0 = time.perf_counter()
+    settings = {k: globals()[k] for k in MULTI_SETTINGS}
+    ctx = mp.start_processes(multi_rank, args=(world, free_port(), path, task, CARD, settings, args), nprocs=world,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MULTI_TIMEOUT:
+                raise AssertionError(f"phase 10: the {world}-rank world ({task}) did not end in {MULTI_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    log(f"phase 10: the {world}-rank world ({task}) ran {time.perf_counter() - t0:.1f} s")
+    return [torch.load(os.path.join(path, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def multi_rank(rank: int, world: int, port: int, path: str, task: str, card: str, settings, args) -> None:
+    """One rank of a phase-10 world: joins the group through the port's
+    ``initialize_multihost`` (the JAX launch arguments; ``cuda:0`` and gloo
+    named, since the ranks share one card), runs ``task`` and writes its
+    report to ``path/rank<r>.pt``."""
+    global CARD
+    CARD = card
+    globals().update(settings)
+    import torch.distributed as dist
+
+    from topo4d_tpu_torch.parallel.multihost import initialize_multihost, rank_device
+
+    if DEVICE == "cpu":  # a rehearsal on the CPU
+        torch.cuda.synchronize = lambda *a, **k: None
+    dev = "cuda:0" if DEVICE == "cuda" else DEVICE
+    if not initialize_multihost(f"localhost:{port}", world, rank, device=dev, backend="gloo"):
+        raise AssertionError(f"rank {rank}: initialize_multihost did not join a world of {world}")
+    try:
+        report = {"device": str(rank_device()), "backend": dist.get_backend()}
+        report.update(MULTI_TASKS[task](rank, world, args))
+        torch.save(report, os.path.join(path, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def state_digest(state) -> str:
+    """SHA-256 of a train state's parameters, Adam moments, step counts and radii."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in (state.params, state.opt.mu, state.opt.nu):
+        for k in sorted(tree):
+            h.update(tree[k].detach().contiguous().cpu().numpy().tobytes())
+    h.update(state.max_2d_radius.cpu().numpy().tobytes())
+    h.update(json.dumps(state.opt.step, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def canvas_digest(canvas) -> str:
+    import hashlib
+
+    return hashlib.sha256(canvas.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def timed_steps(step, steps: int, state, priors, images, cams, *args):
+    """``steps`` calls of a batched ``step`` -> (losses, final params on the
+    host, ms per step, the state's digest after each step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, states = [], []
+    for _ in range(steps):
+        state, priors, m = step(state, images, cams, priors, *args)
+        losses.append(m["loss_total"])
+        states.append(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    return ([float(x) for x in losses], {k: v.detach().cpu() for k, v in state.params.items()}, ms,
+            [state_digest(s) for s in states])
+
+
+def time_texture_steps(tr, frame, steps: int) -> float:
+    """ms per dense step: ``steps`` more steps of ``tr``'s texture step from
+    its state, on the frame's frozen binnings (every rank in step)."""
+    from topo4d_tpu_torch.pipeline.data import frame_tensor, view_order
+
+    cfg = tr.cfg
+    images = frame_tensor(frame.images, tr.device)
+    binnings = tr.dense_binnings(0)
+    order = view_order(images.shape[0], steps, seed=10_000)
+    state = tr.texture_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        v = int(order[i])
+        state, _ = tr.texture_step(state, tr.dense_means3d, images[v], tr.source.cameras_full, v, tr.dense_anchor,
+                                   tr._dense_pre, dict(cfg.lrs.dense), cfg.dense_weights.as_dict(), binnings[v],
+                                   with_metrics=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def rank_batched(rank, world, args, cfg, src, params_np, statics):
+    """Phase 10a and 10e on one rank: the view-sharded batched run (each
+    step's state digest), a resume that does nothing, a rank on another
+    output directory, the orbax round trip on rank 0; then the sharded
+    steps of the check against one rank, in two turns."""
+    import copy
+
+    import torch.distributed as dist
+
+    from topo4d_tpu_torch.parallel.mesh import shard_view_batch
+    from topo4d_tpu_torch.pipeline import checkpoint as ckpt
+    from topo4d_tpu_torch.pipeline.scene import build_constraints
+    from topo4d_tpu_torch.pipeline.trainer import Trainer
+
+    out = {}
+    bcfg = copy.deepcopy(cfg)
+    bcfg.schedule.views_per_step = 0
+    bcfg.schedule.init_opt_num = BATCHED_INIT_ITERS
+    bcfg.texture.gen_tex = False
+    run_dir = os.path.join(MULTI_DIR, "run")
+    # rank 1 gets a directory of its own: a file it wrote would show there
+    bcfg.data.output_dir = run_dir if rank == 0 else os.path.join(MULTI_DIR, "rank1_run")
+    tr = Trainer(bcfg, src, params_np, statics, device=DEVICE)
+    if tr.mesh is None or tr.mesh.size != world or tr.batched_multi_step is not None:
+        raise AssertionError(f"rank {rank}: view mesh {tr.mesh}, batched multi-step {tr.batched_multi_step}")
+    digests = []
+    sharded_step = tr.batched_step
+
+    def step(*a, **k):
+        r = sharded_step(*a, **k)
+        digests.append(state_digest(r[0]))  # a read back: the run's wall includes it
+        return r
+
+    tr.batched_step = step
+    parts = instrument(tr)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.run(resume=False)
+    torch.cuda.synchronize()
+    out["run_wall"] = time.perf_counter() - t0
+    out["run_counts"] = read_counts()
+    out["run_parts"] = [{k: p[k] for k in ("kind", "frame", "wall", "counts", "rows")} for p in parts]
+    out["steps"] = [tr.batched_schedule(p["frame"], src.num_views)[0] for p in parts]
+    out["digests"] = digests
+    out["local_views"] = tr.mesh.block(src.num_views)[1]
+
+    # 10e: a second run resumes and does nothing; a rank on another directory makes every rank raise
+    rcfg = copy.deepcopy(bcfg)
+    rcfg.data.output_dir = run_dir
+    again = Trainer(rcfg, src, params_np, statics, device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    again.run(resume=True)
+    torch.cuda.synchronize()
+    out["resume_counts"] = read_counts()
+    out["resume_equal"] = all(torch.equal(again.state.params[k], tr.state.params[k]) for k in tr.state.params)
+    mcfg = copy.deepcopy(bcfg)
+    mcfg.data.output_dir = run_dir if rank == 0 else os.path.join(MULTI_DIR, "elsewhere")
+    try:
+        Trainer(mcfg, src, params_np, statics, device=DEVICE).run(resume=True)
+        out["mismatch"] = ""
+    except RuntimeError as exc:
+        out["mismatch"] = str(exc)
+    if rank == 0:  # the orbax backend on the card, host 0 alone under an initialised group
+        odir = os.path.join(MULTI_DIR, "orbax")
+        ckpt.save_resume_orbax(odir, 2, tr.state, tr.priors, tr.first_frame_attrs, tr.output_params, None)
+        p = ckpt.load_resume_orbax(odir)
+        same = p["frame"] == 2 and len(p["output_params"]) == len(tr.output_params)
+        same = same and p["state"].opt.step == tr.state.opt.step and p["texture_state"] is None
+        for a, b in ((p["state"].params, tr.state.params), (p["state"].opt.mu, tr.state.opt.mu),
+                     (p["state"].opt.nu, tr.state.opt.nu)):
+            same = same and all(np.array_equal(a[k], b[k].cpu().numpy()) for k in b)
+        same = same and np.array_equal(p["priors"].cos_init, tr.priors.cos_init.cpu().numpy())
+        out["orbax_equal"] = bool(same)
+    dist.barrier()
+
+    # 10a: the sharded steps of the check, from the single-rank run's state, in two turns
+    ref = torch.load(args["check_state"], weights_only=False)
+    cons = build_constraints("track", tr.params0, statics.regions, ref["first_frame_attrs"], DEVICE)
+    images = shard_view_batch(tr.mesh, torch.as_tensor(ref["images"], device=DEVICE))
+    cams = shard_view_batch(tr.mesh, src.cameras)
+    out["check"] = []
+    for _ in range(2):
+        state, priors = to_device(ref["state"], DEVICE), to_device(ref["priors"], DEVICE)
+        out["check"].append(timed_steps(sharded_step, MULTI_CHECK_STEPS, state, priors, images, cams, cons,
+                                        ref["lr"], ref["weights"], "track"))
+    return out
+
+
+def rank_dense(rank, world, cfg, src, params_np, statics):
+    """Phase 10b on one rank: ``DENSE_SHARD_STEPS`` tile-sharded dense steps
+    through ``fit_frame_texture`` (the frame's frozen binnings; compact, then
+    the full canvas) with the bytes of each all-reduce, and on rank 0 the same
+    steps on one rank while rank 1 waits; ms per step of both; then each
+    all-reduce size alone, every rank in step."""
+    import copy
+
+    import torch.distributed as dist
+
+    from topo4d_tpu_torch.pipeline.trainer import Trainer
+
+    tex_frame = src.frame(1, full_res=True)
+    sizes = []
+    real_all_reduce = dist.all_reduce
+
+    def recording(t, *a, **k):
+        sizes.append(t.numel() * t.element_size())
+        return real_all_reduce(t, *a, **k)
+
+    out = {}
+    for mode, cap in (("compact", -1), ("full canvas", 0)):
+        res = {}
+        for shard in (True, False) if rank == 0 else (True,):
+            dcfg = copy.deepcopy(cfg)
+            dcfg.texture.tile_shard = shard
+            dcfg.texture.tile_capacity = cap
+            dcfg.schedule.dense_opt_num = DENSE_SHARD_STEPS
+            dcfg.schedule.dense_log_freq = 1
+            tr = Trainer(dcfg, src, params_np, statics, device=DEVICE)
+            sizes.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            dist.all_reduce = recording
+            try:
+                t0 = time.perf_counter()
+                tr.fit_frame_texture(0, tex_frame)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                dist.all_reduce = real_all_reduce
+            res[shard] = {
+                "rows": list(tr.metrics_log), "wall": wall, "counts": read_counts(), "all_reduce": list(sizes),
+                "params": {k: v.detach().cpu() for k, v in tr.texture_state.params.items()},
+                "step_ms": time_texture_steps(tr, tex_frame, DENSE_SHARD_STEPS),
+            }
+            del tr
+        dist.barrier()  # rank 1 waits here while rank 0 runs the single-rank steps
+        out[mode] = res
+    ar = {}
+    for nbytes in sorted(set(out["compact"][True]["all_reduce"] + out["full canvas"][True]["all_reduce"])):
+        t = torch.zeros(nbytes // 4, dtype=torch.float32, device=DEVICE)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            real_all_reduce(t)
+        torch.cuda.synchronize()
+        ar[nbytes] = (time.perf_counter() - t0) / 3 * 1e3
+    return {"dense": out, "all_reduce_ms": ar}
+
+
+def rank_bake(rank, world, statics):
+    """Phase 10c on one rank: the sharded 8192^2 bake of phase 3's inputs
+    (``MULTI_BANDS[world]`` row bands) -> its digest, ms and launches."""
+    from topo4d_tpu_torch.pipeline.export import build_bake_binning
+    from topo4d_tpu_torch.texture.bake_tiled import bake_texture_sharded
+
+    nd = statics.dense.topo.dense_vertices.shape[0]
+    binning = build_bake_binning(statics, TEX_RES, DEVICE)
+    colors = torch.rand((nd, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(21))  # phase 3's
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        canvas = bake_texture_sharded(None, None, colors, TEX_RES, TEX_RES, bands=MULTI_BANDS[world],
+                                      binning=binning, device=DEVICE)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = read_counts()
+    return {"bake_digest": canvas_digest(canvas), "bake_ms": times, "bake_counts": counts}
+
+
+def task_pair(rank, world, args):
+    cfg, src, trainer, scene = build_main_path(**MULTI_MAIN_PATH)
+    params_np, statics = scene[3], trainer.statics
+    for t in range(1, FRAMES + 1):  # the targets, rendered here: the run's read-ahead launches nothing
+        src.frame(t)
+    out = rank_batched(rank, world, args, cfg, src, params_np, statics)
+    out.update(rank_dense(rank, world, cfg, src, params_np, statics))
+    out.update(rank_bake(rank, world, statics))
+    return out
+
+
+def task_bake(rank, world, args):
+    _, _, trainer, _ = build_main_path(**MULTI_MAIN_PATH)
+    return rank_bake(rank, world, trainer.statics)
+
+
+MULTI_TASKS = {"pair": task_pair, "bake": task_bake}
+
+
+def max_scaled_err(a, b) -> float:
+    """max |a - b| / max |b| over a leaf."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-8))
+
+
+def nccl_world_of_one(tr, images, cams):
+    """Phase 10d: one process, NCCL on ``cuda:0``; the sharded loss of the
+    24 views and its gradient, and one sharded step, against the unsharded
+    step's bit for bit (a one-rank all-reduce is the identity)."""
+    import torch.distributed as dist
+
+    from topo4d_tpu_torch.core.gaussian import activate_params
+    from topo4d_tpu_torch.parallel.batched import make_batched_geometry_step
+    from topo4d_tpu_torch.parallel.mesh import make_view_mesh
+    from topo4d_tpu_torch.parallel.sharded import local_view_sums, make_sharded_view_loss
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        backend = dist.get_backend()
+        mesh = make_view_mesh(1, device=DEVICE)
+        sharded = make_sharded_view_loss(tr.render_fn, mesh)
+        res = {}
+        for name in ("sharded", "unsharded"):
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in tr.state.params.items()}
+            rv = activate_params(params)
+            if name == "sharded":
+                loss, _, radii = sharded(params, rv, images, cams)
+            else:
+                photo, _, radii = local_view_sums(tr.render_fn, params, rv, images, cams)
+                loss = photo / torch.tensor(float(images.shape[0]), device=images.device)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            res[name] = (loss.detach(), radii, {k: g for k, g in zip(params, grads) if g is not None})
+        (ls, rs, gs), (lu, ru, gu) = res["sharded"], res["unsharded"]
+        if not (torch.equal(ls, lu) and torch.equal(rs, ru) and gs.keys() == gu.keys()
+                and all(torch.equal(gs[k], gu[k]) for k in gu)):
+            raise AssertionError(f"phase 10d: the sharded loss on a NCCL world of one differs from the unsharded: "
+                                 f"{float(ls)} vs {float(lu)}; grads " + ", ".join(
+                                     f"{k} {float((gs[k] - gu[k]).abs().max()):.2e}" for k in gu))
+        st = tr.statics
+        step = make_batched_geometry_step(st.quadruples, st.umbrellas, tr.render_fn, st.ring.indices.shape[0],
+                                          ring_indices=st.ring.indices, device=DEVICE, mesh=mesh)
+        args = (tr._constraints("track"), tr.lrs_for("track"), tr.weights_for("track"), "track")
+        states = []
+        for fn in (step, tr.batched_step):
+            state, priors = batched_state(tr, DEVICE)
+            states.append(fn(state, images, cams, priors, *args))
+        (s1, _, m1), (s2, _, m2) = states
+        if not (torch.equal(m1["loss_total"], m2["loss_total"]) and state_digest(s1) == state_digest(s2)):
+            raise AssertionError("phase 10d: a sharded step on a NCCL world of one differs from the unsharded step")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 10d: backend {backend}, one rank on cuda:0: the sharded loss of {images.shape[0]} views "
+        f"({float(ls):.6f}), its radii and the gradients of {len(gu)} leaves, and one sharded batched step, equal "
+        "to the unsharded step's bit for bit")
+
+
+def phase_multi(cfg, src, frames, batched, bake_inputs):
+    """Phase 10, several ranks on the one card (gloo; two processes share
+    ``cuda:0``, so no number here says anything of NCCL across cards): the
+    view-sharded batched run of 2 ranks with per-step bit identity, the
+    check of three sharded steps against three single-rank ones, resume and
+    mismatch, the orbax backend; tile-sharded dense steps against one
+    rank's; the sharded bake on 2 and 3 ranks against phase 3's canvas; a
+    NCCL world of one."""
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda
+
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    os.makedirs(MULTI_DIR)
+    tr = batched["trainer"]
+    views = src.num_views
+    images = torch.as_tensor(frames[FRAMES][0].images, device=DEVICE)
+    ref = {"state": to_device(tr.state, "cpu"), "priors": to_device(tr.priors, "cpu"),
+           "first_frame_attrs": tr.first_frame_attrs, "images": images.cpu(), "lr": tr.lrs_for("track"),
+           "weights": tr.weights_for("track")}
+    check_path = os.path.join(MULTI_DIR, "check_state.pt")
+    torch.save(ref, check_path)
+    cons = tr._constraints("track")
+
+    def single_turn():
+        state, priors = batched_state(tr, DEVICE)
+        return timed_steps(tr.batched_step, MULTI_CHECK_STEPS, state, priors, images, src.cameras, cons,
+                           ref["lr"], ref["weights"], "track")
+
+    single = [single_turn()]
+    binning = bake_inputs[0]
+    nd = tr.statics.dense.topo.dense_vertices.shape[0]
+    colors = torch.rand((nd, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(21))
+    want_bake = canvas_digest(bake_canvas_cuda(binning, colors, TEX_RES, TEX_RES))
+    del colors
+    torch.cuda.empty_cache()
+
+    pair = spawn_world(2, "pair", {"check_state": check_path})
+    single.append(single_turn())
+    trio = spawn_world(3, "bake", {})
+    for r, rep in enumerate(pair + trio):
+        log(f"phase 10 rank report: backend {rep['backend']}, device {rep['device']}")
+
+    # 10a: the view-sharded run
+    total = sum(pair[0]["steps"])
+    for r, rep in enumerate(pair):
+        check_counts(rep["run_counts"], f"phase 10a rank {r}", {
+            "tile_blend_fwd": rep["local_views"] * total, "tile_blend_bwd": rep["local_views"] * total,
+            "gauss_blur": 2 * rep["local_views"] * total, "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0,
+            "uv_bake": 0, "tile_blend_plain": 0, "gauss_blur_plain": 0, "uv_bake_plain": 0,
+        })
+        if rep["local_views"] != views // 2 or len(rep["digests"]) != total:
+            raise AssertionError(f"phase 10a rank {r}: {rep['local_views']} views, {len(rep['digests'])} steps")
+        for part in rep["run_parts"]:
+            check_rows(part["rows"])
+    if pair[0]["digests"] != pair[1]["digests"]:
+        first = next(i for i, (a, b) in enumerate(zip(pair[0]["digests"], pair[1]["digests"])) if a != b)
+        raise AssertionError(f"phase 10a: the ranks' parameters or Adam state differ after step {first}")
+    tracked = [p["rows"] for p in pair[0]["run_parts"] if p["frame"] > 0][-1]
+    if not tracked[-1]["loss_total"] < tracked[0]["loss_total"]:
+        raise AssertionError(f"phase 10a: the tracked frame's loss did not fall: {tracked[0]} -> {tracked[-1]}")
+    out_tree = os.path.join(MULTI_DIR, "run", cfg.data.exp, cfg.data.seq)
+    for f in ("resume.pkl", "params.npz", "metrics.jsonl", "timings.json", "loss.json", "000001/face.obj",
+              "000002/face.obj"):
+        if not os.path.exists(os.path.join(out_tree, f)):
+            raise AssertionError(f"phase 10a: rank 0 did not write {f}")
+    for d in ("rank1_run", "elsewhere"):
+        if os.path.exists(os.path.join(MULTI_DIR, d)):
+            raise AssertionError(f"phase 10a: rank 1 created {d}/")
+    geo = pair[0]["run_parts"][-1]
+    nb = pair[0]["steps"][-1]
+    log(
+        f"phase 10a: view-sharded Trainer.run, 2 ranks x {views // 2} views on cuda:0 (gloo), {FRAMES} frames, "
+        f"{total} batched steps: {pair[0]['run_wall']:.3f} s (each step's state read back for its digest); "
+        f"tracked frame {geo['wall']:.3f} s, {geo['wall'] / nb * 1e3:.3f} ms per batched step (phase 8, one rank: "
+        f"{batched['ms_per_step']:.3f}); loss {tracked[0]['loss_total']:.6f} -> {tracked[-1]['loss_total']:.6f}; "
+        f"parameters, Adam moments and radii equal on both ranks after each of the {total} steps; launches per rank "
+        f"{pair[0]['run_counts']}; rank 0 alone wrote {out_tree}"
+    )
+    # 10a: three sharded steps against three single-rank steps, from one state
+    ls, ps, _, _ = pair[0]["check"][0]
+    lu, pu, _, _ = single[0]
+    np.testing.assert_allclose(np.array(ls), np.array(lu), rtol=1e-4)
+    for r in range(2):
+        if pair[r]["check"][0][3] != pair[0]["check"][0][3] or pair[r]["check"][1][3] != pair[0]["check"][0][3]:
+            raise AssertionError(f"phase 10a: rank {r}'s check steps differ from rank 0's")
+    lr = ref["lr"]
+    worst = [assert_leaf_close(k, ps[k], pu[k], 2 * lr[k] * MULTI_CHECK_STEPS) for k in pu]
+    scaled = {k: max_scaled_err(ps[k], pu[k]) for k in pu}
+    turns = {"single": [single[0][2], single[1][2]], "sharded": [pair[0]["check"][0][2], pair[0]["check"][1][2]]}
+    log(
+        f"phase 10a: {MULTI_CHECK_STEPS} sharded track steps against one rank's (fresh binnings both): loss rel err "
+        f"{float(np.max(np.abs(np.array(ls) - np.array(lu)) / np.abs(np.array(lu)))):.2e}; " + "; ".join(worst)
+        + "; max-scaled errors " + ", ".join(f"{k} {v:.2e}" for k, v in scaled.items())
+        + f" (within rtol 1e-4 / atol 1e-6: {all(v <= 1e-6 + 1e-4 for v in scaled.values())})"
+        + "; ms per batched step in turns: single " + ", ".join(f"{x:.3f}" for x in turns["single"])
+        + ", 2 ranks " + ", ".join(f"{x:.3f}" for x in turns["sharded"])
+    )
+
+    # 10e: resume, mismatch, orbax
+    for r, rep in enumerate(pair):
+        if any(rep["resume_counts"].values()) or not rep["resume_equal"]:
+            raise AssertionError(f"phase 10e rank {r}: the resumed run launched {rep['resume_counts']}")
+        if "resume checkpoint mismatch" not in rep["mismatch"] or "shared filesystem" not in rep["mismatch"]:
+            raise AssertionError(f"phase 10e rank {r}: a mismatched output_dir gave {rep['mismatch']!r}")
+    if not pair[0]["orbax_equal"]:
+        raise AssertionError("phase 10e: the orbax backend did not round-trip the state on the card")
+    log(f"phase 10e: a 2-rank run(resume=True) launched nothing; a rank on another output_dir made both raise "
+        f"({pair[1]['mismatch'][:120]}...); the orbax backend round-tripped the run's state on rank 0")
+
+    # 10b: tile-sharded dense steps
+    dense = {}
+    for mode in ("compact", "full canvas"):
+        sh, one = pair[0]["dense"][mode][True], pair[0]["dense"][mode][False]
+        evals = sum("tex_psnr_fixed" in r for r in sh["rows"])
+        for r, rep in enumerate(pair):
+            check_counts(rep["dense"][mode][True]["counts"], f"phase 10b {mode} rank {r}", {
+                "tile_blend_fwd": DENSE_SHARD_STEPS + evals, "tile_blend_bwd": DENSE_SHARD_STEPS,
+                "gauss_blur": 2 * DENSE_SHARD_STEPS, "tile_blend_plain": 0, "gauss_blur_plain": 0,
+            })
+            if not all(torch.equal(rep["dense"][mode][True]["params"][k], sh["params"][k]) for k in sh["params"]):
+                raise AssertionError(f"phase 10b {mode}: rank {r}'s dense parameters differ from rank 0's")
+        if len(sh["rows"]) != len(one["rows"]) or any(a != b for a, b in zip(sh["rows"], one["rows"])):
+            raise AssertionError(f"phase 10b {mode}: tile-sharded rows differ from one rank's: {sh['rows']} vs "
+                                 f"{one['rows']}")
+        if not all(torch.equal(sh["params"][k], one["params"][k]) for k in one["params"]):
+            raise AssertionError(f"phase 10b {mode}: tile-sharded dense parameters differ from one rank's")
+        dense[mode] = {"sharded_ms": sh["step_ms"], "single_ms": one["step_ms"], "bytes": sh["all_reduce"],
+                       "counts": sh["counts"]}
+        log(
+            f"phase 10b {mode}: {DENSE_SHARD_STEPS} tile-sharded dense steps at {FULL_W}x{FULL_H} on 2 ranks (and "
+            f"{evals} eval renders) equal one rank's in every row and parameter; launches per rank {sh['counts']}; "
+            f"all-reduces {len(sh['all_reduce'])} (one per render, one per backward), bytes "
+            + ", ".join(str(b) for b in sorted(set(sh["all_reduce"])))
+            + f"; ms per dense step: 2 ranks {sh['step_ms']:.3f}, one rank {one['step_ms']:.3f}; fit wall 2 ranks "
+            f"{sh['wall']:.3f} s, one rank {one['wall']:.3f} s"
+        )
+    log("phase 10b: all-reduce alone on cuda:0 over gloo (2 ranks), ms: "
+        + ", ".join(f"{b} B {ms:.3f}" for b, ms in sorted(pair[0]["all_reduce_ms"].items())))
+
+    # 10c: the sharded bake
+    for rep in pair + trio:
+        if rep["bake_digest"] != want_bake:
+            raise AssertionError("phase 10c: a sharded bake differs from phase 3's single-rank K6 canvas")
+        check_counts(rep["bake_counts"], "phase 10c", {"uv_bake": 1, "uv_bake_plain": 0})
+    log(
+        f"phase 10c: the sharded {TEX_RES}x{TEX_RES} bake on 2 ranks ({MULTI_BANDS[2]} bands) and 3 ranks "
+        f"({MULTI_BANDS[3]} bands) equals phase 3's K6 canvas bit for bit on every rank; ms (second call) "
+        f"2 ranks {pair[0]['bake_ms'][1]:.3f}, 3 ranks {trio[0]['bake_ms'][1]:.3f}; K6 once per rank"
+    )
+
+    nccl_world_of_one(tr, images, src.cameras)
+
+    def launches(reps, key):
+        return {k: sum(rep[key][k] for rep in reps) for k in reps[0][key]}
+
+    out = {
+        "view_sharded": launches(pair, "run_counts"),
+        "tile_sharded": {k: sum(rep["dense"][m][True]["counts"][k] for rep in pair for m in rep["dense"])
+                         for k in pair[0]["run_counts"]},
+        "bake": launches(pair + trio, "bake_counts"),
+        "turns_ms": {k: float(np.mean(v)) for k, v in turns.items()}, "dense": dense,
+        "all_reduce_ms": pair[0]["all_reduce_ms"], "bake_ms": {2: pair[0]["bake_ms"][1], 3: trio[0]["bake_ms"][1]},
+        "tracked_ms_per_step": geo["wall"] / nb * 1e3,
+    }
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    return out
+
+
+def kernel_rows(run, batched, fused, v3, cli, multi, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
     bake), the geometry shapes' numbers beside them; launches over each
     path's run with the counts set to 0 just before it: the parity
     ``Trainer.run`` (K1/K2, K5, K6), by part, the batched one and the CLI's
-    (``launches_cli``, and by part); K4's over the v3 path (the first v3 run
-    of its geometry and dense steps)."""
+    (``launches_cli``, and by part), phase 10's over its ranks
+    (``launches_multi_rank``); K4's over the v3 path (the first v3 run of
+    its geometry and dense steps)."""
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
     by_part.update({f"batched geometry frame {p['frame']}": p["counts"] for p in batched["parts"]})
     by_part.update({f"fused batched geometry frame {p['frame']}": p["counts"] for p in fused["parts"]})
     by_part.update({f"cli {p['kind']} frame {p['frame']}": p["counts"] for p in cli["parts"]})
+    by_part.update({
+        "phase 10 view-sharded run, 2 ranks": multi["view_sharded"],
+        "phase 10 tile-sharded dense steps, 2 ranks": multi["tile_sharded"],
+        "phase 10 sharded bake, 2 and 3 ranks": multi["bake"],
+    })
+    multi_total = {k: sum(multi[p].get(k, 0) for p in ("view_sharded", "tile_sharded", "bake"))
+                   for k in counts}
 
     def by_path(name):
         return {part: c[name] for part, c in by_part.items()}
@@ -2499,7 +3079,10 @@ def kernel_rows(run, batched, fused, v3, cli, errs, geo_timing, blend4k, blur, b
     rows.append({
         "name": "uv_bake", "route": "cuda", "source": "topo4d_tpu_torch/csrc/bake.cu",
         "replaces": "topo4d_tpu/texture/bake_pallas.py:216",
-        "launches": counts["uv_bake"], "launches_by_path": {"export": counts["uv_bake"], "cli export": cli["counts"]["uv_bake"]},
+        "launches": counts["uv_bake"], "launches_by_path": {
+            "export": counts["uv_bake"], "cli export": cli["counts"]["uv_bake"],
+            "phase 10 sharded bake, 2 and 3 ranks": multi["bake"]["uv_bake"],
+        },
         "launches_cli": cli["counts"]["uv_bake"],
         "max_abs_err": errs["bake"], "ms": bake["ms"], "plain_ms": bake["plain_ms"], "bound_ms": bake["bound_ms"],
         "bound_by": bake["bound_by"], "library_ms": None, "shape": [TEX_RES, TEX_RES, 3],
@@ -2507,6 +3090,8 @@ def kernel_rows(run, batched, fused, v3, cli, errs, geo_timing, blend4k, blur, b
         "entries_per_tile": {"max": bake["cull"]["entries_per_tile_max"], "mean": bake["cull"]["entries_per_tile_mean"]},
         "refs": bake["refs"], "redesigned": True,
     })
+    for row in rows:
+        row["launches_multi_rank"] = multi_total[row["name"]]
     return rows
 
 
@@ -2576,6 +3161,7 @@ def main() -> int:
     batched = phase_batched(cfg, src, trainer, scene, frames)
     fused = phase_fused(cfg, src, trainer, scene, frames, batched)
     cli = phase_cli(run)
+    multi = phase_multi(cfg, src, frames, batched, bake_inputs)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
@@ -2593,7 +3179,8 @@ def main() -> int:
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, errs, geo_timing, blend4k, blur, bake)}))
+    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, multi, errs, geo_timing, blend4k, blur,
+                                             bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

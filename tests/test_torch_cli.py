@@ -139,8 +139,6 @@ def test_config_keys_the_port_lacks():
     for path, value, err in [
         (("raster", "interpret"), True, ValueError),
         (("texture", "bake_backend"), "xla", ValueError),
-        (("texture", "tile_shard"), True, ValueError),
-        (("data", "checkpoint_backend"), "orbax", NotImplementedError),
         (("neighbor_weight_k",), 1000.0, ValueError),
         (("data", "max_cams"), 12, ValueError),
         (("schedule", "no_such_key"), 1, ValueError),
@@ -153,6 +151,12 @@ def test_config_keys_the_port_lacks():
         with pytest.raises(err, match=path[-1]):
             Config.from_json(json.dumps(bad))
     assert Config.from_json(json.dumps(raw)) == Config()
+    # the multi-rank keys load at any value: tile sharding and the orbax
+    # resume backend are ported
+    for path, value in ((("texture", "tile_shard"), True), (("data", "checkpoint_backend"), "orbax")):
+        good = json.loads(json.dumps(raw))
+        good[path[0]][path[1]] = value
+        assert getattr(getattr(Config.from_json(json.dumps(good)), path[0]), path[1]) == value
     # the Pallas blend's entry window changes no result: any value loads
     raw["raster"]["chunk"] = 64
     assert Config.from_json(json.dumps(raw)) == Config()

@@ -2,8 +2,9 @@
 geometry tracking, the dense texture phase, the per-frame export through
 ``Trainer.run``, and the command line (``python -m topo4d_tpu_torch``) on a
 capture in the reference's disk layout, with its face-parsing masks,
-progress renders and the tiled and oracle renderers. Multi-GPU is not
-ported yet.
+progress renders and the tiled and oracle renderers; on several cards
+(``torchrun --nproc_per_node=N -m topo4d_tpu_torch``) the batched steps
+shard their views and the dense renders their tiles over the ranks.
 
 The JAX package beside this one is the reference; this package mirrors its
 layout (``core/``, ``rasterizer/``, ``losses/``, ``opt/``, ``parallel/``,

@@ -12,6 +12,13 @@ kernels on the card, their plain versions under ``--device cpu``;
 One flag is added, ``--device {cuda,cpu}`` (default cuda, which raises
 without a card). ``--interpret`` (Pallas's interpreter) raises: the CPU run
 is ``--device cpu``.
+
+On N cards: ``torchrun --nproc_per_node=N -m topo4d_tpu_torch ...``, or
+the JAX launch variables
+(``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) in
+each process (``parallel/multihost.py``). Each rank runs on
+``cuda:<LOCAL_RANK>`` over NCCL (``--device cpu``: gloo); rank 0 alone
+writes.
 """
 
 from __future__ import annotations
@@ -128,9 +135,12 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
 
-    from topo4d_tpu_torch.device import resolve_device
+    # several processes: join the process group before the output
+    # directory is touched, each rank on its card (a no-op otherwise)
+    from topo4d_tpu_torch.parallel.multihost import initialize_multihost, is_host0, rank_device
 
-    device = resolve_device(args.device)
+    initialize_multihost(device=args.device)
+    device = rank_device(args.device)
     out_dir = os.path.join(cfg.data.output_dir, cfg.data.exp, cfg.data.seq)
     if os.path.exists(out_dir) and args.no_resume:
         print(
@@ -160,9 +170,9 @@ def main(argv=None):
         mesh, regions, cfg, vertex_colors=vertex_colors, trans_g=source.trans_g, num_views=source.num_views,
     )
     trainer = Trainer(cfg, source, params, statics, device=device)
-    # the effective config beside the outputs
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
+    if is_host0():  # the effective config beside the outputs
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
     trainer.run(resume=not args.no_resume)
     return trainer

@@ -181,6 +181,9 @@ class DataConfig:
     use_mask_dense: bool = False
     startup_mesh: str = "face_v5.obj"
     regions_pkl: str = "assets/facial_regions.pkl"
+    # the resume checkpoint: "pickle" (resume.pkl and its snapshot stream)
+    # or "orbax" (a torch.distributed.checkpoint directory, resume_orbax/)
+    checkpoint_backend: str = "pickle"
     rotate_mask: Dict[str, int] = dataclasses.field(default_factory=lambda: dict(DEFAULT_ROTATE_MASK))
     blacklist: List[str] = dataclasses.field(default_factory=list)
     cmap_index: Dict[str, int] = dataclasses.field(default_factory=lambda: dict(DEFAULT_CMAP_INDEX))
@@ -198,6 +201,10 @@ class TextureConfig:
     # frozen per-view binning: 0 = once per (frame, view), the only
     # cadence ported (dense means3D are fixed within a frame)
     rebin_freq: int = 0
+    # shard each dense render's tile axis over the ranks of a multi-process
+    # run (the dense phase renders one view per step, where the view mesh
+    # cannot help); a single process ignores it
+    tile_shard: bool = False
     # non-empty tiles a dense render blends: -1 = auto (the frame's
     # occupancy x 1.2, rounded up, never shrinking), 0 = off (full canvas),
     # > 0 = manual (tiles past it dropped and counted in num_overflow)
@@ -235,8 +242,7 @@ class Config:
         """A config from the JSON of ``to_json`` or of the JAX package's
         ``Config.to_json``. Missing keys keep their defaults. A key the port
         has no field for raises ``ValueError`` naming it, unless it holds the
-        JAX default of ``JAX_ONLY_DEFAULTS``; ``data.checkpoint_backend``
-        "orbax" raises ``NotImplementedError``."""
+        JAX default of ``JAX_ONLY_DEFAULTS``."""
         raw = dict(json.loads(text))
         sections = {f.name: f for f in dataclasses.fields(cls)}
         kwargs = {}
@@ -273,26 +279,22 @@ ANY = object()
 # the value for which the port's behaviour is the JAX package's: the Pallas
 # interpreter off, any entry window of the Pallas blend (it changes no
 # result), the bake knobs (one bake here), the photometric loss without
-# remat, no tile sharding, the pickle checkpoints, the one-ring weight
-# sharpness the port computes with, the 24-camera cap of scenes built
-# without a view count (the port always passes the source's).
+# remat, the one-ring weight sharpness the port computes with, the
+# 24-camera cap of scenes built without a view count (the port always
+# passes the source's).
 JAX_ONLY_DEFAULTS = {
     "raster.interpret": False,
     "raster.chunk": ANY,
     "texture.bake_window": 16,
     "texture.bake_bands": 8,
     "texture.bake_backend": "auto",
-    "texture.tile_shard": False,
     "texture.remat_photometric": False,
-    "data.checkpoint_backend": "pickle",
     "neighbor_weight_k": 2000.0,
     "data.max_cams": 24,
 }
 
 
 def _accept_jax_only(key: str, value) -> None:
-    if key == "data.checkpoint_backend" and value == "orbax":
-        raise NotImplementedError("data.checkpoint_backend 'orbax' is not ported (it waits for multi-GPU)")
     if key not in JAX_ONLY_DEFAULTS:
         raise ValueError(f"config key {key!r} is not a field of topo4d_tpu_torch's Config")
     if JAX_ONLY_DEFAULTS[key] is not ANY and value != JAX_ONLY_DEFAULTS[key]:

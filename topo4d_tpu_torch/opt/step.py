@@ -153,6 +153,18 @@ def update_state(
     keys = list(params)
     g = torch.autograd.grad(total, [params[k] for k in keys], allow_unused=True)
     grads = {k: gk if gk is not None else torch.zeros_like(params[k]) for k, gk in zip(keys, g)}
+    return apply_gradients(state, grads, radii, constraints, lr)
+
+
+def apply_gradients(
+    state: TrainState,
+    grads: Dict[str, torch.Tensor],
+    radii: torch.Tensor,
+    constraints: Sequence[DenseConstraint],
+    lr: Dict[str, float],
+) -> TrainState:
+    """Adam on ``grads``, the constraint writes, and ``max_2d_radius``
+    raised where ``radii`` saw a Gaussian."""
     new_params, new_opt = adam_update(state.params, grads, state.opt, lr)
     new_params = apply_constraints(new_params, constraints)
     with torch.no_grad():

@@ -157,3 +157,114 @@ def write_loss_json(out_dir: str, losses_enabled: Dict, weights: Dict) -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(path, "w") as fh:
         json.dump([losses_enabled, weights], fh, indent=4)
+
+
+ORBAX_DIR = "resume_orbax"
+
+
+def _flatten(tree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """Leaves of a nest of dicts, lists and NamedTuples -> ``out[path]``
+    as CPU tensors; an empty dict or None adds nothing."""
+    if tree is None:
+        return
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}/{i}", out)
+    else:
+        x = tree.detach().cpu() if isinstance(tree, torch.Tensor) else torch.as_tensor(np.asarray(tree))
+        out[prefix] = x.contiguous()
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:
+    """``_flatten``'s paths -> nested dicts of NumPy arrays (a list's items
+    under their decimal indices)."""
+    root: Dict = {}
+    for path, x in flat.items():
+        node = root
+        keys = path.strip("/").split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = x.numpy()
+    return root
+
+
+def _as_list(d: Optional[Dict]) -> List:
+    return [] if not d else [d[k] for k in sorted(d, key=int)]
+
+
+def save_resume_orbax(
+    out_dir: str,
+    frame: int,
+    state,
+    priors,
+    first_frame_attrs: Optional[Dict],
+    output_params: List[Dict[str, np.ndarray]],
+    texture_state=None,
+) -> None:
+    """The resume payload of ``save_resume`` as a ``torch.distributed.checkpoint``
+    directory ``<out_dir>/resume_orbax`` (the "orbax" backend,
+    ``pipeline/checkpoint.py:149``): the snapshot history whole, every leaf
+    a tensor under its path. Host 0 saves alone, so the save enters no
+    collective (``no_dist``); it writes a sibling directory and renames it
+    into place."""
+    import shutil
+
+    import torch.distributed.checkpoint as dcp
+
+    flat: Dict[str, torch.Tensor] = {"frame": torch.tensor(frame, dtype=torch.int64)}
+    for name, tree in (("state", state), ("priors", priors), ("first_frame_attrs", first_frame_attrs),
+                       ("output_params", output_params), ("texture_state", texture_state)):
+        _flatten(tree, name, flat)
+    path = os.path.abspath(os.path.join(out_dir, ORBAX_DIR))
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    dcp.save(flat, storage_writer=dcp.FileSystemWriter(tmp, thread_count=1), no_dist=True)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def load_resume_orbax(out_dir: str):
+    """The payload ``save_resume_orbax`` wrote, its states rebuilt as
+    ``TrainState``, ``GeometryPriors`` and ``TextureState`` with NumPy
+    leaves, or None (``pipeline/checkpoint.py:172``). Reads only
+    checkpoints this package wrote."""
+    import torch.distributed.checkpoint as dcp
+
+    from topo4d_tpu_torch.losses.temporal import TemporalPriors
+    from topo4d_tpu_torch.opt.adam import AdamState
+    from topo4d_tpu_torch.opt.step import GeometryPriors, TrainState
+    from topo4d_tpu_torch.texture.dense import TextureState
+
+    path = os.path.abspath(os.path.join(out_dir, ORBAX_DIR))
+    if not os.path.isdir(path):
+        return None
+    reader = dcp.FileSystemReader(path)
+    flat = {
+        k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+        for k, m in reader.read_metadata().state_dict_metadata.items()
+    }
+    dcp.load(flat, storage_reader=reader, no_dist=True)
+    p = _unflatten(flat)
+
+    def adam(d):
+        return AdamState(step={k: int(v) for k, v in d["step"].items()}, mu=d["mu"], nu=d["nu"])
+
+    s = p["state"]
+    state = TrainState(params=s["params"], opt=adam(s["opt"]), max_2d_radius=s["max_2d_radius"])
+    pr = dict(p["priors"])
+    pr["temporal"] = TemporalPriors(**pr["temporal"])
+    tex = p.get("texture_state")
+    return {
+        "frame": int(p["frame"]),
+        "state": state,
+        "priors": GeometryPriors(**pr),
+        "first_frame_attrs": p.get("first_frame_attrs") or None,
+        "output_params": [dict(d) for d in _as_list(p.get("output_params"))],
+        "texture_state": TextureState(params=tex["params"], opt=adam(tex["opt"])) if tex else None,
+    }

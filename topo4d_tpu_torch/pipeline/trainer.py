@@ -27,8 +27,19 @@ under ``data.use_mask_dense``. At each geometry log row the views of
 ``data.log_views`` are rendered to ``<out>/%06d/vis<name>_<iter>.png``.
 ``raster.backend`` picks the renderer: "pallas" (the blend kernels on the
 card), "tiled" or "oracle" (plain PyTorch renderers; frozen binnings are
-pallas-only). The orbax checkpoint backend, multi-device meshes and
-multi-host resume are later slices.
+pallas-only). ``data.checkpoint_backend`` picks the resume checkpoint:
+"pickle" (``resume.pkl``) or "orbax" (a ``torch.distributed.checkpoint``
+directory).
+
+Several processes (``parallel/multihost.py``) run the same fit, each on its
+card: the batched mode shards each step's views over a view mesh of the
+ranks (no fused views, no segments: a fresh binning every step), the dense
+phase shards each render's tiles over the ranks under
+``texture.tile_shard``, and everything else runs replicated. Only rank 0
+(host 0) writes: the output directory, checkpoints, ``params.npz``,
+``loss.json``, exports, ``metrics.jsonl``, ``timings.json`` and progress
+renders. A resume reads the checkpoint on every rank and checks that all
+read rank 0's frame.
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ from topo4d_tpu_torch.opt.step import (
     make_geometry_step,
 )
 from topo4d_tpu_torch.parallel.batched import make_batched_geometry_multi_step, make_batched_geometry_step
+from topo4d_tpu_torch.parallel.mesh import make_view_mesh, mesh_size, shard_view_batch
+from topo4d_tpu_torch.parallel.multihost import is_host0, process_count, process_index
 from topo4d_tpu_torch.pipeline import checkpoint as ckpt
 from topo4d_tpu_torch.pipeline.data import frame_tensor, view_order
 from topo4d_tpu_torch.pipeline.export import build_bake_binning, save_mesh
@@ -75,6 +88,7 @@ from topo4d_tpu_torch.rasterizer.render import (
     binning_for,
     render_gaussians,
     render_gaussians_multiview,
+    render_gaussians_tile_sharded,
 )
 from topo4d_tpu_torch.rasterizer.tiles import Binning
 from topo4d_tpu_torch.texture.dense import (
@@ -132,11 +146,18 @@ def make_dense_render_fn(cfg: Config, device):
     """Dense-loop renderer ``(rv, cam, binning)``: a manual
     ``texture.tile_capacity`` (> 0) rides every render; the auto capacity
     (-1) rides the compact list the trainer attaches to each frozen
-    binning. Backends other than pallas take no binning (``:140-160``)."""
+    binning. Backends other than pallas take no binning (``:140-160``).
+    Under ``texture.tile_shard`` with more than one rank, each render's
+    tiles shard over all ranks (the frozen binning's compact list, when it
+    has one)."""
     if cfg.raster.backend != "pallas":
         base = make_render_fn(cfg, device)
         return lambda rv, cam, binning: base(rv, cam)
     bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=device)
+    if cfg.texture.tile_shard and process_count() > 1:
+        return lambda rv, cam, binning: render_gaussians_tile_sharded(
+            rv, cam, bg=bg, max_span=cfg.raster.max_span, binning=binning
+        )
     cap = cfg.texture.tile_capacity if cfg.texture.tile_capacity > 0 else None
     return lambda rv, cam, binning: render_gaussians(
         rv, cam, bg=bg, max_span=cfg.raster.max_span, binning=binning, tile_capacity=cap
@@ -173,21 +194,27 @@ class Trainer:
         self.multi_step = None
         if sched.views_per_step == 1 and sched.use_scan:
             self.multi_step = make_geometry_multi_step(*geo, ring_indices=ring, **frozen, device=dev)
+        # several ranks, batched mode: each renders its block of the views;
+        # the view axis divides evenly (``pipeline/trainer.py:206-218``)
+        self.mesh = None
+        if sched.views_per_step == 0 and process_count() > 1:
+            size = mesh_size(source.num_views, process_count())
+            self.mesh = make_view_mesh(size, device=dev) if size > 1 else None
         # single card, pallas backend: all views of a batched step in one K1
         # and one K2 launch on a tall canvas (``pipeline/trainer.py:235-253``);
         # then no batched multi-step, so every step bins afresh
         multiview_fn = None
-        if sched.fuse_views and cfg.raster.backend == "pallas":
+        if sched.fuse_views and cfg.raster.backend == "pallas" and self.mesh is None:
             bg = torch.as_tensor(cfg.raster.bg, dtype=torch.float32, device=dev)
 
             def multiview_fn(rv, cams):
                 return render_gaussians_multiview(rv, cams, bg=bg, max_span=cfg.raster.max_span)
 
         self.batched_step = make_batched_geometry_step(
-            *geo, ring_indices=ring, device=dev, multiview_render_fn=multiview_fn
+            *geo, ring_indices=ring, device=dev, multiview_render_fn=multiview_fn, mesh=self.mesh
         )
         self.batched_multi_step = None
-        if sched.views_per_step == 0 and sched.use_scan and multiview_fn is None:
+        if sched.views_per_step == 0 and sched.use_scan and multiview_fn is None and self.mesh is None:
             self.batched_multi_step = make_batched_geometry_multi_step(*geo, ring_indices=ring, **frozen, device=dev)
         self.params0 = {k: np.asarray(v, np.float32) for k, v in params_np.items()}
         params = {k: torch.as_tensor(v, device=dev) for k, v in self.params0.items()}
@@ -283,8 +310,8 @@ class Trainer:
 
         weights = self.weights_for(step_phase)
 
-        def report(i):  # the single process is host 0
-            if cfg.data.log_views:
+        def report(i):  # host 0 alone writes
+            if cfg.data.log_views and is_host0():
                 report_progress(
                     self.state.params, self.render_fn, cams, images, frame_data.view_names, cfg.data.log_views,
                     self._out_dir, t + 1, i,
@@ -389,9 +416,13 @@ class Trainer:
         return nb, log_every, attrs
 
     def _fit_batched(self, t, images, cams, step_phase, weights, report) -> Dict[str, float]:
-        """All views per step (``pipeline/trainer.py:405-482``)."""
+        """All views per step (``pipeline/trainer.py:405-482``); under a
+        view mesh each rank steps on its block of the views
+        (``:413-417``)."""
         nb, _, attrs = self.batched_schedule(t, images.shape[0])
         self._last_geo_renders = nb * images.shape[0]  # every batched step renders all views
+        if self.mesh is not None:
+            images, cams = shard_view_batch(self.mesh, images), shard_view_batch(self.mesh, cams)
 
         def run_segment(i, j, constraints, lr):
             self.state, self.priors, _ = self.batched_multi_step(
@@ -550,15 +581,25 @@ class Trainer:
         while frame ``t + 1`` fits (``schedule.async_export``; at most one
         frame's IO in flight, its failure raised at the next frame). Writes
         ``metrics.jsonl`` and ``timings.json`` every frame and ``params.npz``
-        at the end. A single process: it is the only host.
+        at the end. With several processes every rank fits and rank 0
+        alone writes (``pipeline/trainer.py:831``); a resume needs the
+        output directory on a file system every rank reads
+        (``_synced_resume``), and the ranks meet at the end, once rank 0's
+        files are written.
         """
         cfg = self.cfg
-        os.makedirs(self._out_dir, exist_ok=True)
+        io = is_host0()
+        if io:
+            os.makedirs(self._out_dir, exist_ok=True)
+        orbax = cfg.data.checkpoint_backend == "orbax"
+        if cfg.data.checkpoint_backend not in ("pickle", "orbax"):
+            raise ValueError(f"unknown data.checkpoint_backend {cfg.data.checkpoint_backend!r}")
+        save_resume = ckpt.save_resume_orbax if orbax else ckpt.save_resume
         start_frame = 0
         if resume:
-            payload = ckpt.load_resume(self._out_dir)
+            payload = self._synced_resume(ckpt.load_resume_orbax if orbax else ckpt.load_resume)
             if payload is not None:
-                start_frame = self._restore(payload)
+                start_frame = self._restore(payload, io)
         want_tex = cfg.texture.gen_tex and self.statics.dense is not None
 
         def load(t1):
@@ -598,7 +639,7 @@ class Trainer:
                 self.output_params.append(ckpt.params_snapshot(self.state.params, t == 0))
                 # snapshots on the card: the next frame's steps cannot reach them
                 job = self._make_io_job(
-                    t, state=ckpt.clone(self.state), priors=ckpt.clone(self.priors),
+                    t, io, save_resume, state=ckpt.clone(self.state), priors=ckpt.clone(self.priors),
                     first_frame_attrs=self.first_frame_attrs, output_params=list(self.output_params),
                     texture_state=ckpt.clone(self.texture_state),
                 )
@@ -615,15 +656,16 @@ class Trainer:
                     "mpix_per_s": geo["mpix_per_s"], "max_dmeans3d": geo["max_dmeans3d"],
                     "mean_dmeans3d": geo["mean_dmeans3d"],
                 })
-                self._write_metrics()
-                self.timer.write(os.path.join(self._out_dir, "timings.json"))
-                psnr_s = f" psnr {geo['psnr']:.2f}" if "psnr" in geo else ""
-                print(
-                    f"[topo4d_tpu_torch] frame {t + 1}/{cfg.schedule.frame_num} loss "
-                    f"{geo.get('loss_total', float('nan')):.5f}{psnr_s} ({geo['frame_seconds']:.1f}s, "
-                    f"{geo['mpix_per_s']:.2f} Mpix/s, max|dv| {geo['max_dmeans3d']:.2e})",
-                    flush=True,
-                )
+                if io:
+                    self._write_metrics()
+                    self.timer.write(os.path.join(self._out_dir, "timings.json"))
+                    psnr_s = f" psnr {geo['psnr']:.2f}" if "psnr" in geo else ""
+                    print(
+                        f"[topo4d_tpu_torch] frame {t + 1}/{cfg.schedule.frame_num} loss "
+                        f"{geo.get('loss_total', float('nan')):.5f}{psnr_s} ({geo['frame_seconds']:.1f}s, "
+                        f"{geo['mpix_per_s']:.2f} Mpix/s, max|dv| {geo['max_dmeans3d']:.2e})",
+                        flush=True,
+                    )
             if io_pending is not None:
                 io_pending.result()
                 io_pending = None
@@ -633,15 +675,42 @@ class Trainer:
             pool.shutdown(wait=True, cancel_futures=True)
             io_pool.shutdown(wait=True)
 
-        # the final params.npz whatever ckp_freq is
-        if self.output_params:
-            ckpt.save_params(self.output_params, self._out_dir)
-        # the last frame's IO may end after the loop's write
-        self.timer.write(os.path.join(self._out_dir, "timings.json"))
+        if io:
+            # the final params.npz whatever ckp_freq is
+            if self.output_params:
+                ckpt.save_params(self.output_params, self._out_dir)
+            # the last frame's IO may end after the loop's write
+            self.timer.write(os.path.join(self._out_dir, "timings.json"))
+        if process_count() > 1:
+            torch.distributed.barrier()  # rank 0's files are whole before any rank goes on
 
-    def _restore(self, payload) -> int:
-        """Restore the state a ``resume.pkl`` holds; reload the earlier
-        frames' metric rows and timings -> the frame to start from."""
+    def _synced_resume(self, load_resume):
+        """The resume payload, read by every rank (``pipeline/trainer.py:1083-1107``).
+
+        Rank 0 alone writes the checkpoint, so a multi-process resume needs
+        the output directory on a file system that every rank reads. The
+        ranks' frame indices meet in one ``all_reduce``; if any differs from
+        rank 0's, every rank raises, instead of running divergent frames."""
+        payload = load_resume(self._out_dir)
+        world = process_count()
+        if world > 1:
+            local = -1 if payload is None else int(payload["frame"])
+            frames = torch.zeros(world, dtype=torch.int64, device=self.device)
+            frames[process_index()] = local
+            torch.distributed.all_reduce(frames)
+            frames = frames.tolist()
+            if any(f != frames[0] for f in frames):
+                raise RuntimeError(
+                    f"resume checkpoint mismatch: host 0 is at frame {frames[0]} but the processes read {frames} "
+                    f"(-1: none; this is process {process_index()}); multi-host resume requires output_dir on "
+                    "a shared filesystem"
+                )
+        return payload
+
+    def _restore(self, payload, io: bool = True) -> int:
+        """Restore the state a resume payload holds; on host 0 (``io``)
+        reload the earlier frames' metric rows and timings -> the frame to
+        start from."""
         start_frame = payload["frame"]
         dev = self.device
         self.state = ckpt.to_torch(payload["state"], dev)
@@ -650,6 +719,8 @@ class Trainer:
         self.output_params = payload["output_params"]
         if payload["texture_state"] is not None:
             self.texture_state = ckpt.to_torch(payload["texture_state"], dev)
+        if not io:
+            return start_frame
         # metrics.jsonl and timings.json are rewritten whole every frame
         self.timer.load(os.path.join(self._out_dir, "timings.json"))
         mpath = os.path.join(self._out_dir, "metrics.jsonl")
@@ -664,22 +735,23 @@ class Trainer:
                         self.metrics_log.append(row)
         return start_frame
 
-    def _make_io_job(self, t, *, state, priors, first_frame_attrs, output_params, texture_state):
-        """Frame ``t``'s checkpoint and export as a closure over snapshots,
-        so that it can run on the IO worker while this thread fits frame
-        ``t + 1``."""
+    def _make_io_job(self, t, io, save_resume, *, state, priors, first_frame_attrs, output_params, texture_state):
+        """Frame ``t``'s checkpoint (through ``save_resume``) and export as a
+        closure over snapshots, so that it can run on the IO worker while
+        this thread fits frame ``t + 1``; off host 0 (``io`` false) it
+        writes nothing."""
         cfg = self.cfg
 
         def job():
+            if not io:
+                return
             with self.timer.phase("checkpoint"):
                 if t % cfg.schedule.ckp_freq == 0 and t != 0:
                     ckpt.save_params(output_params, self._out_dir)
                     ckpt.write_loss_json(
                         self._out_dir, {k: True for k in self.statics.quadruples}, cfg.weights.as_dict()
                     )
-                ckpt.save_resume(
-                    self._out_dir, t + 1, state, priors, first_frame_attrs, output_params, texture_state
-                )
+                save_resume(self._out_dir, t + 1, state, priors, first_frame_attrs, output_params, texture_state)
             with self.timer.phase("export"):
                 if self._bake_binning is None and cfg.texture.gen_tex and texture_state is not None:
                     # a sequence constant: the UV layout does not change

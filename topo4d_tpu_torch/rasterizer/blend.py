@@ -127,17 +127,19 @@ def _pixel_coords(tile_ids: torch.Tensor, tiles_x: int):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids=None):
+def tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids=None, m=None):
     """Per (row, pixel, entry) alphas with the CUDA skip rules -> ((R, 256, M), entries).
 
-    Each row's range padded to the rows' largest count M as a dense batch;
+    Each row's range padded to ``m`` entries (default: the rows' largest
+    count) as a dense batch;
     ``entries`` is the gathered (16, T, M) packed data (padding zeroed).
     The 0.99 clamp is straight-through in the backward
     (``reference.py:_alpha_at_pixels``).
     """
     t = tile_start.shape[0]
     dev = packed.device
-    m = max(int(tile_count.max()), 1) if t else 1
+    if m is None:
+        m = max(int(tile_count.max()), 1) if t else 1
     j = torch.arange(m, device=dev)
     valid = j[None, :] < tile_count[:, None].to(torch.int64)
     idx = torch.where(valid, tile_start[:, None].to(torch.int64) + j[None, :], 0)
@@ -207,20 +209,31 @@ def warp_block_cull_plain(packed, tile_start, tile_count, tiles_x: int, tile_ids
     return culled & valid[:, None, :]
 
 
-def _count_buckets(tile_count: torch.Tensor):
-    """Row indices grouped by entry count, each group's counts within
-    (2^(k-1), 2^k] (0 and 1 together), so that a group padded to its
-    largest count pads each row to at most twice its own."""
+def _bucket_keys(tile_count: torch.Tensor) -> torch.Tensor:
     c = tile_count.detach().cpu().to(torch.int64).clamp(min=1)
-    key = torch.ceil(torch.log2(c.to(torch.float64))).to(torch.int64)
+    return torch.ceil(torch.log2(c.to(torch.float64))).to(torch.int64)
+
+
+def _count_buckets(tile_count: torch.Tensor, bucket_counts=None):
+    """Row indices grouped by entry count, each group's counts within
+    (2^(k-1), 2^k] (0 and 1 together) -> [(rows, m)], the group padded to
+    m, its largest count, so each row to at most twice its own. With
+    ``bucket_counts`` (the counts of a larger set of rows that these rows
+    belong to), m is the largest count of the group's bucket in that set."""
+    key = _bucket_keys(tile_count)
+    ref = key if bucket_counts is None else _bucket_keys(bucket_counts)
+    ref_counts = (tile_count if bucket_counts is None else bucket_counts).detach().cpu().to(torch.int64).clamp(min=1)
+    m_of = torch.zeros(int(max(key.max(), ref.max())) + 1 if key.numel() else 1, dtype=torch.int64)
+    m_of.scatter_reduce_(0, ref, ref_counts, "amax")
     order = torch.argsort(key, stable=True)
     sizes = torch.bincount(key)
-    return [idx.to(tile_count.device) for idx in torch.split(order, sizes[sizes > 0].tolist())]
+    return [(idx.to(tile_count.device), int(m_of[k]))
+            for idx, k in zip(torch.split(order, sizes[sizes > 0].tolist()), torch.nonzero(sizes).flatten().tolist())]
 
 
-def _blend_rows(packed, tile_start, tile_count, tiles_x: int, tile_ids):
-    """The blend of the given rows, each padded to their largest count."""
-    alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids)
+def _blend_rows(packed, tile_start, tile_count, tiles_x: int, tile_ids, m: int):
+    """The blend of the given rows, each padded to ``m`` entries."""
+    alpha, ent = tile_alpha(packed, tile_start, tile_count, tiles_x, tile_ids, m)
     w, t_final = blend_weights(alpha)  # (R, 256, M), (R, 256)
     feat = ent[8:12].permute(1, 2, 0)  # (R, M, 4): r, g, b, depth
     acc = torch.matmul(w, feat).transpose(1, 2)  # (R, 4, 256)
@@ -231,22 +244,24 @@ def _blend_rows(packed, tile_start, tile_count, tiles_x: int, tile_ids):
     return torch.cat([acc, torch.stack([t_final, n_contrib, zeros, zeros], dim=1)], dim=1)
 
 
-def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
+def tile_blend_plain(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None, bucket_counts=None):
     """Plain PyTorch tile blend, differentiable by autograd -> (R, 8, 256).
 
     The one oracle of every blend kernel: K1/K2 and K4f/K4b share this
     contract (K4 differs only in the order blocks walk the entries). Rows
     are blended in groups of similar entry count (``_count_buckets``), each
     padded to its group's largest count, not to the canvas's: each row's
-    math is that of a lone row."""
+    math is that of a lone row. A caller that blends a block of a larger
+    set of rows passes the set's counts as ``bucket_counts``: each row then
+    pads as it would among them, and its sums run in the same order."""
     LAUNCHES["tile_blend_plain"] += 1
     rows = tile_start.shape[0]
     ids = torch.arange(rows, device=packed.device) if tile_ids is None else tile_ids
     if rows == 0:
         return packed.new_zeros((0, 8, PX))
-    groups = _count_buckets(tile_count)
-    parts = [_blend_rows(packed, tile_start[g], tile_count[g], tiles_x, ids[g]) for g in groups]
-    order = torch.cat(groups)
+    groups = _count_buckets(tile_count, bucket_counts)
+    parts = [_blend_rows(packed, tile_start[g], tile_count[g], tiles_x, ids[g], m) for g, m in groups]
+    order = torch.cat([g for g, _ in groups])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(rows, device=order.device)
     return torch.cat(parts)[inverse]
@@ -384,17 +399,20 @@ class _TileBlendCUDA(torch.autograd.Function):
 
 
 def tile_blend(
-    packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None, variant: str = "auto", tps=None
+    packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None, variant: str = "auto", tps=None,
+    bucket_counts=None,
 ):
     """Blend packed entries -> (R, 8, 256); kernels on CUDA, plain version on CPU.
 
     ``variant`` "v3" launches K4f/K4b with ``tps`` rows per block (None:
     ``tiles_per_step``); "auto", "resident" and "stream" launch K1/K2,
-    whose block is one tile, so they ignore ``tps``.
+    whose block is one tile, so they ignore ``tps``. ``bucket_counts``
+    reaches the plain version only (``tile_blend_plain``): a kernel's tile
+    math does not depend on the other rows.
     """
     check_variant(variant)
     if packed.device.type == "cpu":
-        return tile_blend_plain(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
+        return tile_blend_plain(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids, bucket_counts)
     if variant == "v3" and tps is None:
         tps = tiles_per_step(tile_start.shape[0])
     return _TileBlendCUDA.apply(

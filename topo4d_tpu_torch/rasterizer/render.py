@@ -19,9 +19,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from topo4d_tpu_torch.core.camera import Camera
 from topo4d_tpu_torch.core.gaussian import GaussianRenderVars, project_gaussians
+from topo4d_tpu_torch.parallel.mesh import AssembleRows, SumGradAcrossRanks
 from topo4d_tpu_torch.rasterizer.blend import PX, tile_blend
 from topo4d_tpu_torch.rasterizer.tiles import (
     TILE,
@@ -44,7 +46,7 @@ class RenderOutput(NamedTuple):
 
 
 class _ScatterTiles(torch.autograd.Function):
-    """Compact rows (R, 8, 256) -> the full (T, 8, 256) canvas.
+    """Compact rows (R, C >= 5, 256) -> the full (T, C, 256) canvas.
 
     Rows of global tile ids[r] < T are copied into a template whose other
     rows read T_final 1 (pure background, ``pallas.py:93``); padding rows
@@ -54,7 +56,7 @@ class _ScatterTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rows, ids, t: int):
-        template = rows.new_zeros((t + 1, 8, PX))
+        template = rows.new_zeros((t + 1,) + tuple(rows.shape[1:]))
         template[:, 4, :] = 1.0
         template.index_copy_(0, ids.long(), rows)
         ctx.save_for_backward(ids)
@@ -115,6 +117,12 @@ def render_gaussians(
         out = _ScatterTiles.apply(out_c, compact.ids, t)
     else:
         out = tile_blend(bins.packed, bins.tile_start, bins.tile_count, tiles_x, tiles_y, variant=variant, tps=tps)
+    return _composite(out, bg, tiles_x, tiles_y, width, height, proj.radii, bins.num_cropped, overflow)
+
+
+def _composite(out, bg, tiles_x: int, tiles_y: int, width: int, height: int, radii, num_cropped, overflow):
+    """Tile rows (T, C >= 5, 256) -> the view's RenderOutput: the
+    background composited, untiled and cropped."""
 
     def untile(x):
         """(T, C, 256) -> (C, H, W)."""
@@ -125,12 +133,70 @@ def render_gaussians(
 
     return RenderOutput(
         image=untile(out[:, 0:3, :] + out[:, 4:5, :] * bg[None, :, None]),
-        radii=proj.radii,
+        radii=radii,
         depth=untile(out[:, 3:4, :]),
         alpha=untile(1.0 - out[:, 4:5, :]),
-        num_cropped=bins.num_cropped,
+        num_cropped=num_cropped,
         num_overflow=overflow,
     )
+
+
+def render_gaussians_tile_sharded(
+    rv: GaussianRenderVars,
+    cam: Camera,
+    bg: Optional[torch.Tensor] = None,
+    max_span: int = 4,
+    binning: Optional[Binning] = None,
+    group=None,
+) -> RenderOutput:
+    """One view's render with its tiles sharded over the ranks of ``group``
+    (the default process group: every rank), the contract of
+    ``render_gaussians_pallas_tile_sharded`` (``pallas.py:335-470``).
+
+    Projection, binning and pack run replicated on every rank. Rank r
+    blends the contiguous block r of the tile rows through the blend
+    (K1/K2 on the card): on the full canvas tiles ``r * tl .. r * tl + tl -
+    1``, in compact mode (a frozen ``binning`` with a compact list) that
+    slice of the list, padded with the sentinel id T and count 0 to ``tl``
+    rows per rank. The blocks meet in an ``all_reduce`` (SUM) of
+    zero-filled buffers of rows 0-4; each row has one writer, so the sum is
+    exact. The backward blends the rank's own block (K2) and sums the
+    packed entries' cotangents over the ranks, which holds each entry's on
+    one rank. Forward and gradients equal the single render's in value.
+    """
+    dev = rv.means3d.device
+    if bg is None:
+        bg = torch.zeros(3, dtype=torch.float32, device=dev)
+    width, height = cam.width, cam.height
+    proj = project_gaussians(rv, cam)
+    if binning is None:
+        binning = compute_binning(proj.detach(), width, height, max_span)
+    bins = pack_with_binning(proj, rv.colors, rv.opacities, binning)
+    tiles_x, tiles_y = num_tiles(width, height)
+    t = tiles_x * tiles_y
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    compact = binning.compact
+    if compact is not None:
+        ids, starts, counts, overflow = compact.ids, compact.start, compact.count, compact.overflow
+    else:
+        ids = torch.arange(t, dtype=torch.int32, device=dev)
+        starts, counts = bins.tile_start, bins.tile_count
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    rows = ids.shape[0]
+    tl = -(-rows // world)  # rows per rank
+    pad = world * tl - rows
+    if pad:
+        ids = torch.cat([ids, torch.full((pad,), t, dtype=torch.int32, device=dev)])
+        starts = torch.cat([starts, torch.zeros(pad, dtype=torch.int32, device=dev)])
+        counts = torch.cat([counts, torch.zeros(pad, dtype=torch.int32, device=dev)])
+    block = slice(rank * tl, rank * tl + tl)
+    packed = SumGradAcrossRanks.apply(bins.packed, group)
+    local = tile_blend(packed, starts[block].contiguous(), counts[block].contiguous(), tiles_x, tiles_y,
+                       ids[block].contiguous(), bucket_counts=counts)
+    out = AssembleRows.apply(local[:, :5], rank * tl, world * tl, group)[:rows]
+    if compact is not None:
+        out = _ScatterTiles.apply(out, compact.ids, t)
+    return _composite(out, bg, tiles_x, tiles_y, width, height, proj.radii, bins.num_cropped, overflow)
 
 
 def render_gaussians_multiview(

@@ -35,6 +35,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from topo4d_tpu_torch import kernels
 from topo4d_tpu_torch.device import resolve_device
@@ -340,3 +341,56 @@ def bake_texture_tiled(
     if binning is None:
         binning = compute_bake_binning(uv_px, tris, height, width, device=dev)
     return bake_canvas(binning, torch.as_tensor(colors, dtype=torch.float32, device=dev), height, width)
+
+
+def band_binning(binning: BakeBinning, height: int, bands: int, band_ids) -> BakeBinning:
+    """The part of ``binning`` that row bands ``band_ids`` own: the occupied
+    tiles whose first pixel row falls in one of them (bands of ``ceil(height
+    / bands)`` rows, so each tile has one owner) and their entries, a
+    contiguous run since entries are sorted by tile. Its ``empty_ids`` are
+    every other tile of the canvas, which the bake writes as zeros."""
+    band_h = -(-height // bands)
+    tile_band = (binning.tile_ids // binning.tiles_x) * TILE // band_h
+    mine = torch.isin(tile_band, torch.as_tensor(list(band_ids), dtype=tile_band.dtype, device=tile_band.device))
+    tile_ids, start, count = binning.tile_ids[mine], binning.start[mine], binning.count[mine]
+    e0 = int(start[0]) if tile_ids.shape[0] else 0
+    e1 = int(start[-1] + count[-1]) if tile_ids.shape[0] else 0
+    every = torch.arange(binning.tiles_x * binning.tiles_y, dtype=torch.int32, device=tile_ids.device)
+    return BakeBinning(
+        geom=binning.geom[:, e0:e1].contiguous(), corner_idx=binning.corner_idx[:, e0:e1].contiguous(),
+        tile_ids=tile_ids.contiguous(), start=(start - e0).contiguous(), count=count.contiguous(),
+        empty_ids=every[~torch.isin(every, tile_ids)], tiles_x=binning.tiles_x, tiles_y=binning.tiles_y,
+    )
+
+
+def bake_texture_sharded(
+    uv_px: Optional[np.ndarray],
+    tris: Optional[np.ndarray],
+    colors,
+    height: int,
+    width: int,
+    bands: int = 8,
+    binning: Optional[BakeBinning] = None,
+    group=None,
+    device="cuda",
+) -> torch.Tensor:
+    """The bake with the canvas's row bands sharded over the ranks of
+    ``group`` (the default process group) -> the (H, W, 3) float32 canvas on
+    every rank, equal bit for bit to ``bake_texture_tiled``'s
+    (``texture/bake.py:252``).
+
+    ``bands`` row bands are padded with empty ones to a multiple of the
+    world size (``:283-291``); rank r takes the r-th contiguous run of them
+    and bakes the tiles they own through the bake (K6 on the card) on a
+    canvas that is zero elsewhere. One ``all_reduce`` (SUM) assembles the
+    canvases: each pixel has one writer, so the sum is exact."""
+    dev = resolve_device(device)
+    if binning is None:
+        binning = compute_bake_binning(uv_px, tris, height, width, device=dev)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    per = -(-bands // world)  # bands per rank, the last ones padding
+    mine = range(rank * per, min(rank * per + per, bands))
+    canvas = bake_canvas(band_binning(binning, height, bands, mine),
+                         torch.as_tensor(colors, dtype=torch.float32, device=dev), height, width)
+    dist.all_reduce(canvas, op=dist.ReduceOp.SUM, group=group)
+    return canvas
