@@ -134,7 +134,26 @@ order; any failure raises and exits non-zero:
       unsharded step's bit for bit;
    e. a 2-rank ``run(resume=True)`` that launches nothing, a rank on
       another ``output_dir`` that makes both raise, and the orbax backend's
-      round trip on rank 0 under the initialised group.
+      round trip on rank 0 under the initialised group;
+11. the rest of the pipeline's options and the entry points, from the
+   main path's fitted state:
+   a. the dense loop's modes at the 4K dense view, ten steps each through
+      ``fit_frame_texture`` in turns (scan mode at ``texture.rebin_freq`` 0
+      and 1, loop mode at 5): ms per step, the frozen binnings each built,
+      K1/K2 once per step (K1 once more per eval render) and K5 twice; then
+      phase 5's card-against-CPU check through ``fit_frame_texture`` (480x270,
+      density 1, three steps) at ``rebin_freq`` 1 and in loop mode at 2;
+   b. ten 4K dense steps with ``remat_photometric`` off and on from one
+      state, in turns: parameters and Adam moments equal bit for bit
+      (SHA-256), ms per step, peak device memory, K5 three times per step
+      under remat;
+   c. a one-frame ``Trainer.run`` (20 init, 11 dense steps) under
+      ``device_trace`` and the same run untraced: the trace parses, its
+      K1/K2/K5 kernel events equal the launch counters, its size;
+   d. ``entry("cuda")``'s loss against its plain version's (rtol 1e-5), K1
+      and K5 once per call;
+   e. ``dryrun_multichip(1, "cuda")``: a spawned NCCL world of one, every
+      loss finite.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2469,11 +2488,9 @@ MULTI_SETTINGS = ("DEVICE", "FULL_W", "FULL_H", "TEX_RES", "DENSITY", "INIT_ITER
 
 
 def free_port() -> int:
-    import socket
+    from topo4d_tpu_torch.parallel.multihost import free_port as port
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    return port()
 
 
 def spawn_world(world: int, task: str, args) -> list:
@@ -2528,14 +2545,16 @@ def multi_rank(rank: int, world: int, port: int, path: str, task: str, card: str
 
 
 def state_digest(state) -> str:
-    """SHA-256 of a train state's parameters, Adam moments, step counts and radii."""
+    """SHA-256 of a train or texture state's parameters, Adam moments, step
+    counts and (a train state's) radii."""
     import hashlib
 
     h = hashlib.sha256()
     for tree in (state.params, state.opt.mu, state.opt.nu):
         for k in sorted(tree):
             h.update(tree[k].detach().contiguous().cpu().numpy().tobytes())
-    h.update(state.max_2d_radius.cpu().numpy().tobytes())
+    if hasattr(state, "max_2d_radius"):
+        h.update(state.max_2d_radius.cpu().numpy().tobytes())
     h.update(json.dumps(state.opt.step, sort_keys=True).encode())
     return h.hexdigest()
 
@@ -3002,15 +3021,279 @@ def phase_multi(cfg, src, frames, batched, bake_inputs):
     return out
 
 
-def kernel_rows(run, batched, fused, v3, cli, multi, errs, geo_timing, blend4k, blur, bake):
+MODE_STEPS = 10  # dense steps per run of phase 11a and 11b
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_trace")
+
+
+def fit_mode(trainer, frame, mode, steps: int):
+    """``trainer.fit_frame_texture`` of a tracked frame on ``frame`` (its
+    images already on the card) with ``steps`` iterations under ``mode``'s
+    texture and schedule fields, from the trainer's texture state, which is
+    restored after -> (wall s, launch counts, metric rows, frozen binnings
+    built, their seconds: each timed to a synchronize)."""
+    import copy
+
+    cfg0, state0, rows0, cap0 = trainer.cfg, trainer.texture_state, len(trainer.metrics_log), trainer._auto_tile_cap
+    cfg = copy.deepcopy(cfg0)
+    cfg.schedule.dense_opt_num_tracked = steps
+    cfg.schedule.dense_log_freq = 1000  # one log row (iteration 0) and the terminal row
+    for section, fields in mode.items():
+        for k, v in fields.items():
+            setattr(getattr(cfg, section), k, v)
+    built = [0, 0.0]
+    fresh = trainer._fresh_dense_binning
+
+    def counted(v):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = fresh(v)
+        torch.cuda.synchronize()
+        built[0] += 1
+        built[1] += time.perf_counter() - t0
+        return b
+
+    trainer.cfg, trainer._fresh_dense_binning = cfg, counted
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        # the class's method: the main path's instrumented one would record this fit as a part of its run
+        type(trainer).fit_frame_texture(trainer, 1, frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, rows = read_counts(), trainer.metrics_log[rows0:]
+    finally:
+        trainer.cfg, trainer.texture_state, trainer._auto_tile_cap = cfg0, state0, cap0
+        del trainer._fresh_dense_binning
+        del trainer.metrics_log[rows0:]
+    return wall, counts, rows, built[0], built[1]
+
+
+def modes_card_vs_cpu(cfg, trainer, scene, steps: int = 3):
+    """Phase 11a's card-against-CPU check: ``fit_frame_texture`` of
+    ``steps`` iterations at 480x270 on a density-1 dense mesh of the head
+    grid, through a trainer on the card and one on the CPU, from the main
+    path's geometry and one set of targets, at ``texture.rebin_freq`` 1
+    (scan mode, fresh binnings) and in loop mode at 2: every row's loss at
+    rtol 1e-4, the colors within 2 lr steps, 99.9% within 1e-6."""
+    import copy
+
+    from topo4d_tpu_torch.core.gaussian import activate_params
+    from topo4d_tpu_torch.pipeline.data import FrameData, SyntheticSequence
+    from topo4d_tpu_torch.pipeline.scene import build_scene
+    from topo4d_tpu_torch.pipeline.trainer import Trainer
+    from topo4d_tpu_torch.rasterizer.render import render_gaussians
+    from topo4d_tpu_torch.testing import make_camera_ring
+
+    mesh, regions, gt_params, params_np = scene
+    cfg1 = copy.deepcopy(cfg)
+    cfg1.texture.density = 1
+    cfg1.schedule.dense_opt_num_tracked = steps
+    cfg1.schedule.dense_log_freq = 1
+    _, st1 = build_scene(mesh, regions, cfg1, num_views=24)
+    cams = make_camera_ring(24, width=480, height=270, distance=2.0, device=DEVICE)
+    with torch.no_grad():
+        rv_gt = activate_params({k: torch.as_tensor(v, device=DEVICE) for k, v in gt_params.items()})
+        targets = np.stack([render_gaussians(rv_gt, cams[v], max_span=4).image.cpu().numpy() for v in range(24)])
+    frame = FrameData(images=targets, masks=None, view_names=[f"view{i:02d}" for i in range(24)])
+    out = {}
+    for name, fields in (("rebin_freq 1", {"rebin_freq": 1}), ("loop mode, rebin_freq 2", {"rebin_freq": 2})):
+        cfg_m = copy.deepcopy(cfg1)
+        for k, v in fields.items():
+            setattr(cfg_m.texture, k, v)
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            cm = camera_to(cams, dev)
+            src = SyntheticSequence(params=gt_params, cameras=cm, num_frames=1, cameras_full=cm)
+            tr = Trainer(cfg_m, src, params_np, st1, device=dev)
+            tr.state = tr.state._replace(params={k: v.detach().to(dev) for k, v in trainer.state.params.items()})
+            tr.fit_frame_texture(1, frame)
+            runs[dev] = (tr.metrics_log, tr.texture_state.params["dense_rgb_colors"].cpu())
+        rows_c, rows_g = runs["cpu"][0], runs[DEVICE][0]
+        if len(rows_c) != len(rows_g):
+            raise AssertionError(f"phase 11a {name}: {len(rows_g)} rows on the card, {len(rows_c)} on the CPU")
+        lc = np.array([r["tex_loss_total"] for r in rows_c if "tex_loss_total" in r])
+        lg = np.array([r["tex_loss_total"] for r in rows_g if "tex_loss_total" in r])
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+        msg = assert_leaf_close("dense_rgb_colors", runs[DEVICE][1], runs["cpu"][1],
+                                2 * cfg.lrs.dense["dense_rgb_colors"] * steps)
+        out[name] = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+        log(f"phase 11a card vs CPU, {name}: {steps} texture steps at 480x270 through fit_frame_texture, loss rel "
+            f"err {out[name]:.2e}; {msg}")
+    return out
+
+
+def phase_modes(cfg, src, trainer, scene, frames):
+    """Phase 11: the dense-loop modes, remat, the profiler trace and the
+    entry points, from the main path's fitted state."""
+    import copy
+
+    from topo4d_tpu_torch.entry import dryrun_multichip, entry
+    from topo4d_tpu_torch.pipeline.data import frame_tensor, view_order
+    from topo4d_tpu_torch.pipeline.trainer import Trainer, make_dense_render_fn
+    from topo4d_tpu_torch.texture.dense import make_texture_step
+    from topo4d_tpu_torch.utils.profiling import device_trace
+
+    from topo4d_tpu_torch.pipeline.data import FrameData
+
+    t_phase = time.perf_counter()
+    last_tex = frames[FRAMES][1]
+    # the frame's targets on the card once: a fit then moves no image from the host
+    on_card = FrameData(images=frame_tensor(last_tex.images, DEVICE), masks=None, view_names=last_tex.view_names)
+    out = {"counts": {}}
+    no_plain = {"tile_blend_plain": 0, "gauss_blur_plain": 0, "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0}
+
+    # 11a: the dense loop's modes, in turns
+    modes = {
+        "scan, rebin_freq 0": {},
+        "scan, rebin_freq 1": {"texture": {"rebin_freq": 1}},
+        "loop, rebin_freq 5": {"texture": {"rebin_freq": 5}},
+    }
+    ms, built, counts_a = {m: [] for m in modes}, {}, {}
+    for name in list(modes) + list(modes)[::-1]:
+        wall, counts, rows, n_bins, bin_s = fit_mode(trainer, on_card, modes[name], MODE_STEPS)
+        evals = sum("tex_psnr_fixed" in r for r in rows)
+        check_rows(rows)
+        check_counts(counts, f"phase 11a {name}", {
+            "tile_blend_fwd": MODE_STEPS + evals, "tile_blend_bwd": MODE_STEPS, "gauss_blur": 2 * MODE_STEPS,
+            **no_plain,
+        })
+        ms[name].append(wall / MODE_STEPS * 1e3)
+        built[name] = (n_bins, bin_s * 1e3)
+        counts_a = {k: counts_a.get(k, 0) + c for k, c in counts.items()}
+    out["counts"]["phase 11a dense modes"] = counts_a
+    out["modes_ms"] = {m: float(np.mean(v)) for m, v in ms.items()}
+    out["binnings"] = {m: {"count": b[0], "ms": b[1]} for m, b in built.items()}
+    log(f"phase 11a: {MODE_STEPS} dense steps at {FULL_W}x{FULL_H} through fit_frame_texture per mode, in turns, ms "
+        "per step (the fit's wall over its steps: its frozen binnings and 2 eval renders included): "
+        + "; ".join(f"{m} {', '.join(f'{x:.3f}' for x in v)} ({built[m][0]} frozen binnings, {built[m][1]:.1f} ms "
+                    "in the last run)" for m, v in ms.items())
+        + "; K1/K2 once per step (K1 once more per eval render), K5 twice")
+    out["modes_card_vs_cpu"] = modes_card_vs_cpu(cfg, trainer, scene)
+
+    # 11b: remat on and off, in turns, from one state
+    images = on_card.images
+    binnings = trainer.dense_binnings(1)
+    order = [int(v) for v in view_order(24, MODE_STEPS, seed=11)]
+    render = make_dense_render_fn(cfg, DEVICE)
+    steps = {r: make_texture_step(render, remat=r) for r in (False, True)}
+    args = (trainer.dense_anchor, trainer._dense_pre, dict(cfg.lrs.dense), cfg.dense_weights.as_dict())
+    remat = {r: {"ms": [], "peak": [], "digest": set()} for r in (False, True)}
+    counts_b = {}
+    for r in (False, True):  # warm: the first checkpointed step sets up the checkpoint's machinery
+        steps[r](trainer.texture_state, trainer.dense_means3d, images[order[0]], src.cameras_full, order[0], *args,
+                 binnings[order[0]], with_metrics=False)
+    for r in (False, True, True, False):
+        state = trainer.texture_state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for v in order:
+            state, _ = steps[r](state, trainer.dense_means3d, images[v], src.cameras_full, v, *args, binnings[v],
+                                with_metrics=False)
+        torch.cuda.synchronize()
+        remat[r]["ms"].append((time.perf_counter() - t0) / MODE_STEPS * 1e3)
+        remat[r]["peak"].append(torch.cuda.max_memory_allocated() - base)
+        counts = read_counts()
+        check_counts(counts, f"phase 11b remat {r}", {
+            "tile_blend_fwd": MODE_STEPS, "tile_blend_bwd": MODE_STEPS, "gauss_blur": (3 if r else 2) * MODE_STEPS,
+            **no_plain,
+        })
+        counts_b = {k: counts_b.get(k, 0) + c for k, c in counts.items()}
+        remat[r]["digest"].add(state_digest(state))
+        del state
+    if len(remat[False]["digest"] | remat[True]["digest"]) != 1:
+        raise AssertionError("phase 11b: the dense state after the remat steps differs from the steps without")
+    del images, on_card
+    out["counts"]["phase 11b remat"] = counts_b
+    out["remat"] = {("on" if r else "off"): {"ms": float(np.mean(v["ms"])), "peak_bytes": int(max(v["peak"]))}
+                    for r, v in remat.items()}
+    log(f"phase 11b: {MODE_STEPS} dense steps at {FULL_W}x{FULL_H}, remat_photometric off / on in turns: ms per step "
+        f"{', '.join(f'{x:.3f}' for x in remat[False]['ms'])} / {', '.join(f'{x:.3f}' for x in remat[True]['ms'])}; "
+        f"peak device memory above the state, MiB {', '.join(f'{x / 2**20:.1f}' for x in remat[False]['peak'])} / "
+        f"{', '.join(f'{x / 2**20:.1f}' for x in remat[True]['peak'])}; parameters and Adam moments equal bit for bit "
+        "(SHA-256); K5 three times per step under remat, twice without")
+
+    # 11c: a one-frame Trainer.run traced, and the same run untraced
+    _, _, _, params_np = scene
+    cfg_t = copy.deepcopy(cfg)
+    cfg_t.schedule.frame_num = 1
+    cfg_t.schedule.init_opt_num = 20
+    cfg_t.schedule.dense_opt_num = 11
+    cfg_t.schedule.dense_log_freq = 10
+    cfg_t.texture.tex_res = min(1024, TEX_RES)  # the export's bake is not what this run measures
+    runs = {}
+    for traced in (False, True):
+        cfg_t.data.output_dir = os.path.join(TRACE_DIR, "traced" if traced else "plain")
+        tr = Trainer(cfg_t, src, params_np, trainer.statics, device=DEVICE)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with device_trace(os.path.join(TRACE_DIR, "trace") if traced else None, device=DEVICE) as tracing:
+            if tracing != traced:
+                raise AssertionError("phase 11c: device_trace did not trace as asked")
+            tr.run(resume=False)
+            torch.cuda.synchronize()
+        runs[traced] = (time.perf_counter() - t0, read_counts())
+    path = os.path.join(TRACE_DIR, "trace", "trace_rank0.json")
+    size = os.path.getsize(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels_in = {name: sum(1 for e in events if e.get("cat") == "kernel" and f"{name}_kernel" in e.get("name", ""))
+                  for name in ("tile_blend_fwd", "tile_blend_bwd", "gauss_blur")}
+    counts = runs[True][1]
+    for name, n in kernels_in.items():
+        if n != counts[name]:
+            raise AssertionError(f"phase 11c: the trace holds {n} {name} kernels, the counter {counts[name]}")
+    n_steps = cfg_t.schedule.init_opt_num + cfg_t.schedule.dense_opt_num
+    out["counts"]["phase 11c traced run"] = counts
+    out["trace"] = {"bytes": size, "bytes_per_step": size / n_steps, "events": len(events),
+                    "s_per_frame": {"traced": runs[True][0], "untraced": runs[False][0]}}
+    log(f"phase 11c: a one-frame Trainer.run ({cfg_t.schedule.init_opt_num} init and {cfg_t.schedule.dense_opt_num} "
+        f"dense steps, export at {cfg_t.texture.tex_res}^2) under device_trace: {runs[True][0]:.3f} s, untraced "
+        f"{runs[False][0]:.3f} s; the trace {size} bytes ({size / n_steps:.0f} per step, {len(events)} events); its "
+        f"kernel events {kernels_in} equal the counters")
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+
+    # 11d: entry on the card against its plain version
+    fn, args_e = entry(DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss = float(fn(*args_e))
+    counts = read_counts()
+    check_counts(counts, "phase 11d entry", {"tile_blend_fwd": 1, "gauss_blur": 1, "tile_blend_bwd": 0, **no_plain})
+    out["counts"]["phase 11d entry"] = counts
+    fn_c, args_c = entry("cpu")
+    loss_c = float(fn_c(*args_c))
+    np.testing.assert_allclose(loss, loss_c, rtol=1e-5)
+    out["entry"] = {"loss": loss, "plain_loss": loss_c}
+    log(f"phase 11d: entry('cuda') loss {loss:.8f} against its plain version {loss_c:.8f} (rel err "
+        f"{abs(loss - loss_c) / abs(loss_c):.2e}); K1 and K5 once per call")
+
+    # 11e: the dryrun on a NCCL world of one
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, DEVICE)
+    if not all(np.isfinite(v) for v in dry.values()):
+        raise AssertionError(f"phase 11e: non-finite dryrun results {dry}")
+    out["dryrun"] = dry
+    log(f"phase 11e: dryrun_multichip(1, 'cuda') on NCCL, {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in dry.items()))
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"phase 11: {out['wall']:.1f} s")
+    return out
+
+
+def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
     bake), the geometry shapes' numbers beside them; launches over each
     path's run with the counts set to 0 just before it: the parity
     ``Trainer.run`` (K1/K2, K5, K6), by part, the batched one and the CLI's
     (``launches_cli``, and by part), phase 10's over its ranks
-    (``launches_multi_rank``); K4's over the v3 path (the first v3 run of
-    its geometry and dense steps)."""
+    (``launches_multi_rank``), phase 11's by part; K4's over the v3 path
+    (the first v3 run of its geometry and dense steps)."""
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
     by_part.update({f"batched geometry frame {p['frame']}": p["counts"] for p in batched["parts"]})
@@ -3021,6 +3304,7 @@ def kernel_rows(run, batched, fused, v3, cli, multi, errs, geo_timing, blend4k, 
         "phase 10 tile-sharded dense steps, 2 ranks": multi["tile_sharded"],
         "phase 10 sharded bake, 2 and 3 ranks": multi["bake"],
     })
+    by_part.update(modes["counts"])
     multi_total = {k: sum(multi[p].get(k, 0) for p in ("view_sharded", "tile_sharded", "bake"))
                    for k in counts}
 
@@ -3082,6 +3366,7 @@ def kernel_rows(run, batched, fused, v3, cli, multi, errs, geo_timing, blend4k, 
         "launches": counts["uv_bake"], "launches_by_path": {
             "export": counts["uv_bake"], "cli export": cli["counts"]["uv_bake"],
             "phase 10 sharded bake, 2 and 3 ranks": multi["bake"]["uv_bake"],
+            "phase 11 traced run": modes["counts"]["phase 11c traced run"]["uv_bake"],
         },
         "launches_cli": cli["counts"]["uv_bake"],
         "max_abs_err": errs["bake"], "ms": bake["ms"], "plain_ms": bake["plain_ms"], "bound_ms": bake["bound_ms"],
@@ -3162,6 +3447,7 @@ def main() -> int:
     fused = phase_fused(cfg, src, trainer, scene, frames, batched)
     cli = phase_cli(run)
     multi = phase_multi(cfg, src, frames, batched, bake_inputs)
+    modes = phase_modes(cfg, src, trainer, scene, frames)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
@@ -3173,14 +3459,16 @@ def main() -> int:
         f"{fused['ms_per_step']:.3f}, in turns with sequential steps {fused['turns_ms']['fused']:.3f} against "
         f"{fused['turns_ms']['sequential']:.3f}, busy {fused['profile'][1]:.3f} ms per step "
         f"({100 * fused['profile'][1] / fused['profile'][0]:.1f}% busy), psnr {fused['psnr']:.3f}; JPEG tree: dense "
-        f"frame {cli['jpeg']['frame_s']:.3f} s, on the card {cli['jpeg']['h2d_s']:.3f} s; "
+        f"frame {cli['jpeg']['frame_s']:.3f} s, on the card {cli['jpeg']['h2d_s']:.3f} s; dense modes, ms per step: "
+        + ", ".join(f"{m} {v:.3f}" for m, v in modes["modes_ms"].items())
+        + f"; remat off / on {modes['remat']['off']['ms']:.3f} / {modes['remat']['on']['ms']:.3f} ms per step; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, multi, errs, geo_timing, blend4k, blur,
-                                             bake)}))
+    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, blend4k,
+                                             blur, bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -7,8 +7,8 @@ under ``rot``, the OpenGL -> COLMAP flips, a chunk without
 ``<components>``; each asserted as there and held to JAX's dicts with
 ``assert_array_equal``. Then the other functions of the module: the
 distortion conversion, the rotations, the projections (the batched one on
-tensors, rtol 1e-6 in float32) and the integer path of ``scale_image``
-(the non-integer path raises).
+tensors, rtol 1e-6 in float32) and ``scale_image``: the integer path, and
+other factors against JAX's PIL resampling bit for bit.
 """
 
 import textwrap
@@ -194,5 +194,20 @@ def test_scale_image_integer_path_and_refusal(xml_paths):
         want_img, want_cam = J.scale_image(img, factor, cam)
         np.testing.assert_array_equal(got_img, want_img)
         np.testing.assert_array_equal(got_cam["intrinsics"], want_cam["intrinsics"])
-    with pytest.raises(NotImplementedError, match="0.3"):
-        P.scale_image(img, 0.3)
+    # a factor other than 1/k resamples as JAX's PIL path does (no longer refused)
+    np.testing.assert_array_equal(P.scale_image(img, 0.3), J.scale_image(img, 0.3))
+
+
+@pytest.mark.parametrize("factor", [0.3, 0.75, 2 / 3, 1.5])
+def test_scale_image_bilinear_matches_jax_pil(xml_paths, factor):
+    """Factors other than 1/k: the port's NumPy resampling against JAX's
+    PIL ``BILINEAR`` on mode-"F" planes, RGB float32, bit for bit; the
+    intrinsics scaled alike."""
+    cam, _ = P.load_camera(xml_paths[0], "camA", resize_factor=8)
+    img = np.random.default_rng(5).uniform(-0.5, 1.5, size=(61, 47, 3)).astype(np.float32)
+    got_img, got_cam = P.scale_image(img, factor, cam)
+    want_img, want_cam = J.scale_image(img, factor, cam)
+    assert got_img.dtype == want_img.dtype == np.float32
+    assert got_img.shape == want_img.shape == (round(61 * factor), round(47 * factor), 3)
+    np.testing.assert_array_equal(got_img.view(np.int32), want_img.view(np.int32))
+    np.testing.assert_array_equal(got_cam["intrinsics"], want_cam["intrinsics"])

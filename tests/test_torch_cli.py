@@ -152,8 +152,11 @@ def test_config_keys_the_port_lacks():
             Config.from_json(json.dumps(bad))
     assert Config.from_json(json.dumps(raw)) == Config()
     # the multi-rank keys load at any value: tile sharding and the orbax
-    # resume backend are ported
-    for path, value in ((("texture", "tile_shard"), True), (("data", "checkpoint_backend"), "orbax")):
+    # resume backend are ported; so are every dense binning cadence and the
+    # photometric remat
+    for path, value in ((("texture", "tile_shard"), True), (("data", "checkpoint_backend"), "orbax"),
+                        (("texture", "rebin_freq"), 1), (("texture", "rebin_freq"), -3),
+                        (("texture", "remat_photometric"), True)):
         good = json.loads(json.dumps(raw))
         good[path[0]][path[1]] = value
         assert getattr(getattr(Config.from_json(json.dumps(good)), path[0]), path[1]) == value

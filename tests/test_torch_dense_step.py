@@ -208,12 +208,12 @@ def test_texture_steps_match_jax(compact):
 # ---------------------------------------------------------------------------
 
 
-def _fit_texture_both(frames=(0,), allview_eval=True, **texture):
-    """``fit_frame_texture`` of ``frames`` through both trainers: 10x10 grid,
-    density 2, 4 views at 64x48 (12 tiles), 6 dense iterations logged every
-    3 (3 on a tracked frame), ``texture`` fields set on both configs.
-    Compares every metric row on its shared keys and the final dense
-    colors -> (port trainer, JAX trainer)."""
+def _texture_case(texture, schedule=None):
+    """The trainer tests' scene, sequence and configs: 10x10 grid, density
+    2, 4 views at 64x48 (12 tiles), 6 dense iterations logged every 3 (3 on
+    a tracked frame), ``texture`` and ``schedule`` fields set on both
+    configs -> (JAX config, port config, params, JAX statics, truth, the
+    port's sequence, the frame's targets)."""
     rows, cols = 10, 10
     verts, faces = j_grid(rows, cols, extent=0.5)
     n = verts.shape[0]
@@ -232,9 +232,9 @@ def _fit_texture_both(frames=(0,), allview_eval=True, **texture):
         c.schedule.dense_opt_num_tracked = 3
         c.schedule.dense_log_freq = 3
         c.dense_weights.soft_color = 0.0  # the anchor's L1 kink: see the module docstring
-        c.texture.allview_eval = allview_eval
-        for k, v in texture.items():
-            setattr(c.texture, k, v)
+        for section, fields in (("texture", texture), ("schedule", schedule or {})):
+            for k, v in fields.items():
+                setattr(getattr(c, section), k, v)
     params, js = j_build_scene(
         JMesh(vertices=verts, uvs=uvs, faces=faces, uv_faces=[list(f) for f in faces]),
         j_regions(n, faces), jcfg, num_views=4,
@@ -247,36 +247,76 @@ def _fit_texture_both(frames=(0,), allview_eval=True, **texture):
     seq = SyntheticSequence(params=truth, cameras=cams_t, num_frames=1)
     frame = seq.frame(0, full_res=True)
     frame = frame._replace(images=frame.images + TARGET_OFFSET)
+    return jcfg, tcfg, params, js, truth, seq, frame
 
+
+def _counting(monkeypatch, module, name, counts, key):
+    """Wrap ``module.name`` so that each call adds one to ``counts[key]``."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        counts[key] += 1
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+
+
+def _fit_texture_both(frames=(0,), allview_eval=True, schedule=None, **texture):
+    """``fit_frame_texture`` of ``frames`` through both trainers (the scene
+    of ``_texture_case``). Compares every metric row that JAX writes with
+    the port's row of that place on their shared keys (JAX's loop mode
+    writes no terminal row, the port's does), the final dense colors, and
+    the frozen binnings each trainer built (``binning_for`` calls) -> (port
+    trainer, JAX trainer, counts: "jax" and "port" frozen binnings, "fresh"
+    the port's binnings made inside a render)."""
+    import topo4d_tpu.rasterizer.pallas as j_pallas
+
+    import topo4d_tpu_torch.pipeline.trainer as t_trainer
+    import topo4d_tpu_torch.rasterizer.render as t_render
+
+    jcfg, tcfg, params, js, truth, seq, frame = _texture_case(dict(texture, allview_eval=allview_eval), schedule)
     tj = JTrainer(jcfg, JSequence(params=truth, cameras=j_ring(4, width=64, height=48, distance=2.0), num_frames=1), params, js)
     tt = Trainer(tcfg, seq, params, convert.statics_from_numpy(js), device=CPU)
-    for t in frames:  # a tracked frame reuses frame 0's targets
-        tj.fit_frame_texture(t, frame)
-        tt.fit_frame_texture(t, frame)
+    counts = {"jax": 0, "port": 0, "fresh": 0}
+    with pytest.MonkeyPatch.context() as mp:
+        _counting(mp, j_pallas, "binning_for", counts, "jax")
+        _counting(mp, t_trainer, "binning_for", counts, "port")
+        _counting(mp, t_render, "compute_binning", counts, "fresh")
+        for t in frames:  # a tracked frame reuses frame 0's targets
+            tj.fit_frame_texture(t, frame)
+            tt.fit_frame_texture(t, frame)
+    counts["fresh"] -= counts["port"]  # binning_for's own compute_binning calls
 
     assert tt.texture_state.params["dense_rgb_colors"].shape[0] == js.dense.topo.dense_vertices.shape[0]
-    # frame 0: iterations 0, 3 and the terminal row; a tracked frame: 0 and the terminal row
-    assert len(tt.metrics_log) == len(tj.metrics_log) == 3 + 2 * (len(frames) - 1)
-    for rt, rj in zip(tt.metrics_log, tj.metrics_log):
+    rebin = jcfg.texture.rebin_freq
+    loop = not jcfg.schedule.use_scan or rebin not in (0, 1)
+    # frame 0: a row at every third iteration and the terminal row; a tracked frame: 0 and the terminal row
+    num_iters = tcfg.schedule.dense_opt_num
+    assert len(tt.metrics_log) == -(-num_iters // 3) + 1 + 2 * (len(frames) - 1)
+    port_rows = [r for r in tt.metrics_log if "tex_loss_total" in r] if loop else tt.metrics_log
+    assert len(port_rows) == len(tj.metrics_log)
+    for rt, rj in zip(port_rows, tj.metrics_log):
         shared = set(rt) & set(rj)
         assert {"frame", "tex_psnr_fixed"} <= shared
-        assert allview_eval == ("tex_psnr_allview" in shared)
+        assert (allview_eval and not loop) == ("tex_psnr_allview" in shared)
         for k in shared:
             np.testing.assert_allclose(rt[k], rj[k], rtol=1e-4, atol=1e-6, err_msg=k)
-    steps = 6 + 3 * (len(frames) - 1)
+    steps = num_iters + 3 * (len(frames) - 1)
     bound = {"dense_rgb_colors": 2 * steps * tcfg.lrs.dense["dense_rgb_colors"]}
     assert_params_close(
         {"dense_rgb_colors": tt.texture_state.params["dense_rgb_colors"]},
         {"dense_rgb_colors": tj.texture_state.params["dense_rgb_colors"]}, bound,
     )
-    return tt, tj
+    return tt, tj, counts
 
 
 def test_trainer_fit_frame_texture_matches_jax():
     """Frame 0 with the defaults (auto capacity, which at 12 tiles leaves
-    compact mode off, and the split pack), all-view eval on."""
-    tt, tj = _fit_texture_both()
+    compact mode off, and the split pack), all-view eval on: scan mode, one
+    frozen binning per view."""
+    tt, tj, counts = _fit_texture_both()
     assert tt.metrics_log[-1]["iter"] == tj.metrics_log[-1]["iter"] == 6
+    assert counts == {"jax": 4, "port": 4, "fresh": 0}
 
 
 @pytest.mark.parametrize(
@@ -287,7 +327,9 @@ def test_trainer_texture_options_match_jax(option, capsys):
     """The trainer's other texture options against the JAX trainer:
     ``tile_capacity`` 0 (full canvas), a manual capacity of 4 below the
     occupancy (tiles dropped, counted and warned about), ``split_pack``
-    off, and a tracked frame 1 of ``dense_opt_num_tracked`` iterations."""
+    off, and a tracked frame 1 of ``dense_opt_num_tracked`` iterations;
+    each builds one frozen binning per view and frame, as JAX's trainer
+    does. The binning cadences are ``tests/test_torch_dense_modes.py``'s."""
     texture = {
         "full_canvas": {"tile_capacity": 0},
         "manual_capacity": {"tile_capacity": 4},
@@ -295,7 +337,8 @@ def test_trainer_texture_options_match_jax(option, capsys):
         "tracked_frame": {},
     }[option]
     frames = (0, 1) if option == "tracked_frame" else (0,)
-    tt, tj = _fit_texture_both(frames, allview_eval=False, **texture)
+    tt, tj, counts = _fit_texture_both(frames, allview_eval=False, **texture)
+    assert counts == {"jax": 4 * len(frames), "port": 4 * len(frames), "fresh": 0}
     bs = tt.dense_binnings(frames[-1])
     if option == "manual_capacity":
         assert "[topo4d_tpu_torch] WARNING frame 0" in capsys.readouterr().out

@@ -365,16 +365,35 @@ def test_resumed_run_equals_uninterrupted(scene, tmp_path):
 
 
 def test_run_refuses_what_is_not_ported(scene, tmp_path):
-    """A dense re-binning cadence other than once per frame and view
-    (``texture.rebin_freq``) is not ported; masked targets are
-    (``tests/test_torch_cli.py``)."""
-    mesh, regions, params, js = scene
-    cfg = _configure(Config(), tmp_path, 1)
-    cfg.texture.rebin_freq = 1
-    source = SyntheticSequence(params=params, cameras=make_camera_ring(4, width=48, height=32, distance=2.0, device=CPU))
-    trainer = Trainer(cfg, source, params, convert.statics_from_numpy(js), device=CPU)
-    with pytest.raises(NotImplementedError, match="rebin_freq"):
-        trainer.fit_frame_texture(0, source.frame(1))
+    """Nothing of the dense loop's cadence is refused any more: a run with
+    ``texture.rebin_freq`` 1 (a fresh binning in every dense render) equals
+    the run at 0 (one frozen binning per frame and view), as the dense
+    means3D do not move within a frame: metric rows at rtol 1e-4, the dense
+    colors within 2 lr steps, 99.9% within 1e-6 (the tolerances of
+    ``tests/test_torch_dense_step.py``), the geometry bit for bit."""
+    params, truth = _run_inputs(scene)
+    cams = make_camera_ring(4, width=48, height=32, distance=2.0, device=CPU)
+    runs = []
+    for rebin in (0, 1):
+        cfg = _configure(Config(), tmp_path / f"rebin{rebin}", 1)
+        cfg.texture.rebin_freq = rebin
+        source = _Offset(SyntheticSequence(params=truth, cameras=cams, num_frames=1))
+        trainer = Trainer(cfg, source, params, convert.statics_from_numpy(scene[3]), device=CPU)
+        trainer.run(resume=False)
+        runs.append(trainer)
+    frozen, fresh = runs
+    for k, v in frozen.state.params.items():
+        assert torch.equal(fresh.state.params[k], v), k
+    rows = [[r for r in t.metrics_log if "summary" not in r] for t in runs]
+    assert len(rows[0]) == len(rows[1]) and any("tex_psnr_fixed" in r for r in rows[0])
+    for a, b in zip(*rows):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    steps, lr = cfg.schedule.dense_opt_num, cfg.lrs.dense["dense_rgb_colors"]
+    a = frozen.texture_state.params["dense_rgb_colors"].numpy()
+    d = np.abs(fresh.texture_state.params["dense_rgb_colors"].numpy() - a)
+    assert d.max() <= 2 * lr * steps + 1e-6 and np.mean(d <= 1e-6) >= 0.999, d.max()
 
 
 def test_save_resume_cuts_an_orphan_record(tmp_path):

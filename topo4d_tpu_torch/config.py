@@ -198,8 +198,11 @@ class TextureConfig:
     gen_tex: bool = False  # build the dense UV-densified Gaussians
     tex_res: int = 8192  # the baked UV texture's side
     density: int = 30  # interior subdivision points per quad edge
-    # frozen per-view binning: 0 = once per (frame, view), the only
-    # cadence ported (dense means3D are fixed within a frame)
+    # the dense loop's binning cadence (pallas backend): 0 = one frozen
+    # binning per (frame, view), bound up front (scan mode; the dense means3D
+    # are fixed within a frame); k > 1 = re-bin a view after k uses, bound
+    # lazily at its first use (loop mode; negative: never re-bin); 1 = a
+    # fresh duplicate-and-sort in every render (the reference's cadence)
     rebin_freq: int = 0
     # shard each dense render's tile axis over the ranks of a multi-process
     # run (the dense phase renders one view per step, where the view mesh
@@ -212,6 +215,10 @@ class TextureConfig:
     # gather only the learned packed rows per step; the frame-constant rows
     # are captured with the frozen binning
     split_pack: bool = True
+    # recompute the dense photometric loss in the backward instead of
+    # holding its SSIM intermediates (less memory, one more K5 launch per
+    # step; the same values)
+    remat_photometric: bool = False
     allview_eval: bool = False  # log the mean PSNR over all views per log row
 
 
@@ -278,17 +285,15 @@ ANY = object()
 # Keys of the JAX package's config that the port has no field for, each at
 # the value for which the port's behaviour is the JAX package's: the Pallas
 # interpreter off, any entry window of the Pallas blend (it changes no
-# result), the bake knobs (one bake here), the photometric loss without
-# remat, the one-ring weight sharpness the port computes with, the
-# 24-camera cap of scenes built without a view count (the port always
-# passes the source's).
+# result), the bake knobs (one bake here), the one-ring weight sharpness
+# the port computes with, the 24-camera cap of scenes built without a view
+# count (the port always passes the source's).
 JAX_ONLY_DEFAULTS = {
     "raster.interpret": False,
     "raster.chunk": ANY,
     "texture.bake_window": 16,
     "texture.bake_bands": 8,
     "texture.bake_backend": "auto",
-    "texture.remat_photometric": False,
     "neighbor_weight_k": 2000.0,
     "data.max_cams": 24,
 }

@@ -19,6 +19,7 @@ from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.losses.flatten import DihedralQuadruples, UmbrellaFlatten
 from topo4d_tpu_torch.losses.temporal import TemporalPriors
 from topo4d_tpu_torch.opt.adam import AdamState
+from topo4d_tpu_torch.opt.densify import DensifyState
 from topo4d_tpu_torch.opt.step import GeometryPriors
 from topo4d_tpu_torch.pipeline.scene import SceneStatics
 from topo4d_tpu_torch.texture.dense import TextureState
@@ -57,6 +58,16 @@ def adam_state_from_numpy(opt, device="cuda") -> AdamState:
         step={k: int(np.asarray(v)) for k, v in opt.step.items()},
         mu=params_from_numpy(opt.mu, dev),
         nu=params_from_numpy(opt.nu, dev),
+    )
+
+
+def densify_state_from_numpy(s, device="cuda") -> DensifyState:
+    """A reference DensifyState (alive mask, gradient sums, counts, radii)."""
+    dev = resolve_device(device)
+    f = lambda a: torch.as_tensor(np.array(a, np.float32), device=dev)
+    return DensifyState(
+        alive=torch.as_tensor(np.array(s.alive, bool), device=dev), grad_accum=f(s.grad_accum), denom=f(s.denom),
+        max_radius=f(s.max_radius),
     )
 
 

@@ -231,29 +231,91 @@ def batch_perspective_project(
 
 
 def scale_image(image: np.ndarray, scale_factor: float, camera=None):
-    """Rescale an image and (optionally) its intrinsics (camera.py:246-254).
+    """Rescale an (H, W, C) image and (optionally) its intrinsics
+    (camera.py:246-254).
 
     Integer 1/k factors (the only ones the pipeline uses, down_ratio 8/2/1)
-    take exact integer-stride area averaging. The JAX package resamples
-    other factors through PIL; that branch is off the live pipeline and not
-    ported, so they raise ``NotImplementedError``.
+    take exact integer-stride area averaging. Other factors resample each
+    channel as the JAX package does through PIL's ``Image.resize(...,
+    BILINEAR)`` on a mode-"F" plane (``bilinear_resize_plane``, in NumPy:
+    the machines with the card have no PIL), to an output of round(H *
+    factor) x round(W * factor) float32 values.
     """
     inv = 1.0 / scale_factor
     k = int(round(inv))
     h, w = image.shape[:2]
     if abs(inv - k) > 1e-6:
-        raise NotImplementedError(
-            f"scale_image: factor {scale_factor} is not 1/k for an integer k; only integer-stride area averaging "
-            "is ported"
+        h2 = max(int(round(h * scale_factor)), 1)
+        w2 = max(int(round(w * scale_factor)), 1)
+        img = np.stack(
+            [bilinear_resize_plane(np.asarray(image[..., c], np.float32), h2, w2) for c in range(image.shape[2])],
+            axis=-1,
         )
-    hc, wc = (h // k) * k, (w // k) * k
-    img = image[:hc, :wc].reshape(h // k, k, w // k, k, -1).mean(axis=(1, 3))
+    else:
+        hc, wc = (h // k) * k, (w // k) * k
+        img = image[:hc, :wc].reshape(h // k, k, w // k, k, -1).mean(axis=(1, 3))
     if camera is None:
         return img
     camera = dict(camera)
     scale_mat = np.diag([scale_factor, scale_factor, 1.0])
     camera["intrinsics"] = scale_mat @ camera["intrinsics"]
     return img, camera
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` for the bilinear (triangle) filter
+    (Resample.c): per output sample its first input sample, its tap count
+    and its float64 weights, the support scaled by max(in/out, 1) and the
+    weights normalised to sum 1 -> (first (out,), taps (out,), weights
+    (out, ksize))."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    taps = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.float64)
+    ss = 1.0 / filterscale  # PIL scales the filter's argument by the reciprocal
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = np.array([max(1.0 - abs((x + xmin - center + 0.5) * ss), 0.0) for x in range(xmax)])
+        ww = 0.0
+        for v in k:  # in tap order, as PIL sums them
+            ww += v
+        if ww != 0.0:
+            k = k / ww
+        first[xx], taps[xx] = xmin, xmax
+        weights[xx, :xmax] = k
+    return first, taps, weights
+
+
+def _resample_axis(plane: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of PIL's 32-bit float resampling along ``axis``: each output
+    sample sums input x weight in float64, in tap order, and is stored as
+    float32."""
+    x = np.moveaxis(plane, axis, -1)
+    first, taps, weights = _bilinear_coeffs(x.shape[-1], out_size)
+    acc = np.zeros(x.shape[:-1] + (out_size,), np.float64)
+    for j in range(weights.shape[1]):
+        idx = np.minimum(first + j, x.shape[-1] - 1)
+        term = x[..., idx].astype(np.float64) * weights[:, j]
+        acc = np.where(j < taps, acc + term, acc)
+    return np.moveaxis(acc.astype(np.float32), -1, axis)
+
+
+def bilinear_resize_plane(plane: np.ndarray, height: int, width: int) -> np.ndarray:
+    """An (H, W) float32 plane resized to (height, width) as PIL's
+    ``Image.fromarray(plane, mode="F").resize((width, height), BILINEAR)``
+    does: the horizontal pass first, then the vertical, each skipped when
+    its size does not change."""
+    out = np.asarray(plane, np.float32)
+    if width != out.shape[1]:
+        out = _resample_axis(out, width, 1)
+    if height != out.shape[0]:
+        out = _resample_axis(out, height, 0)
+    return out
 
 
 def rotate_image_cam(image: np.ndarray, camera=None, angle: int = 90):

@@ -94,12 +94,12 @@ def _camera_to(cams: Camera, device) -> Camera:
 
 def replicated(mesh: ViewMesh, tree):
     """``tree`` with every tensor replaced by rank 0's copy (a broadcast),
-    on the mesh's device."""
+    on the mesh's device, contiguous (NCCL broadcasts no other layout)."""
 
     def bcast(x):
         if not isinstance(x, torch.Tensor):
             return x
-        y = x.detach().to(mesh.device).clone()
+        y = x.detach().to(mesh.device).clone(memory_format=torch.contiguous_format)
         dist.broadcast(y, src=0, group=mesh.group)
         return y
 

@@ -114,6 +114,16 @@ def _init(backend: Optional[str], dev: torch.device, **kwargs) -> None:
     )
 
 
+def free_port() -> int:
+    """A TCP port on localhost that is free now, for a rendezvous of ranks
+    spawned on this host."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def rank_device(default="cuda") -> torch.device:
     """The device ``initialize_multihost`` pinned this rank to, else
     ``default`` (resolved: no card raises)."""

@@ -95,10 +95,11 @@ from topo4d_tpu_torch.texture.dense import (
     TextureState,
     dense_rendervars,
     make_texture_eval,
+    make_texture_multi_step,
     make_texture_step,
 )
 from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
-from topo4d_tpu_torch.utils.profiling import PhaseTimer, mpix_per_s
+from topo4d_tpu_torch.utils.profiling import PhaseTimer, device_trace, mpix_per_s
 
 
 def make_render_fn(cfg: Config, device):
@@ -252,7 +253,7 @@ class Trainer:
         self._out_dir = os.path.join(cfg.data.output_dir, cfg.data.exp, cfg.data.seq)
         self._con_cache: Dict[str, tuple] = {}
         # the texture phase, built at its first frame
-        self.texture_step = self.texture_eval = None
+        self.texture_step = self.texture_multi_step = self.texture_eval = None
         self._texture_masked: Optional[bool] = None  # the mask state the texture step was built for
         self.texture_state: Optional[TextureState] = None
         self.dense_means3d: Optional[torch.Tensor] = None
@@ -447,34 +448,44 @@ class Trainer:
         self._auto_tile_cap = max(cap, self._auto_tile_cap)
         return min(self._auto_tile_cap, total_tiles)
 
-    def dense_binnings(self, t: int) -> List[Binning]:
-        """Each full-resolution view's frozen binning of the current dense
-        state for frame ``t``: with the split pack's static rows, and the
-        compact tile list of a manual ``texture.tile_capacity`` or, under the
-        auto capacity, one list sized from the largest occupancy over the
-        views (one read back from the card)."""
+    def _fresh_dense_binning(self, v: int) -> Binning:
+        """View ``v``'s binning of the current dense state, with the split
+        pack's static rows and a manual ``texture.tile_capacity``'s compact
+        list (``pipeline/trainer.py:636-651``)."""
         cfg = self.cfg
         cap_cfg = cfg.texture.tile_capacity
-        rv = dense_rendervars(self.texture_state.params, self.dense_means3d)
-        cams = self.source.cameras_full
-        binnings = [
-            binning_for(
-                rv, cams[v], max_span=cfg.raster.max_span, with_static=cfg.texture.split_pack,
-                tile_capacity=cap_cfg if cap_cfg > 0 else None,
-            )
-            for v in range(int(cams.fx.shape[0]))
-        ]
-        if cap_cfg == 0:
+        return binning_for(
+            dense_rendervars(self.texture_state.params, self.dense_means3d), self.source.cameras_full[v],
+            max_span=cfg.raster.max_span, with_static=cfg.texture.split_pack,
+            tile_capacity=cap_cfg if cap_cfg > 0 else None,
+        )
+
+    def _auto_compact(self, binnings: List[Binning]) -> List[Binning]:
+        """Under the auto capacity, one compact list for all of ``binnings``,
+        sized from their largest occupancy (one read back from the card);
+        otherwise the binnings as they are (``pipeline/trainer.py:653-669``)."""
+        if self.cfg.texture.tile_capacity >= 0:
             return binnings
         occ = int(torch.max(torch.stack([torch.sum(b.tile_count > 0) for b in binnings])))
-        if cap_cfg < 0:
-            cap = self._auto_tile_capacity(occ, int(binnings[0].tile_count.shape[0]))
-            return [attach_compact(b, cap) for b in binnings]
-        if occ > cap_cfg:
-            print(
-                f"[topo4d_tpu_torch] WARNING frame {t}: {occ - cap_cfg} occupied tiles beyond "
-                f"texture.tile_capacity={cap_cfg} are dropped; raise the capacity"
-            )
+        cap = self._auto_tile_capacity(occ, int(binnings[0].tile_count.shape[0]))
+        return [attach_compact(b, cap) for b in binnings]
+
+    def dense_binnings(self, t: int) -> List[Binning]:
+        """Each full-resolution view's frozen binning of the current dense
+        state for frame ``t`` (scan mode's, ``pipeline/trainer.py:692-720``):
+        under the auto capacity one compact list sized from the largest
+        occupancy over the views; a manual capacity below the frame's
+        occupancy prints a warning."""
+        views = range(int(self.source.cameras_full.fx.shape[0]))
+        binnings = self._auto_compact([self._fresh_dense_binning(v) for v in views])
+        cap_cfg = self.cfg.texture.tile_capacity
+        if cap_cfg > 0:
+            occ = int(torch.max(torch.stack([torch.sum(b.tile_count > 0) for b in binnings])))
+            if occ > cap_cfg:
+                print(
+                    f"[topo4d_tpu_torch] WARNING frame {t}: {occ - cap_cfg} occupied tiles beyond "
+                    f"texture.tile_capacity={cap_cfg} are dropped; raise the capacity"
+                )
         return binnings
 
     def fit_frame_texture(self, t: int, frame_data) -> Dict[str, float]:
@@ -482,21 +493,37 @@ class Trainer:
         full-resolution views (``source.cameras_full``). Returns the last
         metrics row (also appended to ``metrics_log``): a row every
         ``dense_log_freq`` iterations (the step's own metrics with the
-        "tex_" prefix, the fixed-view PSNR of view 0, optionally the mean
-        PSNR over all views), then a terminal row after the last step.
+        "tex_" prefix, the fixed-view PSNR of view 0, in scan mode
+        optionally the mean PSNR over all views), then a terminal row after
+        the last step.
 
-        Each view's binning is frozen for the frame (the dense means3D do not
-        move within it; pallas backend only), with the split pack's static
-        rows and, under the auto capacity, one compact tile list sized from
-        the frame's largest occupancy: one read back from the card per frame.
+        The binning cadence is ``texture.rebin_freq``'s
+        (``pipeline/trainer.py:620-627``; frozen binnings are the pallas
+        backend's):
+
+        - scan mode (``schedule.use_scan`` and a rebin_freq of 0 or 1): at
+          rebin_freq 0 every view's binning is frozen up front for the
+          frame, with the split pack's static rows and, under the auto
+          capacity, one compact tile list sized from the frame's largest
+          occupancy; the steps between log rows run through the
+          multi-step;
+        - loop mode (rebin_freq above 1 or negative, or no ``use_scan``):
+          a view is binned at its first use from the state at that moment,
+          with a compact list sized from that one binning, and again after
+          every rebin_freq uses (never, when negative); view 0's binning
+          for the eval render is made at the first log row if no step has
+          made it;
+        - rebin_freq 1: no frozen binning; every render bins afresh on the
+          full canvas (or a manual capacity).
+
+        The dense means3D do not move within a frame, so every cadence
+        gives the same values; they differ in the binnings they build.
         Under ``data.use_mask_dense`` a frame with masks takes the masked L1
-        step; the step is rebuilt when that state flips
+        step; the steps are rebuilt when that state flips
         (``pipeline/trainer.py:575-595``).
         """
         cfg = self.cfg
         dev = self.device
-        if cfg.texture.rebin_freq != 0:
-            raise NotImplementedError("only texture.rebin_freq == 0 (one binning per frame and view) is ported")
         if self.texture_state is None:
             dense_np = init_dense_params(ckpt.to_numpy(self.state.params), self.statics, self.source.num_views)
             dense = {k: torch.as_tensor(v, device=dev) for k, v in dense_np.items()}
@@ -515,7 +542,9 @@ class Trainer:
             # built apart from the state, so that a resumed run, whose
             # texture_state comes from the checkpoint, gets them too
             render = make_dense_render_fn(cfg, dev)
-            self.texture_step = make_texture_step(render, use_mask, cfg.data.cmap_index)
+            remat = cfg.texture.remat_photometric
+            self.texture_step = make_texture_step(render, use_mask, cfg.data.cmap_index, remat)
+            self.texture_multi_step = make_texture_multi_step(render, use_mask, cfg.data.cmap_index, remat)
             self.texture_eval = make_texture_eval(render)
             self._texture_masked = use_mask
             self._dense_pre = build_dense_pre_constraints(
@@ -534,38 +563,81 @@ class Trainer:
         num_iters = sched.dense_opt_num
         if t > 0 and sched.dense_opt_num_tracked >= 0:
             num_iters = sched.dense_opt_num_tracked
-        order = view_order(num_views, num_iters, seed=10_000 + t)
+        order = [int(v) for v in view_order(num_views, num_iters, seed=10_000 + t)]
         lr = dict(cfg.lrs.dense)
         weights = cfg.dense_weights.as_dict()
+        rebin = cfg.texture.rebin_freq
+        use_binning = cfg.raster.backend == "pallas" and rebin != 1
+        use_scan = sched.use_scan and (not use_binning or rebin == 0)
+        log_freq = sched.dense_log_freq
 
-        binnings = self.dense_binnings(t) if cfg.raster.backend == "pallas" else [None] * num_views
+        def step(v: int, binning, log_this: bool):
+            self.texture_state, m = self.texture_step(
+                self.texture_state, self.dense_means3d, images[v], cams, v, self.dense_anchor,
+                self._dense_pre, lr, weights, binning, with_metrics=log_this,
+                mask=None if masks is None else masks[v],
+            )
+            return m
 
-        def eval_row(i: int) -> Dict[str, float]:
+        def eval_row(i: int, binning_of, allview: bool) -> Dict[str, float]:
             state, means = self.texture_state, self.dense_means3d
-            row = {"tex_psnr_fixed": float(self.texture_eval(state, means, images[0], cams, 0, binnings[0]))}
-            if cfg.texture.allview_eval:
+            row = {"tex_psnr_fixed": float(self.texture_eval(state, means, images[0], cams, 0, binning_of(0)))}
+            if allview:
                 row["tex_psnr_allview"] = float(torch.mean(torch.stack([
-                    self.texture_eval(state, means, images[v], cams, v, binnings[v]) for v in range(num_views)
+                    self.texture_eval(state, means, images[v], cams, v, binning_of(v)) for v in range(num_views)
                 ])))
             row["iter"] = i
             row["frame"] = t
             return row
 
-        log_freq = sched.dense_log_freq
-        for i in range(num_iters):
-            v = int(order[i])
-            log_this = i % log_freq == 0
-            self.texture_state, m = self.texture_step(
-                self.texture_state, self.dense_means3d, images[v], cams, v, self.dense_anchor,
-                self._dense_pre, lr, weights, binnings[v], with_metrics=log_this,
-                mask=None if masks is None else masks[v],
-            )
-            if log_this:
-                row = {("tex_" + k): float(val) for k, val in m.items()}
-                row.update(eval_row(i))
-                self.metrics_log.append(row)
+        def log_row(i: int, m, binning_of, allview: bool) -> None:
+            row = {("tex_" + k): float(val) for k, val in m.items()}
+            row.update(eval_row(i, binning_of, allview))
+            self.metrics_log.append(row)
+
+        if use_scan:
+            binnings = self.dense_binnings(t) if use_binning else [None] * num_views
+            i = 0
+            while i < num_iters:
+                if i % log_freq == 0:
+                    v = order[i]
+                    log_row(i, step(v, binnings[v], True), binnings.__getitem__, cfg.texture.allview_eval)
+                    i += 1
+                    continue
+                j = min(num_iters, (i // log_freq + 1) * log_freq)
+                self.texture_state, _ = self.texture_multi_step(
+                    self.texture_state, self.dense_means3d, images, cams, order[i:j], self.dense_anchor,
+                    self._dense_pre, lr, weights, binnings, masks,
+                )
+                i = j
+            binning_of, allview = binnings.__getitem__, cfg.texture.allview_eval
+        else:
+            # loop mode (``pipeline/trainer.py:787-824``): bound lazily per view
+            binnings: Dict[int, Binning] = {}
+            uses: Dict[int, int] = {}
+
+            def frozen(v: int):
+                if not use_binning:
+                    return None
+                if v not in binnings:
+                    binnings[v] = self._auto_compact([self._fresh_dense_binning(v)])[0]
+                    uses[v] = 0
+                return binnings[v]
+
+            for i in range(num_iters):
+                v = order[i]
+                if use_binning and v in binnings and 0 < rebin <= uses[v]:
+                    del binnings[v]
+                binning = frozen(v)
+                if use_binning:
+                    uses[v] += 1
+                log_this = i % log_freq == 0
+                m = step(v, binning, log_this)
+                if log_this:
+                    log_row(i, m, frozen, False)  # view 0's binning, made here if no step made it
+            binning_of, allview = frozen, False
         # terminal row: the final state's quality (log rows miss the last step)
-        row = eval_row(num_iters)
+        row = eval_row(num_iters, binning_of, allview)
         self.metrics_log.append(row)
         return row
 
@@ -585,7 +657,9 @@ class Trainer:
         alone writes (``pipeline/trainer.py:831``); a resume needs the
         output directory on a file system every rank reads
         (``_synced_resume``), and the ranks meet at the end, once rank 0's
-        files are written.
+        files are written. With ``TOPO4D_PROFILE_DIR`` set the frame loop
+        runs under ``device_trace``, which writes a ``torch.profiler`` trace
+        per process there.
         """
         cfg = self.cfg
         io = is_host0()
@@ -612,60 +686,64 @@ class Trainer:
         pending = pool.submit(load, start_frame + 1)
         io_pending = None
         try:
-            for t in range(start_frame, cfg.schedule.frame_num):
-                t_start = time.time()
-                frame_data, tex_data = pending.result()
-                if t + 1 < cfg.schedule.frame_num:
-                    pending = pool.submit(load, t + 2)
-                if frame_data is None:
-                    break
-                geo_t0 = time.perf_counter()
-                means_start = self.state.params["means3D"]
-                with self.timer.phase("geometry"):
-                    geo = self.fit_frame_geometry(t, frame_data)
-                # the geometry fit's displacement of each vertex in this frame
-                with torch.no_grad():
-                    disp = torch.linalg.vector_norm(self.state.params["means3D"] - means_start, dim=1)
-                geo["max_dmeans3d"] = float(torch.max(disp))
-                geo["mean_dmeans3d"] = float(torch.mean(disp))
-                cams = self.source.cameras
-                geo["mpix_per_s"] = mpix_per_s(
-                    cams.height, cams.width, self._last_geo_renders, time.perf_counter() - geo_t0
-                )
-                if want_tex and tex_data is not None:
-                    with self.timer.phase("texture"):
-                        self.fit_frame_texture(t, tex_data)
-
-                self.output_params.append(ckpt.params_snapshot(self.state.params, t == 0))
-                # snapshots on the card: the next frame's steps cannot reach them
-                job = self._make_io_job(
-                    t, io, save_resume, state=ckpt.clone(self.state), priors=ckpt.clone(self.priors),
-                    first_frame_attrs=self.first_frame_attrs, output_params=list(self.output_params),
-                    texture_state=ckpt.clone(self.texture_state),
-                )
-                if io_pending is not None:
-                    io_pending.result()  # the previous frame's IO lands before the next is queued
-                    io_pending = None
-                if cfg.schedule.async_export:
-                    io_pending = io_pool.submit(job)
-                else:
-                    job()
-                geo["frame_seconds"] = round(time.time() - t_start, 4)
-                self.metrics_log.append({
-                    "frame": t, "summary": True, "frame_seconds": geo["frame_seconds"],
-                    "mpix_per_s": geo["mpix_per_s"], "max_dmeans3d": geo["max_dmeans3d"],
-                    "mean_dmeans3d": geo["mean_dmeans3d"],
-                })
-                if io:
-                    self._write_metrics()
-                    self.timer.write(os.path.join(self._out_dir, "timings.json"))
-                    psnr_s = f" psnr {geo['psnr']:.2f}" if "psnr" in geo else ""
-                    print(
-                        f"[topo4d_tpu_torch] frame {t + 1}/{cfg.schedule.frame_num} loss "
-                        f"{geo.get('loss_total', float('nan')):.5f}{psnr_s} ({geo['frame_seconds']:.1f}s, "
-                        f"{geo['mpix_per_s']:.2f} Mpix/s, max|dv| {geo['max_dmeans3d']:.2e})",
-                        flush=True,
+            # TOPO4D_PROFILE_DIR: a torch.profiler trace of the frame loop
+            with device_trace(device=self.device) as tracing:
+                if tracing:
+                    print("[topo4d_tpu_torch] torch.profiler trace enabled", flush=True)
+                for t in range(start_frame, cfg.schedule.frame_num):
+                    t_start = time.time()
+                    frame_data, tex_data = pending.result()
+                    if t + 1 < cfg.schedule.frame_num:
+                        pending = pool.submit(load, t + 2)
+                    if frame_data is None:
+                        break
+                    geo_t0 = time.perf_counter()
+                    means_start = self.state.params["means3D"]
+                    with self.timer.phase("geometry"):
+                        geo = self.fit_frame_geometry(t, frame_data)
+                    # the geometry fit's displacement of each vertex in this frame
+                    with torch.no_grad():
+                        disp = torch.linalg.vector_norm(self.state.params["means3D"] - means_start, dim=1)
+                    geo["max_dmeans3d"] = float(torch.max(disp))
+                    geo["mean_dmeans3d"] = float(torch.mean(disp))
+                    cams = self.source.cameras
+                    geo["mpix_per_s"] = mpix_per_s(
+                        cams.height, cams.width, self._last_geo_renders, time.perf_counter() - geo_t0
                     )
+                    if want_tex and tex_data is not None:
+                        with self.timer.phase("texture"):
+                            self.fit_frame_texture(t, tex_data)
+
+                    self.output_params.append(ckpt.params_snapshot(self.state.params, t == 0))
+                    # snapshots on the card: the next frame's steps cannot reach them
+                    job = self._make_io_job(
+                        t, io, save_resume, state=ckpt.clone(self.state), priors=ckpt.clone(self.priors),
+                        first_frame_attrs=self.first_frame_attrs, output_params=list(self.output_params),
+                        texture_state=ckpt.clone(self.texture_state),
+                    )
+                    if io_pending is not None:
+                        io_pending.result()  # the previous frame's IO lands before the next is queued
+                        io_pending = None
+                    if cfg.schedule.async_export:
+                        io_pending = io_pool.submit(job)
+                    else:
+                        job()
+                    geo["frame_seconds"] = round(time.time() - t_start, 4)
+                    self.metrics_log.append({
+                        "frame": t, "summary": True, "frame_seconds": geo["frame_seconds"],
+                        "mpix_per_s": geo["mpix_per_s"], "max_dmeans3d": geo["max_dmeans3d"],
+                        "mean_dmeans3d": geo["mean_dmeans3d"],
+                    })
+                    if io:
+                        self._write_metrics()
+                        self.timer.write(os.path.join(self._out_dir, "timings.json"))
+                        psnr_s = f" psnr {geo['psnr']:.2f}" if "psnr" in geo else ""
+                        print(
+                            f"[topo4d_tpu_torch] frame {t + 1}/{cfg.schedule.frame_num} loss "
+                            f"{geo.get('loss_total', float('nan')):.5f}{psnr_s} ({geo['frame_seconds']:.1f}s, "
+                            f"{geo['mpix_per_s']:.2f} Mpix/s, max|dv| {geo['max_dmeans3d']:.2e})",
+                            flush=True,
+                        )
             if io_pending is not None:
                 io_pending.result()
                 io_pending = None

@@ -8,10 +8,14 @@ frame's colors; the static, dynamic and inner-mouth colors are zeroed
 before every step. The dense means3D follow the tracked geometry each frame
 (``topology.interpolate``) and take no gradient.
 
-One step is eager PyTorch; the JAX package's scanned multi-step is the
-trainer's plain loop over this step. Under ``use_mask_dense`` the
-photometric term is the L1 over the parsing mask's facial regions
-(``DENSE_MASK_LABELS``), without SSIM (train.py:392-405).
+One step is eager PyTorch; the JAX package's scanned multi-step
+(``make_texture_multi_step``) is a plain loop over this step with metrics
+off. Under ``use_mask_dense`` the photometric term is the L1 over the
+parsing mask's facial regions (``DENSE_MASK_LABELS``), without SSIM
+(train.py:392-405). Under ``texture.remat_photometric`` the unmasked
+photometric loss runs inside ``torch.utils.checkpoint``: its saved SSIM
+maps are recomputed in the backward (one more K5 launch per step on the
+card) instead of held, with the same values bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from topo4d_tpu_torch.core.camera import Camera
 from topo4d_tpu_torch.core.gaussian import GaussianRenderVars
@@ -53,7 +58,10 @@ def dense_rendervars(params: Dict[str, torch.Tensor], dense_means3d: torch.Tenso
 
 
 def make_texture_step(
-    render_fn: Callable, use_mask: bool = False, cmap_index: Optional[Dict[str, int]] = None
+    render_fn: Callable,
+    use_mask: bool = False,
+    cmap_index: Optional[Dict[str, int]] = None,
+    remat: bool = False,
 ) -> Callable:
     """The single texture iteration: pre-step color zeroing -> render ->
     loss -> Adam (train.py:729-741).
@@ -68,7 +76,9 @@ def make_texture_step(
     ``use_mask`` (the reference's ``use_mask_dense``): the photometric term
     is the sum of |im - gt| over the pixels of ``DENSE_MASK_LABELS`` in the
     view's (3, H, W) parsing image ``mask`` (colors per ``cmap_index``)
-    over max(their count, 1).
+    over max(their count, 1). ``remat`` (``texture.remat_photometric``):
+    the unmasked photometric loss is recomputed in the backward instead of
+    saving its intermediates (``texture/dense.py:87-93``).
     """
 
     def step(
@@ -92,6 +102,10 @@ def make_texture_step(
         if use_mask:
             m = get_mask(DENSE_MASK_LABELS, mask, cmap_index)
             im_loss = torch.sum(torch.abs((out.image - gt) * m)) / torch.clamp(torch.sum(m), min=1.0)
+        elif remat:
+            im_loss = torch.utils.checkpoint.checkpoint(
+                photometric_loss, out.image, gt, use_reentrant=False, preserve_rng_state=False
+            )
         else:
             im_loss = photometric_loss(out.image, gt)
         losses = {
@@ -131,3 +145,48 @@ def make_texture_eval(render_fn: Callable) -> Callable:
         return torch.mean(psnr(out.image, gt))
 
     return eval_psnr
+
+
+def make_texture_multi_step(
+    render_fn: Callable,
+    use_mask: bool = False,
+    cmap_index: Optional[Dict[str, int]] = None,
+    remat: bool = False,
+) -> Callable:
+    """A run of texture iterations (``texture/dense.py:183``): the step of
+    ``make_texture_step`` looped with metrics off.
+
+    Returns ``multi_step(state, dense_means3d, images, cams, view_ids,
+    anchor_colors, pre_constraints, lr, weights, binnings=None, masks=None)
+    -> (state, losses)``: ``images`` (V, 3, H, W), ``view_ids`` the
+    iterations' views, ``binnings`` one frozen binning per view or None,
+    ``masks`` (V, 3, H, W) parsing images when ``use_mask``; ``losses`` the
+    (S,) stacked ``loss_total`` values, on the card.
+    """
+    step = make_texture_step(render_fn, use_mask, cmap_index, remat)
+
+    def multi_step(
+        state: TextureState,
+        dense_means3d: torch.Tensor,
+        images: torch.Tensor,
+        cams: Camera,
+        view_ids: Sequence[int],
+        anchor_colors: torch.Tensor,
+        pre_constraints: Sequence[DenseConstraint],
+        lr: Dict[str, float],
+        weights: Dict[str, float],
+        binnings: Optional[Sequence[Optional[Binning]]] = None,
+        masks: Optional[torch.Tensor] = None,
+    ) -> Tuple[TextureState, torch.Tensor]:
+        losses = []
+        for v in view_ids:
+            v = int(v)
+            state, m = step(
+                state, dense_means3d, images[v], cams, v, anchor_colors, pre_constraints, lr, weights,
+                None if binnings is None else binnings[v], with_metrics=False,
+                mask=None if masks is None else masks[v],
+            )
+            losses.append(m["loss_total"])
+        return state, torch.stack(losses)
+
+    return multi_step

@@ -1,9 +1,17 @@
-"""Phase timing and the throughput counter (``utils/profiling.py``).
+"""Phase timing, the profiler trace and the throughput counter
+(``utils/profiling.py``).
 
-``PhaseTimer`` accumulates wall-clock seconds per named pipeline phase
-(geometry, texture, checkpoint, export), written per run as
-``timings.json`` beside ``metrics.jsonl``. The trainer's export worker
-times its phases on another thread, so updates and reads take a lock.
+- ``PhaseTimer`` accumulates wall-clock seconds per named pipeline phase
+  (geometry, texture, checkpoint, export), written per run as
+  ``timings.json`` beside ``metrics.jsonl``. The trainer's export worker
+  times its phases on another thread, so updates and reads take a lock.
+- ``device_trace`` runs ``torch.profiler`` around a block when a log
+  directory is given or ``TOPO4D_PROFILE_DIR`` is set, and writes one
+  Chrome trace per process (``trace_rank<r>.json``, viewable in Perfetto or
+  ``chrome://tracing``). A trace that was asked for and cannot be taken
+  raises; it never goes missing silently.
+- ``sync_value`` waits for the card before a host clock is read.
+- ``mpix_per_s`` is the trainer's throughput counter.
 """
 
 from __future__ import annotations
@@ -13,7 +21,9 @@ import json
 import os
 import threading
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
+
+import torch
 
 
 class PhaseTimer:
@@ -71,6 +81,62 @@ class PhaseTimer:
             return
         for name, row in prior.items():
             self.add(name, row["seconds"], row["count"])
+
+
+@contextlib.contextmanager
+def device_trace(logdir: Optional[str] = None, device="cuda") -> Iterator[bool]:
+    """Trace the block with ``torch.profiler`` when enabled -> whether it traces.
+
+    Enabled by ``logdir`` or, without one, by ``TOPO4D_PROFILE_DIR``;
+    otherwise a no-op that yields False. The trace records host (CPU)
+    activity, and the card's kernels and copies (CUDA activity, through
+    CUPTI) when ``device`` is a CUDA device (a CUDA device without a card
+    raises). On exit, the block's exceptions included, it writes
+    ``<logdir>/trace_rank<r>.json``, ``r`` this process's rank (0 alone).
+    """
+    logdir = logdir or os.environ.get("TOPO4D_PROFILE_DIR")
+    if not logdir:
+        yield False
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from topo4d_tpu_torch.device import resolve_device
+    from topo4d_tpu_torch.parallel.multihost import process_index
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield True
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, f"trace_rank{process_index()}.json"))
+
+
+def sync_value(x):
+    """Wait until every card that holds a tensor of ``x`` (a tensor, or a
+    dict, list, tuple or NamedTuple of them) has finished its queued work
+    -> ``x``: the point before a host clock is read in a timing loop."""
+    devices = set()
+
+    def visit(v):
+        if isinstance(v, torch.Tensor):
+            if v.is_cuda:
+                devices.add(v.device)
+        elif isinstance(v, dict):
+            for w in v.values():
+                visit(w)
+        elif isinstance(v, (list, tuple)):
+            for w in v:
+                visit(w)
+
+    visit(x)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return x
 
 
 def mpix_per_s(height: int, width: int, iterations: int, seconds: float) -> float:
