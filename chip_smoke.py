@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port ``topo4d_tpu_torch``.
 
-    python3 chip_smoke.py [--ref NAME=PATH [NAME=PATH ...]] [--log PATH]
+    python3 chip_smoke.py [--ref NAME=PATH [NAME=PATH ...]] [--log PATH] [--seed N]
 
 ``--ref NAME=PATH`` builds PATH, a source of kernel NAME (an earlier
 commit's file from ``git show``, or a variant, with the kernel's C
@@ -9,15 +9,17 @@ interface), and times it beside the kernel in phase 6, both alone on the
 same inputs, in turns: NAME ``tile_blend_fwd`` (K1) and
 ``tile_blend_v3_fwd`` (K4f, at each tps) must give K1's rows 0-5 bit for
 bit, ``uv_bake`` (K6) the kernel's canvas. ``--log PATH`` also appends
-every log line to the file PATH. Without arguments only the
-phases below run.
+every log line to the file PATH. ``--seed N`` (0 by default) makes phase
+12's synthetic morphable model and its coefficients. Without arguments only
+the phases below run.
 
 Needs one CUDA card (exits non-zero without one) and ``nvcc``. Phases, in
 order; any failure raises and exits non-zero:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: every kernel of ``topo4d_tpu_torch/csrc`` with nvcc, in parallel,
-   and the host C library (``csrc/imgdec.c``) with the host compiler;
+   and the host libraries with the host compilers (``csrc/imgdec.c``, C;
+   ``csrc/scanline.cpp``, C++);
    the scene: the head grid and its dense mesh at density 5 (277,780 dense
    Gaussians, 546,028 dense triangles);
 3. kernels vs their plain PyTorch versions: K1/K2 at head scale (8,280
@@ -153,7 +155,13 @@ order; any failure raises and exits non-zero:
    d. ``entry("cuda")``'s loss against its plain version's (rtol 1e-5), K1
       and K5 once per call;
    e. ``dryrun_multichip(1, "cuda")``: a spawned NCCL world of one, every
-      loss finite.
+      loss finite;
+12. the face3d library surface and the "xla" bake (``phase_face3d``): a
+   synthetic morphable model from ``--seed`` at the Basel Face Model's
+   shapes, its generation, pose, lighting and keypoint fit on the card
+   against the CPU; the C++ scanline library on the posed head at 256x256
+   against ``mesh_numpy``; the banded "xla" bake at 8192x8192 on phase 3's
+   dense UV layout against K6's canvas, bit for bit.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3285,6 +3293,208 @@ def phase_modes(cfg, src, trainer, scene, frames):
     return out
 
 
+FACE3D_RENDER = 256  # the scanline renders' side
+FACE3D_CROP_RINGS = (54, 90)  # the rings whose triangles the NumPy oracle renders: a quarter of the head
+FACE3D_ANGLES = [10.0, -20.0, 5.0]  # the pose of the rendered head (degrees), at scale 1.1 px per unit
+FACE3D_BANDS = 64  # the "xla" bake's row bands at 8192^2: ~1e8 (pixel, triangle) pairs in each
+SEED = 0  # --seed: phase 12's synthetic morphable model and its coefficients
+
+
+def held(name, got, want, rtol, atol):
+    """``got`` (on the card) against ``want`` (on the CPU) -> max |err|;
+    raises past rtol / atol."""
+    got = got.detach().cpu()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"phase 12a: {name} on the card differs from the CPU: max|err| {err:.3e} "
+                             f"(rtol {rtol:g}, atol {atol:g})")
+    return err
+
+
+def phase_face3d(statics, bake_inputs):
+    """Phase 12: the face3d library surface (``mesh3d``) and the "xla" bake.
+
+    a. a synthetic morphable model from ``--seed`` at the Basel Face Model's
+       shapes (53,215 vertices, 105,840 triangles, 199 / 29 / 199
+       components, 68 keypoints) on the card: ``generate_vertices``,
+       ``generate_colors``, ``transform``, ``get_normal``, ``add_light``,
+       ``add_light_sh``, ``fit_light_sh`` and ``fit_points`` (4 iterations on
+       the keypoints), each against the same call on the CPU on the same
+       inputs (the tests' tolerances: rtol 1e-5 with atol 1e-6, of the
+       largest magnitude for the generated coordinates and colors; the SH
+       fit atol 1e-5; the keypoint fit's s, R, t and reprojection within
+       1e-4 relative), ms per call;
+    b. the C++ scanline library built by the host compiler: the posed head
+       through ``to_image`` at 256x256, ``render_colors``,
+       ``rasterize_triangles`` and ``render_texture`` (bilinear) against
+       ``mesh_numpy`` on the triangles of rings 54-89 (the NumPy loop over
+       all of them takes ~8 s a function): triangle ids equal, colors rtol
+       1e-5 / atol 1e-6, depth rtol 1e-5 / atol 1e-5, barycentrics rtol 1e-4
+       / atol 1e-5; ms per render of the whole head;
+    c. the "xla" bake (``texture/bake.py``) at 8192^2 on phase 3's dense UV
+       layout and seeded colors, its window sized from the layout (printed;
+       too small a window raises), against K6's canvas: bit for bit, or the
+       differing pixels counted and bounded at 1e-4 of the canvas; ms of
+       both.
+    -> the numbers."""
+    from topo4d_tpu_torch.mesh3d import bfm, light, mesh_numpy, scanline, transform
+    from topo4d_tpu_torch.pipeline.export import uv_to_vertex
+    from topo4d_tpu_torch.testing import make_synthetic_bfm
+    from topo4d_tpu_torch.texture.bake import bake_texture
+    from topo4d_tpu_torch.texture.bake_tiled import bake_canvas_cuda, process_uv
+
+    t_phase = time.perf_counter()
+    out = {"ms": {}, "err": {}}
+
+    # 12a: the mesh3d surface on the card against the CPU
+    t0 = time.perf_counter()
+    model = make_synthetic_bfm(SEED, device=DEVICE)
+    host = model.to("cpu")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in model if t is not None)
+    log(f"phase 12a: synthetic morphable model (seed {SEED}): {model.nver} vertices, {model.triangles.shape[0]} "
+        f"triangles, {model.n_shape_para} / {model.n_exp_para} / {model.tex_pc.shape[1]} components, "
+        f"{model.kpt_ind.shape[0]} keypoints, {nbytes / 2**20:.1f} MiB on the card, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    sp = (rng.standard_normal(model.n_shape_para) * host.shape_ev.numpy()).astype(np.float32)
+    ep = (rng.standard_normal(model.n_exp_para) * host.exp_ev.numpy()).astype(np.float32)
+    tp = rng.standard_normal(host.tex_pc.shape[1]).astype(np.float32)
+    coeff = rng.normal(size=9).astype(np.float32)
+    light_pos = np.array([[0.0, 50.0, 400.0], [-300.0, 200.0, 300.0]], np.float32)
+    light_int = np.array([[1.0, 0.9, 0.8], [0.4, 0.4, 0.6]], np.float32)
+    # the inputs of each call, made on the CPU: both sides see the same ones
+    v = bfm.generate_vertices(host, sp, ep)
+    colors = bfm.generate_colors(host, tp)
+    posed = bfm.transform(host, v, 1.1, FACE3D_ANGLES, [0.0, 0.0, 0.0])
+    normals = light.get_normal(posed, host.triangles)
+    lit_sh = light.add_light_sh(posed, host.triangles, colors, coeff)
+    cpu_in = {"v": v, "colors": colors, "posed": posed, "normals": normals, "lit_sh": lit_sh,
+              "x2d": posed[host.kpt_ind, :2].contiguous()}
+    dev_in = {k: x.to(DEVICE) for k, x in cpu_in.items()}
+    scaled = lambda ref: dict(rtol=1e-5, atol=1e-6 * float(ref.abs().max()))  # noqa: E731
+    calls = {
+        "generate_vertices": (lambda m, i: bfm.generate_vertices(m, sp, ep), scaled(v)),
+        "generate_colors": (lambda m, i: bfm.generate_colors(m, tp), scaled(colors)),
+        "transform": (lambda m, i: bfm.transform(m, i["v"], 1.1, FACE3D_ANGLES, [0.0, 0.0, 0.0]), scaled(posed)),
+        "get_normal": (lambda m, i: light.get_normal(i["posed"], m.triangles), dict(rtol=1e-5, atol=1e-6)),
+        "add_light": (lambda m, i: light.add_light(i["posed"], m.triangles, i["colors"], light_pos, light_int),
+                      dict(rtol=1e-5, atol=1e-6)),
+        "add_light_sh": (lambda m, i: light.add_light_sh(i["posed"], m.triangles, i["colors"], coeff),
+                         dict(rtol=1e-5, atol=1e-6)),
+        "fit_light_sh": (lambda m, i: light.fit_light_sh(i["lit_sh"], i["colors"], i["normals"]),
+                         dict(rtol=1e-5, atol=1e-5)),
+    }
+    for name, (fn, tol) in calls.items():
+        out["err"][name] = held(name, fn(model, dev_in), fn(host, cpu_in), **tol)
+        out["ms"][name] = cuda_ms(lambda: fn(model, dev_in), iters=10, warmup=2)
+    fit = lambda m, i: bfm.fit_points(i["x2d"], m.kpt_ind, m, max_iter=4)  # noqa: E731
+    got, want = fit(model, dev_in), fit(host, cpu_in)
+
+    def reprojection(sp_, ep_, s, r, t):
+        return s * bfm.generate_vertices(host, sp_, ep_)[host.kpt_ind] @ r[:2].T + t[:2]
+
+    got = [x.cpu() for x in got]
+    fit_err = {k: float((g - w).abs().max() / w.abs().max()) for k, g, w in zip("srt", got[2:], want[2:])}
+    rp, rp_want = reprojection(*got), reprojection(*want)
+    fit_err["reprojection"] = float((rp - rp_want).abs().max() / rp_want.abs().max())
+    fit_err["to_keypoints"] = float((rp_want - cpu_in["x2d"]).abs().max() / cpu_in["x2d"].abs().max())
+    if max(fit_err[k] for k in ("s", "r", "t", "reprojection")) > 1e-4:
+        raise AssertionError(f"phase 12a: fit_points on the card differs from the CPU by more than 1e-4: {fit_err}")
+    out["err"]["fit_points"] = fit_err
+    out["ms"]["fit_points"] = cuda_ms(lambda: fit(model, dev_in), iters=5, warmup=1)
+    log("phase 12a: on the card against the CPU, max|err| " + ", ".join(
+        f"{k} {e:.2e}" for k, e in out["err"].items() if k != "fit_points")
+        + "; fit_points relative " + ", ".join(f"{k} {e:.2e}" for k, e in fit_err.items())
+        + f" (s {float(want[2]):.5f}); ms per call on the card " + ", ".join(
+        f"{k} {t:.3f}" for k, t in out["ms"].items()))
+
+    # 12b: the C++ scanline library against the NumPy tier
+    res = FACE3D_RENDER
+    img_v = transform.to_image(posed, res, res).numpy()
+    tris = host.triangles.numpy()
+    cols = colors.numpy()
+    around = 367  # make_synthetic_bfm's vertices per ring; ring r's quads are triangles 2 r around ..
+    ring, col = np.divmod(np.arange(model.nver), around)
+    tex_coords = np.stack([col / (around - 1), ring / ring.max()], 1).astype(np.float32) * (res - 1)
+    texture = rng.uniform(0.0, 1.0, (res, res, 3)).astype(np.float32)
+    lo, hi = FACE3D_CROP_RINGS
+    crop = tris[2 * lo * around : 2 * hi * around]
+    renders = {
+        "render_colors": lambda tr, mod: mod.render_colors(img_v, tr, cols, res, res),
+        "rasterize_triangles": lambda tr, mod: mod.rasterize_triangles(img_v, tr, res, res),
+        "render_texture": lambda tr, mod: mod.render_texture(img_v, tr, texture, tex_coords, tr, res, res, True),
+    }
+    out["scanline_ms"], out["numpy_s"] = {}, {}
+    for name, fn in renders.items():
+        t0 = time.perf_counter()
+        for _ in range(5):
+            full = fn(tris, scanline)
+        out["scanline_ms"][name] = (time.perf_counter() - t0) / 5 * 1e3
+        t0 = time.perf_counter()
+        oracle = fn(crop, mesh_numpy)
+        out["numpy_s"][name] = time.perf_counter() - t0
+        got = fn(crop, scanline)
+        if name == "rasterize_triangles":
+            np.testing.assert_array_equal(got[1], oracle[1], err_msg="phase 12b: triangle ids")
+            np.testing.assert_allclose(got[0], oracle[0], rtol=1e-5, atol=1e-5, err_msg="phase 12b: depth")
+            np.testing.assert_allclose(got[2], oracle[2], rtol=1e-4, atol=1e-5, err_msg="phase 12b: barycentrics")
+            covered = float((got[1] >= 0).mean())
+            out["covered"] = (covered, float((full[1] >= 0).mean()))
+        else:
+            np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-6, err_msg=f"phase 12b: {name}")
+    log(f"phase 12b: the library {scanline._lib()._name} on {crop.shape[0]} triangles (rings {lo}-{hi - 1}) at "
+        f"{res}x{res} equal to mesh_numpy's (ids "
+        f"bit for bit, {100 * out['covered'][0]:.1f}% of the pixels covered; the whole head "
+        f"{100 * out['covered'][1]:.1f}%); ms per render of all {tris.shape[0]} triangles in the library: "
+        + ", ".join(f"{k} {t:.2f}" for k, t in out["scanline_ms"].items())
+        + "; s of mesh_numpy on the crop: " + ", ".join(f"{k} {t:.2f}" for k, t in out["numpy_s"].items()))
+
+    # 12c: the "xla" bake at TEX_RES against K6
+    binning = bake_inputs[0]
+    nd = statics.dense.topo.dense_vertices.shape[0]
+    bake_colors = torch.rand((nd, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(21))
+    uv_px = process_uv(statics.dense.topo.dense_uvs.copy(), TEX_RES, TEX_RES)
+    uv_tris = statics.dense.tri_uv_faces
+    uv32 = uv_px.astype(np.float32)  # the corners the bake checks and rasterizes
+    tx, ty = uv32[:, 0][uv_tris], uv32[:, 1][uv_tris]
+    span = max(float((tx.max(1) - tx.min(1)).max()), float((ty.max(1) - ty.min(1)).max()))
+    window = int(np.floor(span)) + 1
+    uv_colors = bake_colors[torch.as_tensor(uv_to_vertex(statics), device=DEVICE)]
+    bake = lambda: bake_texture(uv_px, uv_tris, uv_colors, TEX_RES, TEX_RES, window=window,  # noqa: E731
+                                bands=FACE3D_BANDS, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    xla = bake()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    k6 = bake_canvas_cuda(binning, bake_colors, TEX_RES, TEX_RES)
+    torch.cuda.synchronize()
+    differ = int((xla != k6).any(-1).sum())
+    out["bake"] = {"window": window, "span": span, "bands": FACE3D_BANDS, "differ": differ, "first_s": first_s,
+                   "peak_bytes": peak}
+    if differ:
+        where = torch.nonzero((xla != k6).any(-1))[:5].tolist()
+        log(f"phase 12c: {differ} pixels differ from K6, e.g. {where}: xla {xla[tuple(zip(*where))].tolist()} "
+            f"K6 {k6[tuple(zip(*where))].tolist()}")
+        if differ > 1e-4 * TEX_RES * TEX_RES:
+            raise AssertionError(f"phase 12c: the xla bake differs from K6 in {differ} pixels, over 1e-4 of the canvas")
+    out["bake"]["xla_ms"] = cuda_ms(bake, iters=2, warmup=0)
+    out["bake"]["k6_ms"] = cuda_ms(lambda: bake_canvas_cuda(binning, bake_colors, TEX_RES, TEX_RES), iters=20)
+    del xla, k6
+    log(f"phase 12c: the xla bake at {TEX_RES}x{TEX_RES}, {uv_tris.shape[0]} triangles: the largest bbox spans "
+        f"{span:.2f} px, so window {window} (the default bake_window 16 {'would raise' if span >= 16 else 'suffices'}), "
+        f"{FACE3D_BANDS} bands, peak "
+        f"{peak / 2**30:.2f} GiB; " + ("bit for bit equal to K6's canvas" if not differ else f"{differ} pixels differ")
+        + f"; {out['bake']['xla_ms']:.3f} ms per bake (first call {first_s * 1e3:.1f} ms) against K6's "
+        f"{out['bake']['k6_ms']:.4f} ms")
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['wall']:.1f} s")
+    return out
+
+
 def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
@@ -3381,7 +3591,7 @@ def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, bl
 
 
 def main() -> int:
-    global CARD, LOG_FILE
+    global CARD, LOG_FILE, SEED
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke run of topo4d_tpu_torch.")
@@ -3390,7 +3600,10 @@ def main() -> int:
                         "commit's file, or a variant) to time beside the kernel in phase 6, each alone, in turns")
     parser.add_argument("--log", metavar="PATH", default=None,
                         help="also append every log line to the file PATH")
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="the seed of phase 12's synthetic morphable model and its coefficients")
     args = parser.parse_args()
+    SEED = args.seed
     if args.log:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
         open(args.log, "w").close()
@@ -3410,7 +3623,8 @@ def main() -> int:
 
     log(f"kernels built in {kernels.build_all(verbose=True):.2f} s")
     t0 = time.perf_counter()
-    log(f"host C library {native.library()._name} (PNG unfilter, JPEG decoder) built and loaded in "
+    log(f"host libraries {native.library()._name} (C: PNG unfilter, JPEG decoder) and "
+        f"{native.library('scanline')._name} (C++: the scanline renderer) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for spec in args.ref:
         symbol, _, path = spec.partition("=")
@@ -3448,6 +3662,7 @@ def main() -> int:
     cli = phase_cli(run)
     multi = phase_multi(cfg, src, frames, batched, bake_inputs)
     modes = phase_modes(cfg, src, trainer, scene, frames)
+    face3d = phase_face3d(trainer.statics, bake_inputs)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
@@ -3462,7 +3677,8 @@ def main() -> int:
         f"frame {cli['jpeg']['frame_s']:.3f} s, on the card {cli['jpeg']['h2d_s']:.3f} s; dense modes, ms per step: "
         + ", ".join(f"{m} {v:.3f}" for m, v in modes["modes_ms"].items())
         + f"; remat off / on {modes['remat']['off']['ms']:.3f} / {modes['remat']['on']['ms']:.3f} ms per step; "
-        f"peak device memory "
+        f"phase 12: xla bake {face3d['bake']['xla_ms']:.3f} ms against K6's {face3d['bake']['k6_ms']:.4f} ms, "
+        f"{face3d['bake']['differ']} pixels apart; peak device memory from phase 12c's bake on "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)

@@ -8,10 +8,13 @@ CPU.
   at the JAX suite's bake tolerance (rtol 2e-4 / atol 2e-5,
   ``tests/test_texture.py:298``); against JAX the colors differ in the last
   bits where XLA orders the interpolation's products and sums otherwise;
-- a second, independent oracle: this file's torch copy of JAX's banded
-  three-pass scatter bake (``topo4d_tpu/texture/bake.py``), held against
-  JAX's at that tolerance and against K6's plain version bit for bit. It
-  lives here, not in the package: the port bakes through K6 alone;
+- a second, independent bake: the port's banded three-pass scatter bake
+  (``texture/bake.py``, ``texture.bake_backend: "xla"``; JAX's
+  ``topo4d_tpu/texture/bake.py``), held against JAX's at that tolerance and
+  against K6's plain version bit for bit; ``write_texture`` with the "xla"
+  bake against JAX's (the decoded pixels within one uint8 level, but for
+  JAX's cracks, as ``tests/test_torch_export.py`` allows them) and equal to
+  the port's "auto" bake; a window too small raises in both packages;
 - K6's plain version against the C++ scanline oracle on a seam-heavy
   layout (fewer than 1e-4 of the pixels differ, ``tests/test_texture.py:394``).
 
@@ -26,14 +29,18 @@ triangles, and a cull one pixel wider is caught. The binning's list of
 empty tiles is checked against its occupied tiles and ranges.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from topo4d_tpu.config import Config as JConfig
 from topo4d_tpu.native import render_colors as native_render
+from topo4d_tpu.pipeline.export import write_texture as j_write_texture
 from topo4d_tpu.pipeline.scene import build_scene as j_build_scene
 from topo4d_tpu.testing import make_grid_mesh as j_grid
 from topo4d_tpu.testing import make_synthetic_regions as j_regions
@@ -43,8 +50,10 @@ from topo4d_tpu.texture.bake_pallas import bake_texture_pallas
 from topo4d_tpu.texture.bake_pallas import compute_bake_binning as j_compute_bake_binning
 from topo4d_tpu.topology.obj_io import MeshObj as JMesh
 
-from topo4d_tpu_torch import kernels
+from topo4d_tpu_torch import convert, kernels
+from topo4d_tpu_torch.pipeline.export import write_texture
 from topo4d_tpu_torch.testing import make_crowded_bake_tile
+from topo4d_tpu_torch.texture.bake import bake_texture
 from topo4d_tpu_torch.texture.bake_tiled import (
     LAUNCHES,
     bake_canvas,
@@ -85,9 +94,10 @@ def tie_mesh():
     return verts, np.array([[0, 1, 2], [3, 4, 5]], np.int32), colors
 
 
-def dense_mesh_layout(res, density=2):
-    """The UV-densified dense mesh of a 10x10 grid head: (uv_px, tri_uv_faces,
-    uv -> vertex map, vertex count)."""
+@functools.lru_cache(maxsize=None)
+def dense_scene(density=2):
+    """JAX's scene statics of a 10x10 grid head with its UV-densified dense
+    mesh."""
     rows = cols = 10
     verts, faces = j_grid(rows, cols, extent=0.5)
     uvs = np.stack(
@@ -100,6 +110,13 @@ def dense_mesh_layout(res, density=2):
         JMesh(vertices=verts, uvs=uvs, faces=faces, uv_faces=[list(f) for f in faces]),
         j_regions(verts.shape[0], faces), cfg, num_views=4,
     )
+    return st
+
+
+def dense_mesh_layout(res, density=2):
+    """The dense mesh of ``dense_scene``: (uv_px, tri_uv_faces, uv -> vertex
+    map, vertex count)."""
+    st = dense_scene(density)
     uv2vert = np.zeros(st.dense.topo.dense_uvs.shape[0], np.int64)
     uv2vert[st.dense.tri_uv_faces.reshape(-1)] = st.dense.tri_faces.reshape(-1)
     uv_px = j_process_uv(st.dense.topo.dense_uvs.copy(), res, res)
@@ -268,99 +285,9 @@ def test_plain_bake_with_cached_corner_map_matches_pallas():
 
 
 # ---------------------------------------------------------------------------
-# the banded scatter bake: a torch copy of topo4d_tpu/texture/bake.py that
-# shares no code with the port's bake
+# the banded scatter bake (texture/bake.py, texture.bake_backend "xla"): the
+# port's copy of JAX's algorithm, which shares no code with K6's
 # ---------------------------------------------------------------------------
-
-_NEG = -999999.0  # the depth of "no triangle" (the reference's z-buffer fill)
-_ID_NONE = 2**31 - 1
-
-
-def _barycentric(px, py, x0, y0, x1, y1, x2, y2):
-    """(w0, w1, w2) of pixel (px, py): the Cramer solve through dot
-    products, in the JAX bake's operation order."""
-    v0x, v0y = x2 - x0, y2 - y0
-    v1x, v1y = x1 - x0, y1 - y0
-    v2x, v2y = px - x0, py - y0
-    dot00 = v0x * v0x + v0y * v0y
-    dot01 = v0x * v1x + v0y * v1y
-    dot02 = v0x * v2x + v0y * v2y
-    dot11 = v1x * v1x + v1y * v1y
-    dot12 = v1x * v2x + v1y * v2y
-    denom = dot00 * dot11 - dot01 * dot01
-    inv = torch.where(denom == 0.0, torch.zeros_like(denom), 1.0 / denom)
-    u = (dot11 * dot02 - dot01 * dot12) * inv
-    v = (dot00 * dot12 - dot01 * dot02) * inv
-    return 1.0 - u - v, v, u
-
-
-def _bake_band(verts, tris, colors, tri_ids, tri_valid, y_offset, height, width, window):
-    """One row band [y_offset, y_offset + height) -> (height, width, C):
-    scatter-max depth, scatter-min triangle id among the depth winners,
-    then the winner's color."""
-    tx, ty, tz = verts[:, 0][tris], verts[:, 1][tris], verts[:, 2][tris]  # (F, 3)
-    umin = torch.ceil(torch.amin(tx, dim=1)).to(torch.int64)
-    vmin = torch.ceil(torch.amin(ty, dim=1)).to(torch.int64)
-    umax = torch.floor(torch.amax(tx, dim=1)).to(torch.int64)
-    vmax = torch.floor(torch.amax(ty, dim=1)).to(torch.int64)
-    k = torch.arange(window * window)
-    pu = umin[:, None] + (k % window)[None, :]  # (F, W^2) pixel x
-    pv = vmin[:, None] + (k // window)[None, :]
-    in_bbox = (pu <= umax[:, None]) & (pv <= vmax[:, None])
-    in_canvas = (pu >= 0) & (pu < width) & (pv >= y_offset) & (pv < y_offset + height)
-    w0, w1, w2 = _barycentric(
-        pu.to(torch.float32), pv.to(torch.float32),
-        tx[:, 0:1], ty[:, 0:1], tx[:, 1:2], ty[:, 1:2], tx[:, 2:3], ty[:, 2:3],
-    )
-    valid = in_bbox & in_canvas & (w2 >= 0) & (w1 >= 0) & (w1 + w2 <= 1.0) & tri_valid[:, None]
-    depth = w0 * tz[:, 0:1] + w1 * tz[:, 1:2] + w2 * tz[:, 2:3]
-    npx = height * width
-    flat_idx = torch.where(valid, (pv - y_offset) * width + pu, npx).reshape(-1)
-    depth_flat = torch.where(valid, depth, _NEG).reshape(-1)
-    zbuf = torch.full((npx + 1,), _NEG).scatter_reduce_(0, flat_idx, depth_flat, "amax")
-    tid = tri_ids[:, None].expand(pu.shape).reshape(-1)
-    is_winner = valid.reshape(-1) & (depth_flat >= zbuf[flat_idx])
-    win_id = torch.full((npx + 1,), _ID_NONE, dtype=torch.int64).scatter_reduce_(
-        0, flat_idx, torch.where(is_winner, tid, _ID_NONE), "amin"
-    )
-    final = is_winner & (tid == win_id[flat_idx])
-    col = (
-        w0[..., None] * colors[tris[:, 0]][:, None, :]
-        + w1[..., None] * colors[tris[:, 1]][:, None, :]
-        + w2[..., None] * colors[tris[:, 2]][:, None, :]
-    ).reshape(-1, colors.shape[1])
-    img = torch.zeros((npx + 1, colors.shape[1]))
-    img[torch.where(final, flat_idx, npx)] = torch.where(final[:, None], col, 0.0)
-    return img[:npx].reshape(height, width, -1)
-
-
-def scatter_bake(uv_px, tri_faces, colors, height, width, window=8, bands=8):
-    """JAX's ``bake_texture`` on CPU tensors -> (H, W, C): each triangle
-    rasterizes a ``window``² window from its bbox's ceiling (a larger bbox
-    raises), bucketed by the row bands its inner bbox meets."""
-    tx, ty = uv_px[:, 0][tri_faces], uv_px[:, 1][tri_faces]
-    span = max(float((tx.max(1) - tx.min(1)).max()), float((ty.max(1) - ty.min(1)).max()))
-    if span >= window:
-        raise ValueError(f"triangle bbox span {span:.1f}px exceeds window {window}")
-    band_h = -(-height // bands)
-    vmin, vmax = np.ceil(ty.min(1)).astype(np.int64), np.floor(ty.max(1)).astype(np.int64)
-    b_lo, b_hi = np.clip(vmin // band_h, 0, bands - 1), np.clip(vmax // band_h, 0, bands - 1)
-    verts = torch.as_tensor(np.asarray(uv_px, np.float32))
-    tris = np.asarray(tri_faces, np.int64)
-    cols = torch.as_tensor(colors, dtype=torch.float32)
-    out = torch.zeros((height, width, cols.shape[1]))
-    for b in range(bands):
-        y0 = b * band_h
-        h = min(band_h, height - y0)
-        if h <= 0:
-            break
-        ids = np.flatnonzero((vmax >= vmin) & (b_lo <= b) & (b <= b_hi))
-        img = _bake_band(
-            verts, torch.as_tensor(tris[ids]), cols, torch.as_tensor(ids), torch.ones(ids.size, dtype=torch.bool),
-            y0, band_h, width, window,
-        )
-        out[y0 : y0 + h] = img[:h]
-    return out
 
 
 @pytest.mark.parametrize("name", ["random_96x80", "first_wins_tie", "not_a_multiple_of_16"])
@@ -368,7 +295,7 @@ def test_scatter_bake_matches_jax(name):
     verts, tris, colors, h, w = _case(name)
     window = 32 if name == "first_wins_tie" else 16
     want = j_bake_texture(verts, tris, colors, h, w, window=window, bands=3)
-    got = scatter_bake(verts, tris, colors, h, w, window=window, bands=3)
+    got = bake_texture(verts, tris, colors, h, w, window=window, bands=3, device=CPU)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     # the two torch bakes share no code and agree bit for bit
     np.testing.assert_array_equal(got.numpy(), bake_texture_tiled(verts, tris, colors, h, w, device=CPU).numpy())
@@ -378,9 +305,49 @@ def test_scatter_bake_window_overflow_raises():
     verts = np.array([[0, 0, 0], [30, 0, 0], [0, 30, 0]], np.float32)
     tris = np.array([[0, 1, 2]], np.int32)
     with pytest.raises(ValueError, match="window"):
-        scatter_bake(verts, tris, np.ones((3, 3), np.float32), 32, 32, window=8)
+        bake_texture(verts, tris, np.ones((3, 3), np.float32), 32, 32, window=8, device=CPU)
     with pytest.raises(ValueError, match="window"):
         j_bake_texture(verts, tris, np.ones((3, 3), np.float32), 32, 32, window=8)
+
+
+def test_write_texture_with_the_xla_bake_matches_jax(tmp_path):
+    """``write_texture(backend="xla")`` on the CPU against JAX's on the same
+    converted dense colors (window 16, 2 bands): the decoded pixels within
+    one uint8 level (the bake's rtol 2e-4 before truncation) but for JAX's
+    cracks on exact shared edges (0 there, covered here; see
+    ``test_plain_bake_of_the_dense_mesh_matches_pallas_and_the_scanline_oracle``),
+    and the port's "xla" PNG equal to its "auto" one byte for byte."""
+    st = dense_scene()
+    nd = st.dense.topo.dense_vertices.shape[0]
+    dense = {"dense_rgb_colors": np.random.default_rng(6).uniform(-0.1, 1.1, (nd, 3)).astype(np.float32)}
+    statics, colors = convert.statics_from_numpy(st), convert.params_from_numpy(dense, CPU)
+    j_write_texture(str(tmp_path / "jax.png"), dense, st, 64, 16, 2, "xla")
+    reset_launches()
+    write_texture(str(tmp_path / "xla.png"), colors, statics, 64, backend="xla", window=16, bands=2)
+    assert LAUNCHES == {"uv_bake": 0, "uv_bake_plain": 0}  # no K6, no binning
+    write_texture(str(tmp_path / "auto.png"), colors, statics, 64)
+    assert (tmp_path / "xla.png").read_bytes() == (tmp_path / "auto.png").read_bytes()
+    with Image.open(tmp_path / "xla.png") as a, Image.open(tmp_path / "jax.png") as b:
+        got, want = np.asarray(a).astype(np.int16), np.asarray(b).astype(np.int16)
+    crack = (np.abs(got - want) > 1).any(-1)
+    assert np.all(want[crack] == 0) and np.all(got[crack].max(-1) > 0) and crack.mean() < 0.01
+    assert got.max() > 0 and np.abs(got - want)[~crack].max() <= 1
+
+
+def test_write_texture_with_a_window_too_small_raises_as_in_jax(tmp_path):
+    """The dense triangles span more than 2 pixels at 64^2: both packages
+    raise rather than drop them; an unknown backend raises naming the key
+    (JAX bakes it as "xla")."""
+    st = dense_scene()
+    dense = {"dense_rgb_colors": np.zeros((st.dense.topo.dense_vertices.shape[0], 3), np.float32)}
+    with pytest.raises(ValueError, match="exceeds window 2"):
+        j_write_texture(str(tmp_path / "jax.png"), dense, st, 64, 2, 2, "xla")
+    statics, colors = convert.statics_from_numpy(st), convert.params_from_numpy(dense, CPU)
+    with pytest.raises(ValueError, match="exceeds window 2"):
+        write_texture(str(tmp_path / "port.png"), colors, statics, 64, backend="xla", window=2, bands=2)
+    with pytest.raises(ValueError, match="texture.bake_backend"):
+        write_texture(str(tmp_path / "port.png"), colors, statics, 64, backend="banded")
+    assert not (tmp_path / "port.png").exists()
 
 
 @pytest.mark.parametrize("res", [64, 96])

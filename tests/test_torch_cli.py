@@ -138,7 +138,7 @@ def test_config_keys_the_port_lacks():
     raw = json.loads(JConfig().to_json())
     for path, value, err in [
         (("raster", "interpret"), True, ValueError),
-        (("texture", "bake_backend"), "xla", ValueError),
+        (("texture", "bake_backend"), "banded", ValueError),
         (("neighbor_weight_k",), 1000.0, ValueError),
         (("data", "max_cams"), 12, ValueError),
         (("schedule", "no_such_key"), 1, ValueError),
@@ -151,6 +151,15 @@ def test_config_keys_the_port_lacks():
         with pytest.raises(err, match=path[-1]):
             Config.from_json(json.dumps(bad))
     assert Config.from_json(json.dumps(raw)) == Config()
+    # the bake keys load at every value JAX names, and round-trip with JAX's
+    # config: "pallas" and "auto" bake through K6, "xla" through the banded
+    # bake (an unknown backend raises above; JAX bakes it as "xla")
+    for backend, window, bands in (("pallas", 16, 8), ("xla", 24, 5), ("auto", 9, 3)):
+        jcfg = JConfig()
+        jcfg.texture.bake_backend, jcfg.texture.bake_window, jcfg.texture.bake_bands = backend, window, bands
+        cfg = Config.from_json(jcfg.to_json())
+        assert (cfg.texture.bake_backend, cfg.texture.bake_window, cfg.texture.bake_bands) == (backend, window, bands)
+        assert JConfig.from_json(cfg.to_json()) == jcfg
     # the multi-rank keys load at any value: tile sharding and the orbax
     # resume backend are ported; so are every dense binning cadence and the
     # photometric remat

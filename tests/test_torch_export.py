@@ -230,10 +230,11 @@ def _run_inputs(scene):
     return params, dict(params, rgb_colors=rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32))
 
 
-def _port_run(scene, out_dir, frames, resume=False, num_frames=3, async_export=True):
+def _port_run(scene, out_dir, frames, resume=False, num_frames=3, async_export=True, bake_backend="auto"):
     params, truth = _run_inputs(scene)
     cfg = _configure(Config(), out_dir, frames)
     cfg.schedule.async_export = async_export
+    cfg.texture.bake_backend = bake_backend
     cams = make_camera_ring(4, width=48, height=32, distance=2.0, device=CPU)
     source = _Offset(SyntheticSequence(params=truth, cameras=cams, num_frames=num_frames))
     trainer = Trainer(cfg, source, params, convert.statics_from_numpy(scene[3]), device=CPU)
@@ -310,6 +311,22 @@ def test_run_textures_match_jax(runs):
     for t in (1, 2, 3):
         got = _decoded(os.path.join(out, "%06d" % t, "face.png"))
         _assert_texture_close(got, _decoded(os.path.join(jout, "%06d" % t, "face.png")))
+
+
+def test_run_with_the_xla_bake_matches_jax(runs, scene, tmp_path):
+    """``texture.bake_backend: "xla"``: each frame's ``face.png`` from the
+    banded bake, with no bake binning built, against the JAX run's (whose
+    "auto" on the CPU is its "xla" bake) at ``test_run_textures_match_jax``'s
+    tolerance, and equal byte for byte to the port's "auto" run's (K6's plain
+    version)."""
+    _, auto_out, jout = runs
+    trainer, out = _port_run(scene, tmp_path, 3, bake_backend="xla")
+    assert trainer._bake_binning is None
+    for t in (1, 2, 3):
+        png = os.path.join("%06d" % t, "face.png")
+        with open(os.path.join(out, png), "rb") as a, open(os.path.join(auto_out, png), "rb") as b:
+            assert a.read() == b.read(), t
+        _assert_texture_close(_decoded(os.path.join(out, png)), _decoded(os.path.join(jout, png)))
 
 
 def test_run_timings_and_summary_rows(runs):

@@ -179,7 +179,7 @@ def test_c_unfilter_refuses_a_bad_filter_type():
         unfilter(raw, 3)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 3), (37, 53, 3), (20, 301, 3)])
+@pytest.mark.parametrize("shape", [(1, 1, 3), (37, 53, 3), (20, 301, 3), (9, 7), (5, 6, 4)])
 def test_round_trip_with_encode_png(shape, tmp_path):
     arr = np.random.default_rng(shape[1]).integers(0, 256, shape).astype(np.uint8)
     path = str(tmp_path / "t.png")

@@ -198,6 +198,14 @@ class TextureConfig:
     gen_tex: bool = False  # build the dense UV-densified Gaussians
     tex_res: int = 8192  # the baked UV texture's side
     density: int = 30  # interior subdivision points per quad edge
+    # the export's bake: "auto" and "pallas" bake through K6 (its plain
+    # version for colors on the CPU) over a per-sequence binning; "xla" runs
+    # the banded three-pass scatter bake (texture/bake.py) on the fit's
+    # device, each triangle in a bake_window^2 pixel window (a larger
+    # triangle raises), the canvas in bake_bands row bands
+    bake_window: int = 16
+    bake_bands: int = 8
+    bake_backend: str = "auto"
     # the dense loop's binning cadence (pallas backend): 0 = one frozen
     # binning per (frame, view), bound up front (scan mode; the dense means3D
     # are fixed within a frame); k > 1 = re-bin a view after k uses, bound
@@ -220,6 +228,9 @@ class TextureConfig:
     # step; the same values)
     remat_photometric: bool = False
     allview_eval: bool = False  # log the mean PSNR over all views per log row
+
+    def __post_init__(self):
+        check_bake_backend(self.bake_backend)
 
 
 @dataclasses.dataclass
@@ -285,15 +296,12 @@ ANY = object()
 # Keys of the JAX package's config that the port has no field for, each at
 # the value for which the port's behaviour is the JAX package's: the Pallas
 # interpreter off, any entry window of the Pallas blend (it changes no
-# result), the bake knobs (one bake here), the one-ring weight sharpness
-# the port computes with, the 24-camera cap of scenes built without a view
-# count (the port always passes the source's).
+# result), the one-ring weight sharpness the port computes with, the
+# 24-camera cap of scenes built without a view count (the port always passes
+# the source's).
 JAX_ONLY_DEFAULTS = {
     "raster.interpret": False,
     "raster.chunk": ANY,
-    "texture.bake_window": 16,
-    "texture.bake_bands": 8,
-    "texture.bake_backend": "auto",
     "neighbor_weight_k": 2000.0,
     "data.max_cams": 24,
 }
@@ -306,6 +314,16 @@ def _accept_jax_only(key: str, value) -> None:
         raise ValueError(
             f"config key {key!r} = {value!r}: topo4d_tpu_torch runs only with {JAX_ONLY_DEFAULTS[key]!r}"
         )
+
+
+BAKE_BACKENDS = ("auto", "pallas", "xla")
+
+
+def check_bake_backend(backend: str) -> None:
+    """Raise on a ``texture.bake_backend`` the port does not know (the JAX
+    package bakes any value but "auto" and "pallas" as "xla")."""
+    if backend not in BAKE_BACKENDS:
+        raise ValueError(f"texture.bake_backend must be one of {', '.join(BAKE_BACKENDS)}, got {backend!r}")
 
 
 def check_schedule(cfg: Config) -> None:

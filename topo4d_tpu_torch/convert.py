@@ -18,6 +18,7 @@ from topo4d_tpu_torch.core.camera import Camera
 from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.losses.flatten import DihedralQuadruples, UmbrellaFlatten
 from topo4d_tpu_torch.losses.temporal import TemporalPriors
+from topo4d_tpu_torch.mesh3d.bfm import MorphableModel
 from topo4d_tpu_torch.opt.adam import AdamState
 from topo4d_tpu_torch.opt.densify import DensifyState
 from topo4d_tpu_torch.opt.step import GeometryPriors
@@ -134,3 +135,14 @@ def statics_from_numpy(s) -> SceneStatics:
         uv_faces=None if s.uv_faces is None else [list(f) for f in s.uv_faces],
         dense=None if s.dense is None else dense_mesh_from_numpy(s.dense),
     )
+
+
+def morphable_model_from_numpy(m, device="cuda") -> MorphableModel:
+    """A reference MorphableModel (float32 bases, int32 triangles and
+    keypoint indices, optional texture PCA) on ``device``: floats stay
+    float32, indices become int64."""
+    dev = resolve_device(device)
+    return MorphableModel(**{
+        name: None if getattr(m, name) is None else _t(getattr(m, name), dev)
+        for name in MorphableModel._fields
+    })

@@ -7,9 +7,10 @@ makes up for the splat's thickness; the inverse global transform maps them
 back to the capture frame. The OBJ keeps the original quad-dominant
 topology and UVs, byte-identical across frames.
 
-The texture bake (``write_texture``) goes through ``bake_canvas``
-(``texture/bake_tiled.py``): kernel K6 for colors on the card, its plain
-version for colors on the CPU.
+The texture bake (``write_texture``) goes, with ``backend`` "auto" or
+"pallas", through ``bake_canvas`` (``texture/bake_tiled.py``): kernel K6 for
+colors on the card, its plain version for colors on the CPU; with "xla",
+through the banded scatter bake (``texture/bake.py``) on the colors' device.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 
 from topo4d_tpu_torch.core.quaternion import quat_to_rotmat
+from topo4d_tpu_torch.config import check_bake_backend
 from topo4d_tpu_torch.pipeline.scene import SceneStatics
+from topo4d_tpu_torch.texture.bake import bake_texture
 from topo4d_tpu_torch.texture.bake_tiled import BakeBinning, bake_canvas, compute_bake_binning, process_uv
 from topo4d_tpu_torch.topology.normals import vertex_normals
 from topo4d_tpu_torch.topology.obj_io import write_obj_with_uv
@@ -76,6 +79,9 @@ def save_mesh(
     tex_res: int = 1024,
     gen_texture: bool = False,
     bake_binning: Optional[BakeBinning] = None,
+    bake_backend: str = "auto",
+    bake_window: int = 16,
+    bake_bands: int = 8,
 ) -> None:
     """Write ``face.obj`` (and with ``gen_texture``, ``face.png``) of 1-based
     ``frame`` into ``out_dir``, computing on the parameters' device."""
@@ -90,7 +96,8 @@ def save_mesh(
         os.path.join(out_dir, "face.obj"), verts.cpu().numpy(), statics.faces, statics.uvs, statics.uv_faces
     )
     if gen_texture and dense_params is not None and statics.dense is not None:
-        write_texture(os.path.join(out_dir, "face.png"), dense_params, statics, tex_res, bake_binning)
+        write_texture(os.path.join(out_dir, "face.png"), dense_params, statics, tex_res, bake_binning,
+                      backend=bake_backend, window=bake_window, bands=bake_bands)
 
 
 @torch.no_grad()
@@ -100,14 +107,30 @@ def write_texture(
     statics: SceneStatics,
     res: int,
     bake_binning: Optional[BakeBinning] = None,
+    backend: str = "auto",
+    window: int = 16,
+    bands: int = 8,
 ) -> None:
     """Bake the dense Gaussian colors, clipped to [0, 1], into the ``res``²
     UV canvas and save it as a PNG (replaces the reference's Cython scanline
     bake, helpers.py:953-960). Bytes are truncated as the JAX package's
     ``(img * 255).astype(np.uint8)``; the conversion runs on the colors'
-    device, so only the bytes cross to the host. ``bake_binning`` is the
-    per-sequence binning of ``build_bake_binning``, made here when None."""
+    device, so only the bytes cross to the host.
+
+    ``backend`` "auto" or "pallas": K6 (its plain version on the CPU) over
+    ``bake_binning``, the per-sequence binning of ``build_bake_binning``,
+    made here when None. "xla": the banded scatter bake of the UV-slot
+    colors (``window``, ``bands``; JAX's ``write_texture``,
+    ``topo4d_tpu/pipeline/export.py:165-189``), no binning. Any other value
+    raises ``ValueError``."""
+    check_bake_backend(backend)
     colors = torch.clamp(dense_params["dense_rgb_colors"], 0.0, 1.0)
-    binning = bake_binning if bake_binning is not None else build_bake_binning(statics, res, colors.device)
-    img = bake_canvas(binning, colors, res, res)
+    if backend == "xla":
+        uv_colors = colors[torch.as_tensor(uv_to_vertex(statics), device=colors.device)]
+        uv_px = process_uv(statics.dense.topo.dense_uvs.copy(), res, res)
+        img = bake_texture(uv_px, statics.dense.tri_uv_faces, uv_colors, res, res, window=window, bands=bands,
+                           device=colors.device)
+    else:
+        binning = bake_binning if bake_binning is not None else build_bake_binning(statics, res, colors.device)
+        img = bake_canvas(binning, colors, res, res)
     write_png(path, (img * 255).to(torch.uint8).cpu().numpy())

@@ -831,13 +831,16 @@ class Trainer:
                     )
                 save_resume(self._out_dir, t + 1, state, priors, first_frame_attrs, output_params, texture_state)
             with self.timer.phase("export"):
-                if self._bake_binning is None and cfg.texture.gen_tex and texture_state is not None:
+                tex = cfg.texture
+                if (self._bake_binning is None and tex.gen_tex and texture_state is not None
+                        and tex.bake_backend != "xla"):
                     # a sequence constant: the UV layout does not change
-                    self._bake_binning = build_bake_binning(self.statics, cfg.texture.tex_res, self.device)
+                    self._bake_binning = build_bake_binning(self.statics, tex.tex_res, self.device)
                 save_mesh(
                     os.path.join(self._out_dir, "%06d" % (t + 1)), state.params, self.statics, t + 1,
                     dense_params=texture_state.params if texture_state is not None else None,
-                    tex_res=cfg.texture.tex_res, gen_texture=cfg.texture.gen_tex, bake_binning=self._bake_binning,
+                    tex_res=tex.tex_res, gen_texture=tex.gen_tex, bake_binning=self._bake_binning,
+                    bake_backend=tex.bake_backend, bake_window=tex.bake_window, bake_bands=tex.bake_bands,
                 )
 
         return job

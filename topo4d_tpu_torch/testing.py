@@ -19,6 +19,7 @@ import torch
 
 from topo4d_tpu_torch.config import DEFAULT_CMAP_INDEX, DEFAULT_ROTATE_MASK
 from topo4d_tpu_torch.core.camera import Camera, make_camera
+from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.topology.adjacency import triangulate_faces
 from topo4d_tpu_torch.topology.regions import FACE_REGION_NAMES, FacialRegions
 
@@ -174,6 +175,58 @@ def make_crowded_bake_tile(n_tris: int = 100, seed: int = 8) -> Tuple[np.ndarray
     z[::5] = 0.25
     verts = np.concatenate([corners, z], -1).reshape(-1, 3).astype(np.float32)
     return verts, np.arange(3 * n_tris).reshape(n_tris, 3)
+
+
+def make_synthetic_bfm(seed: int = 0, rings: int = 145, around: int = 367, cap: int = 144, n_sp: int = 199,
+                       n_ep: int = 29, n_tp: int = 199, n_kpt: int = 68, device="cuda"):
+    """A morphable model made from ``seed`` -> ``mesh3d.bfm.MorphableModel``
+    on ``device``. At the defaults its arrays have the shapes face3d loads
+    from the Basel Face Model's ``.mat``: 53,215 vertices, 105,840
+    triangles, 199 shape, 29 expression and 199 texture components, 68
+    keypoints (the real file is not redistributable).
+
+    The mean shape is a head-sized ellipsoid (radii 75, 100 and 90, the front
+    at +z) sampled on ``rings`` rings of ``around`` vertices, closed around
+    each ring; a fan of ``cap`` triangles covers part of the top ring's
+    hole. Vertex (ring r, column c) is row ``r * around + c``. The shape and
+    expression bases are smooth fields over the head, as BFM's are: entry
+    (3 v + a, k) is ``cos(p_v . w_ka / 100 + b_ka)`` (random Fourier features
+    of the mean position p_v, w ~ N(0, 4 I), b uniform on [0, 2 pi)), so a
+    coefficient moves neighbouring vertices alike; their eigenvalues decay
+    from 2. The texture basis is seeded normals (eigenvalues from 3), the
+    texture mean uniform in [60, 200]; the keypoints are distinct vertices
+    of the front (+z) half."""
+    from topo4d_tpu_torch.mesh3d.bfm import MorphableModel
+
+    rng = np.random.default_rng(seed)
+    nv = rings * around
+    theta = np.linspace(0.12 * np.pi, 0.88 * np.pi, rings)[:, None]
+    phi = 2 * np.pi * np.arange(around)[None, :] / around
+    mu = np.stack([75 * np.sin(theta) * np.sin(phi), 100 * np.cos(theta) + 0 * phi, 90 * np.sin(theta) * np.cos(phi)],
+                  -1).reshape(-1, 3).astype(np.float32)
+    r, c = np.meshgrid(np.arange(rings - 1), np.arange(around), indexing="ij")
+    a, b = r * around + c, r * around + (c + 1) % around
+    quads = [np.stack([a, a + around, b], -1), np.stack([b, a + around, b + around], -1)]
+    fan = np.stack([np.zeros(cap, np.int64), np.arange(2, cap + 2), np.arange(1, cap + 1)], -1)
+    tris = np.concatenate([np.stack(quads, 2).reshape(-1, 3), fan])
+
+    def smooth_basis(k):
+        w = rng.normal(0.0, 2.0, (3, 3 * k)).astype(np.float32)
+        phase = rng.uniform(0.0, 2 * np.pi, 3 * k).astype(np.float32)
+        feats = np.cos(mu @ w / 100.0 + phase)  # (V, 3 k): the (component, axis) pairs
+        return np.ascontiguousarray(feats.reshape(nv, k, 3).transpose(0, 2, 1).reshape(3 * nv, k))
+
+    front = np.flatnonzero(mu[:, 2] > 0.0)
+    arrays = dict(
+        shape_mu=mu.reshape(-1), shape_pc=smooth_basis(n_sp), shape_ev=(2.0 * 0.98 ** np.arange(n_sp)).astype(np.float32),
+        exp_pc=smooth_basis(n_ep), exp_ev=(2.0 * 0.9 ** np.arange(n_ep)).astype(np.float32),
+        triangles=tris, kpt_ind=rng.choice(front, n_kpt, replace=False),
+        tex_mu=rng.uniform(60.0, 200.0, 3 * nv).astype(np.float32),
+        tex_pc=rng.standard_normal((3 * nv, n_tp), dtype=np.float32),
+        tex_ev=(3.0 * 0.98 ** np.arange(n_tp)).astype(np.float32),
+    )
+    dev = resolve_device(device)
+    return MorphableModel(**{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()})
 
 
 def grid_uvs(rows: int, cols: int) -> np.ndarray:

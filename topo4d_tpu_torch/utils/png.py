@@ -3,7 +3,7 @@ library.
 
 The JAX package reads and writes images through PIL (``pipeline/data.py``,
 ``pipeline/export.py``); this package must not need it. The writer emits
-8-bit RGB, one IDAT chunk, filter type 0 (none) on every row, deflate at
+8-bit gray, RGB or RGBA, one IDAT chunk, filter type 0 (none) on every row, deflate at
 ``level`` (6, PIL's default). The reader takes what PIL writes for 8-bit
 gray, gray+alpha, RGB and RGBA images: non-interlaced, any number of IDAT
 chunks, a filter type from 0 to 4 chosen per row. Anything else (16-bit
@@ -30,14 +30,17 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray, level: int = 6) -> bytes:
-    """(H, W, 3) uint8 -> the bytes of a PNG file."""
+    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> the bytes of a
+    PNG file."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected an (H, W, 3) uint8 image, got {img.dtype} {img.shape}")
-    h, w, _ = img.shape
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # column 0: each row's filter byte
-    raw[:, 1:] = img.reshape(h, 3 * w)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB, deflate, no interlace
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"expected an (H, W), (H, W, 3) or (H, W, 4) uint8 image, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    raw = np.zeros((h, 1 + c * w), np.uint8)  # column 0: each row's filter byte
+    raw[:, 1:] = img.reshape(h, c * w)
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)  # 8-bit, deflate, no interlace
     return (
         SIGNATURE
         + _chunk(b"IHDR", header)
