@@ -8,7 +8,9 @@ commit's file from ``git show``, or a variant, with the kernel's C
 interface), and times it beside the kernel in phase 6, both alone on the
 same inputs, in turns: NAME ``tile_blend_fwd`` (K1) and
 ``tile_blend_v3_fwd`` (K4f, at each tps) must give K1's rows 0-5 bit for
-bit, ``uv_bake`` (K6) the kernel's canvas. ``--log PATH`` also appends
+bit, ``uv_bake`` (K6) the kernel's canvas. NAME ``imgdec`` takes an
+earlier commit's ``csrc/imgdec.c``, the host library, which phase 13b
+times beside this one on the baseline JPEG and 8-bit PNG decodes. ``--log PATH`` also appends
 every log line to the file PATH. ``--seed N`` (0 by default) makes phase
 12's synthetic morphable model and its coefficients. Without arguments only
 the phases below run.
@@ -161,7 +163,23 @@ order; any failure raises and exits non-zero:
    shapes, its generation, pose, lighting and keypoint fit on the card
    against the CPU; the C++ scanline library on the posed head at 256x256
    against ``mesh_numpy``; the banded "xla" bake at 8192x8192 on phase 3's
-   dense UV layout against K6's canvas, bit for bit.
+   dense UV layout against K6's canvas, bit for bit;
+13. the image kinds beyond phase 9's and the functions added last
+   (``phase_kinds``): a. the fixtures of the other kinds (progressive,
+   Adobe-marked, 4:4:0 and 4:1:1 JPEG; an Adam7 16-bit RGB PNG) decoded by
+   the C library against the manifest's SHA-256 of PIL's decodes; b. a
+   24-view tree of the progressive 4096x3000 fixture on phase 9's
+   ``cameras.xml``, read through ``DiskSequence`` and turned on the card,
+   each view bit for bit against the fixture's decode turned on the host;
+   its dense frame read and its single-thread decode timed in turns with a
+   tree of the baseline fixture; with ``--ref imgdec=PATH`` (an earlier
+   commit's ``csrc/imgdec.c``) the baseline JPEG and 8-bit PNG decodes of a
+   dense view through both libraries, in turns, bits equal; c. the tensor
+   functions added last (the L2 and unfused flatten losses with their
+   gradients, ``gather_neighbors``, the quaternion and camera functions,
+   ``build_cov3d``, ``bin_gaussians`` and ``bin_gaussians_packed``, the
+   merged and sequential constraint writes) on the card against the CPU at
+   the head's 8,280 Gaussians.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -169,6 +187,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -2004,52 +2023,56 @@ def decode_cost(img):
     return out
 
 
-def hold_fixtures():
-    """The C JPEG decoder on this host against the committed fixtures:
-    each decode's shape and SHA-256 as PIL's decode of the file (the
-    manifest) -> {name: (s, Mpx)}."""
+def hold_fixtures(names, label="JPEG fixtures"):
+    """The loader's decoders on this host (the C library) against the
+    committed fixtures ``names``: each decode's shape and SHA-256 as PIL's
+    decode of the file (the manifest) -> {name: (s, Mpx)}."""
     from topo4d_tpu_torch import fixtures
-    from topo4d_tpu_torch.utils.jpeg import read_jpeg
+    from topo4d_tpu_torch.pipeline.data import read_image
 
     out = {}
-    for name, entry in fixtures.manifest().items():
+    manifest = fixtures.manifest()
+    for name in names:
+        entry = manifest[name]
         t0 = time.perf_counter()
-        px = read_jpeg(fixtures.path(name))
+        px = read_image(fixtures.path(name))
         secs = time.perf_counter() - t0
         if list(px.shape) != entry["shape"] or fixtures.sha256(px) != entry["sha256"]:
             raise AssertionError(f"{name}: the C decode {px.shape} is not PIL's (manifest {entry['shape']})")
         out[name] = (secs, px.shape[0] * px.shape[1] / 1e6)
-    log("JPEG fixtures decoded by the C library, each equal to PIL's decode (SHA-256): "
+    log(f"{label} decoded by the C library, each equal to PIL's decode (SHA-256): "
         + "; ".join(f"{n} {s:.4f} s ({s / mpx:.4f} s per Mpx)" for n, (s, mpx) in out.items()))
     return out
 
 
-def jpeg_tree(tree):
-    """A dense tree of JPEG views: ``tree``'s ``cameras.xml`` and, for each
-    view, a copy of the dense fixture (4096x3000, each view's landscape
-    sensor), one frame -> a ``DiskSequence`` on it (no masks), and the
-    fixture's pixels."""
+def jpeg_tree(root, calib, fixture=None):
+    """A dense tree of JPEG views under ``root``: ``calib`` = (sequence,
+    view names, the bytes of its ``cameras.xml``) and, for each view, a copy
+    of ``fixture`` (the dense fixture by default: 4096x3000, each view's
+    landscape sensor), one frame -> a ``DiskSequence`` on it (no masks), and
+    the fixture's pixels."""
     from topo4d_tpu_torch import fixtures
     from topo4d_tpu_torch.config import Config
     from topo4d_tpu_torch.pipeline.data import DiskSequence
     from topo4d_tpu_torch.utils.jpeg import read_jpeg
 
-    root = os.path.join(CLI_DIR, "jpeg")
-    fdir = os.path.join(root, tree.seq, "000001")
+    seq, view_names, xml = calib
+    fixture = fixture or fixtures.DENSE
+    fdir = os.path.join(root, seq, "000001")
     os.makedirs(fdir, exist_ok=True)
-    shutil.copyfile(os.path.join(tree.input_dir, tree.seq, "cameras.xml"),
-                    os.path.join(root, tree.seq, "cameras.xml"))
-    for name in tree.view_names:
-        shutil.copyfile(fixtures.path(fixtures.DENSE), os.path.join(fdir, name + ".jpg"))
+    with open(os.path.join(root, seq, "cameras.xml"), "wb") as fh:
+        fh.write(xml)
+    for name in view_names:
+        shutil.copyfile(fixtures.path(fixture), os.path.join(fdir, name + ".jpg"))
     cfg = Config()
     cfg.data.input_dir = cfg.data.dense_input_dir = root
-    cfg.data.seq = tree.seq
+    cfg.data.seq = seq
     cfg.data.down_ratio = CLI_RATIO
     cfg.data.use_mask_dense = False
-    return DiskSequence(cfg, device=DEVICE), read_jpeg(fixtures.path(fixtures.DENSE))
+    return DiskSequence(cfg, device=DEVICE), read_jpeg(fixtures.path(fixture))
 
 
-def hold_jpeg_read(src, pixels):
+def hold_jpeg_read(src, pixels, label="JPEG tree"):
     """A dense read of the JPEG tree: every view on the card after
     ``frame_tensor`` equal to the fixture's decode turned by its view's
     quarter turns on the host, bit for bit -> (s per frame on
@@ -2071,8 +2094,8 @@ def hold_jpeg_read(src, pixels):
             want = np.ascontiguousarray(np.rot90(pixels, rt, axes=(0, 1)).transpose(2, 0, 1))
             turned[rt] = torch.from_numpy(want).to(DEVICE).to(torch.float32) / torch.tensor(255.0, device=DEVICE)
         if not torch.equal(on_card[v], turned[rt]):
-            raise AssertionError(f"JPEG tree: view {name} on the card differs from the fixture's decode turned by {rt}")
-    log(f"JPEG tree: a dense frame of {len(src.view_names)} views at {src.cameras_full.width}x"
+            raise AssertionError(f"{label}: view {name} on the card differs from the fixture's decode turned by {rt}")
+    log(f"{label}: a dense frame of {len(src.view_names)} views at {src.cameras_full.width}x"
         f"{src.cameras_full.height} read in {frame_s:.3f} s on {LOAD_THREADS} threads ({fd.images.nbytes} B of "
         f"uint8), transfer, turn and conversion on the card {h2d_s:.3f} s; every view equal on the card to the "
         "fixture's decode after its turn, bit for bit")
@@ -2347,8 +2370,12 @@ def phase_cli(run4):
         + ", ".join(f"{k}: {d:.4f} s" for k, (d, _, _) in cost.items())
         + "; the unfilter alone, C against its NumPy mirror (equal), s per Mpx: "
         + ", ".join(f"{k}: {c / mpx:.5f} against {p / mpx:.3f}" for k, (_, c, p) in cost.items()))
-    jpeg = {"fixtures": hold_fixtures()}
-    jsrc, jpixels = jpeg_tree(tree)
+    from topo4d_tpu_torch import fixtures
+
+    with open(os.path.join(tree.input_dir, tree.seq, "cameras.xml"), "rb") as fh:
+        calib = (tree.seq, list(tree.view_names), fh.read())
+    jpeg = {"fixtures": hold_fixtures(fixtures.BASELINE), "calib": calib}
+    jsrc, jpixels = jpeg_tree(os.path.join(CLI_DIR, "jpeg"), calib)
     jpeg["frame_s"], jpeg["h2d_s"] = hold_jpeg_read(jsrc, jpixels)
     del jpixels
     tree.images.clear()  # host memory: the CLI run holds two frames of its own
@@ -3300,13 +3327,13 @@ FACE3D_BANDS = 64  # the "xla" bake's row bands at 8192^2: ~1e8 (pixel, triangle
 SEED = 0  # --seed: phase 12's synthetic morphable model and its coefficients
 
 
-def held(name, got, want, rtol, atol):
+def held(name, got, want, rtol, atol, phase="12a"):
     """``got`` (on the card) against ``want`` (on the CPU) -> max |err|;
     raises past rtol / atol."""
     got = got.detach().cpu()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
-        raise AssertionError(f"phase 12a: {name} on the card differs from the CPU: max|err| {err:.3e} "
+        raise AssertionError(f"phase {phase}: {name} on the card differs from the CPU: max|err| {err:.3e} "
                              f"(rtol {rtol:g}, atol {atol:g})")
     return err
 
@@ -3590,6 +3617,232 @@ def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, bl
     return rows
 
 
+KINDS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_kinds")
+KINDS_TURNS = 2  # rounds of phase 13b's reads and decodes in turns (baseline, progressive, progressive, baseline)
+REF_IMGDEC = {}  # --ref imgdec=PATH: path -> the host library built from it
+
+
+def load_ref_imgdec(path):
+    """Build ``path``, a copy of ``csrc/imgdec.c`` (an earlier commit's), as
+    ``native.py`` builds the host library, into ``build/`` -> the loaded
+    library, with the same C interface."""
+    import hashlib
+
+    from topo4d_tpu_torch import native
+
+    spec = native.LIBRARIES["imgdec"]
+    src = os.path.abspath(path)
+    with open(src, "rb") as fh:
+        text = fh.read()
+    out = native.BUILD_DIR / f"ref_imgdec-{hashlib.sha256(text + ' '.join(spec.flags).encode()).hexdigest()[:12]}.so"
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([native._compiler(spec), *spec.flags, "-o", str(out), src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--ref imgdec={path}: build failed:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    for symbol, (argtypes, restype) in spec.functions.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    lib.imgdec_init()
+    return lib
+
+
+def decoders_against_ref(path, lib):
+    """The existing paths against an earlier commit's host library: the
+    dense baseline JPEG fixture and two 8-bit PNGs of its pixels (every row
+    Sub, every row Paeth) decoded by this commit's Python over this
+    library and over ``lib``, in turns (ref, new, new, ref) x KINDS_TURNS,
+    the bits equal -> {input: {"new": s, "ref": s}}."""
+    from unittest import mock
+
+    from topo4d_tpu_torch import fixtures, native
+    from topo4d_tpu_torch.utils.jpeg import decode_jpeg
+    from topo4d_tpu_torch.utils.png import decode_png
+
+    with open(fixtures.path(fixtures.DENSE), "rb") as fh:
+        jpg = fh.read()
+    img = decode_jpeg(jpg)
+    inputs = {"baseline JPEG": (decode_jpeg, jpg), "PNG, Sub rows": (decode_png, filtered_png(img, 1)),
+              "PNG, Paeth rows": (decode_png, filtered_png(img, 4))}
+    out = {}
+    for label, (decode, data) in inputs.items():
+        times, got = {"new": [], "ref": []}, {}
+        for _ in range(KINDS_TURNS):
+            for which in ("ref", "new", "new", "ref"):
+                patch = mock.patch.object(native, "library", lambda name="imgdec": lib)
+                with patch if which == "ref" else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    px = decode(data)
+                    times[which].append(time.perf_counter() - t0)
+                got[which] = px
+        if not np.array_equal(got["new"], got["ref"]):
+            raise AssertionError(f"phase 13b: {label} decodes to other bits than with --ref imgdec={path}")
+        out[label] = {k: float(np.mean(v)) for k, v in times.items()}
+    log(f"phase 13b: decodes of a 4096x3000 view against --ref imgdec={path}, in turns, bits equal: "
+        + "; ".join(f"{k} {v['new']:.4f} s against {v['ref']:.4f} s ({v['new'] / v['ref'] - 1:+.1%})"
+                    for k, v in out.items()))
+    return out
+
+
+def surface_card_vs_cpu(statics, params_np, cams):
+    """Phase 13c: the public functions the port added last, on the card
+    against the CPU at the head fixture's size (8,280 Gaussians, the
+    24-view ring at 375x512) -> {name: max |err|}. Values rtol 1e-5, atol
+    1e-6 (sums rtol 1e-4); gradients rtol 1e-4, atol 1e-6 of their largest;
+    binnings and constraint writes bit for bit."""
+    from topo4d_tpu_torch.core import camera as C
+    from topo4d_tpu_torch.core import gaussian as G
+    from topo4d_tpu_torch.core import quaternion as Q
+    from topo4d_tpu_torch.losses import flatten as F
+    from topo4d_tpu_torch.losses import image as I
+    from topo4d_tpu_torch.losses.neighbors import gather_neighbors
+    from topo4d_tpu_torch.opt.constraints import apply_constraints, constant_constraint
+    from topo4d_tpu_torch.pipeline.scene import build_constraints, cache_first_frame_attrs
+    from topo4d_tpu_torch.rasterizer import tiles as T
+    from topo4d_tpu_torch.topology.adjacency import inverse_slots
+
+    rng = np.random.default_rng(SEED + 13)
+    errs = {}
+    devs = (DEVICE, "cpu")
+
+    def on(x, dev, grad=False):
+        return torch.tensor(np.asarray(x), device=dev, requires_grad=grad)
+
+    def value(name, fn, *args, rtol=1e-5, atol=1e-6):
+        card, cpu = (fn(*[on(a, d) for a in args]) for d in devs)
+        errs[name] = held(name, card, cpu, rtol, atol, "13c")
+
+    def value_grad(name, fn, x):
+        outs = []
+        for d in devs:
+            xt = on(x, d, grad=True)
+            v = fn(xt)
+            v.backward()
+            outs.append((v.detach(), xt.grad))
+        (vc, gc), (vh, gh) = outs
+        errs[name] = held(name, vc, vh, 1e-4, 1e-6, "13c")
+        errs[name + " grad"] = held(name + " grad", gc, gh, 1e-4, 1e-6 * float(gh.abs().max()), "13c")
+
+    a, b = rng.uniform(0, 1, (2, 3, 512, 375)).astype(np.float32)
+    w3, w2 = rng.uniform(0, 1, (3, 512, 375)).astype(np.float32), rng.uniform(0, 1, (3, 512)).astype(np.float32)
+    value("l2_loss", I.l2_loss, a, b, rtol=1e-4)
+    value("weighted_l2_loss_v1", I.weighted_l2_loss_v1, a, b, w3, rtol=1e-4)
+    value("weighted_l2_loss_v2", I.weighted_l2_loss_v2, a, b, w2, rtol=1e-4)
+
+    verts = (params_np["means3D"] + rng.normal(0, 2e-3, params_np["means3D"].shape)).astype(np.float32)
+    quads, umbrella = statics.quadruples["flat"], statics.umbrellas["flat_eye"]
+    cos0 = F.dihedral_cos(on(params_np["means3D"], "cpu"), quads).numpy()
+    value_grad("flatten_loss", lambda v: F.flatten_loss(v, quads), verts)
+    value_grad("soft_flatten_loss", lambda v: F.soft_flatten_loss(v, quads, torch.as_tensor(cos0, device=v.device))[0],
+               verts)
+    value_grad("umbrella_flatten_loss", lambda v: F.umbrella_flatten_loss(v, umbrella), verts)
+    idx = statics.ring.indices.astype(np.int64)
+    inv = inverse_slots(idx).astype(np.int64)
+    cot = rng.normal(size=idx.shape + (3,)).astype(np.float32)
+    value_grad("gather_neighbors", lambda v: (gather_neighbors(v, torch.as_tensor(idx, device=v.device),
+                                                               torch.as_tensor(inv, device=v.device))
+                                              * torch.as_tensor(cot, device=v.device)).sum(), verts)
+
+    q1, q2 = rng.normal(size=(2, verts.shape[0], 4)).astype(np.float32)
+    u1, u2 = (q / np.linalg.norm(q, axis=-1, keepdims=True) for q in (q1, q2))
+    value("quat_mult", Q.quat_mult, q1, q2)
+    value("quat_conjugate", Q.quat_conjugate, q1)
+    value("normal_to_quat", Q.normal_to_quat, rng.normal(size=(verts.shape[0], 3)).astype(np.float32))
+    value("quaternion_similarity", Q.quaternion_similarity, u1, u2, rtol=1e-4, atol=1e-3)
+    value("build_cov3d", G.build_cov3d, q1, np.exp(params_np["log_scales"]))
+    cpu_cams = camera_to(cams, "cpu")
+    errs["cam_center"] = held("cam_center", cams.cam_center, cpu_cams.cam_center, 1e-5, 1e-6, "13c")
+    for name, fn in (("world_to_view", C.world_to_view), ("project_points", C.project_points)):
+        card, cpu = fn(cams, on(verts, DEVICE)), fn(cpu_cams, on(verts, "cpu"))
+        for i, (x, y) in enumerate(zip(card if isinstance(card, tuple) else (card,),
+                                       cpu if isinstance(cpu, tuple) else (cpu,))):
+            errs[f"{name} {i}"] = held(f"{name} {i}", x, y, 1e-5, 1e-3 if name == "project_points" else 1e-6, "13c")
+
+    # binnings: one view's projection made on the CPU, binned on both
+    prv = G.activate_params({k: on(v, "cpu") for k, v in params_np.items() if k not in ("cam_m", "cam_c")})
+    proj = G.project_gaussians(prv, cpu_cams[0])
+    for name, fn in (("bin_gaussians", lambda p, c, o: T.bin_gaussians(p, cams.width, cams.height)),
+                     ("bin_gaussians_packed", lambda p, c, o: T.bin_gaussians_packed(p, c, o, cams.width, cams.height))):
+        card = fn(to_device(proj, DEVICE), prv.colors.to(DEVICE), prv.opacities.to(DEVICE))
+        cpu = fn(proj, prv.colors, prv.opacities)
+        for f, x, y in zip(card._fields, card, cpu):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"phase 13c: {name}'s {f} on the card differs from the CPU's")
+        errs[name] = 0.0
+
+    # the constraint forms: the merged and the sequential scatters and a
+    # constant write, applied on both, bit for bit
+    ffa = cache_first_frame_attrs(params_np, statics.regions)
+    start = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in params_np.items()}
+    for merge in (True, False):
+        outs = []
+        for d in devs:
+            cons = build_constraints("track", params_np, statics.regions, ffa, d, merge=merge, dense=False)
+            cons.append(constant_constraint("log_scales", np.arange(0, verts.shape[0], 7), -3.0,
+                                            on(params_np["log_scales"], d)))
+            outs.append(apply_constraints({k: on(v, d) for k, v in start.items()}, cons))
+        for k in start:
+            if not torch.equal(outs[0][k].cpu(), outs[1][k]):
+                raise AssertionError(f"phase 13c: build_constraints(merge={merge}, dense=False) writes {k} otherwise "
+                                     "on the card")
+        errs[f"build_constraints merge={merge}"] = 0.0
+    log(f"phase 13c: the added functions on the card against the CPU at {verts.shape[0]} Gaussians, max|err| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def phase_kinds(calib, statics, params_np, cams):
+    """Phase 13: the image kinds the loader reads beyond phase 9's and the
+    functions the port added last. 13a: the new fixtures (progressive,
+    Adobe-marked, 4:4:0 and 4:1:1 JPEG; an Adam7 16-bit PNG) decoded here
+    against the manifest's SHA-256 of PIL's decodes. 13b: a 24-view dense
+    tree of the progressive 4096x3000 fixture (phase 9's ``cameras.xml``),
+    read through ``DiskSequence`` and turned on the card, each view bit for
+    bit against the fixture's decode turned on the host; its dense frame
+    read on ``LOAD_THREADS`` threads and its single-thread decode timed in
+    turns with a tree of the baseline fixture; with ``--ref imgdec=PATH``
+    the baseline JPEG and 8-bit PNG decodes against that library.
+    13c: ``surface_card_vs_cpu``."""
+    from topo4d_tpu_torch import fixtures
+    from topo4d_tpu_torch.pipeline.data import LOAD_THREADS
+    from topo4d_tpu_torch.utils.jpeg import read_jpeg
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(KINDS_DIR, ignore_errors=True)
+    out = {"fixtures": hold_fixtures(fixtures.KINDS, "phase 13a: the other image kinds")}
+    srcs, paths = {}, {"baseline": fixtures.DENSE, "progressive": fixtures.DENSE_PROGRESSIVE}
+    for kind, name in paths.items():
+        srcs[kind], pixels = jpeg_tree(os.path.join(KINDS_DIR, kind), calib, name)
+    out["frame_s"], out["h2d_s"] = hold_jpeg_read(srcs["progressive"], pixels, "phase 13b: the progressive JPEG tree")
+    del pixels
+    reads, decodes = {k: [] for k in paths}, {k: [] for k in paths}
+    for _ in range(KINDS_TURNS):
+        for kind in ("baseline", "progressive", "progressive", "baseline"):
+            t0 = time.perf_counter()
+            srcs[kind].frame(1, full_res=True)
+            reads[kind].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            read_jpeg(fixtures.path(paths[kind]))
+            decodes[kind].append(time.perf_counter() - t0)
+    mpx = 4096 * 3000 / 1e6
+    out["read_s"] = {k: float(np.mean(v)) for k, v in reads.items()}
+    out["decode_s_per_mpx"] = {k: float(np.mean(v)) / mpx for k, v in decodes.items()}
+    log(f"phase 13b: in turns (baseline, progressive, progressive, baseline) x {KINDS_TURNS}: a dense frame of "
+        f"{len(calib[1])} views read on {LOAD_THREADS} threads, s " + ", ".join(
+            f"{k} {out['read_s'][k]:.3f} ({', '.join(f'{x:.3f}' for x in reads[k])})" for k in paths)
+        + f", progressive / baseline {out['read_s']['progressive'] / out['read_s']['baseline']:.3f}; one 4096x3000 "
+        "view decoded on one thread, s per Mpx " + ", ".join(
+            f"{k} {out['decode_s_per_mpx'][k]:.5f} ({', '.join(f'{x:.4f}' for x in decodes[k])} s)" for k in paths)
+        + f", progressive / baseline {out['decode_s_per_mpx']['progressive'] / out['decode_s_per_mpx']['baseline']:.3f}")
+    out["ref"] = {path: decoders_against_ref(path, lib) for path, lib in REF_IMGDEC.items()}
+    srcs.clear()
+    shutil.rmtree(KINDS_DIR, ignore_errors=True)
+    out["functions"] = surface_card_vs_cpu(statics, params_np, cams)
+    log(f"phase 13 (image kinds, the added functions): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     global CARD, LOG_FILE, SEED
     import argparse
@@ -3597,7 +3850,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="On-card smoke run of topo4d_tpu_torch.")
     parser.add_argument("--ref", metavar="NAME=PATH", nargs="+", default=[],
                         help="sources of kernel NAME (tile_blend_fwd, tile_blend_v3_fwd or uv_bake: an earlier "
-                        "commit's file, or a variant) to time beside the kernel in phase 6, each alone, in turns")
+                        "commit's file, or a variant) to time beside the kernel in phase 6, each alone, in turns; "
+                        "imgdec=PATH: an earlier commit's csrc/imgdec.c, timed beside the host library in phase 13b")
     parser.add_argument("--log", metavar="PATH", default=None,
                         help="also append every log line to the file PATH")
     parser.add_argument("--seed", type=int, default=SEED,
@@ -3628,7 +3882,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for spec in args.ref:
         symbol, _, path = spec.partition("=")
-        REFS.setdefault(symbol, {})[path] = load_ref(symbol, path)
+        if symbol == "imgdec":
+            REF_IMGDEC[path] = load_ref_imgdec(path)
+        else:
+            REFS.setdefault(symbol, {})[path] = load_ref(symbol, path)
     cfg, src, trainer, scene = build_main_path()
     errs = phase_kernels()
     errs["bake"], bake_inputs = phase_bake(trainer.statics)
@@ -3663,6 +3920,7 @@ def main() -> int:
     multi = phase_multi(cfg, src, frames, batched, bake_inputs)
     modes = phase_modes(cfg, src, trainer, scene, frames)
     face3d = phase_face3d(trainer.statics, bake_inputs)
+    kinds = phase_kinds(cli["jpeg"]["calib"], trainer.statics, scene[3], src.cameras)
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
@@ -3678,7 +3936,9 @@ def main() -> int:
         + ", ".join(f"{m} {v:.3f}" for m, v in modes["modes_ms"].items())
         + f"; remat off / on {modes['remat']['off']['ms']:.3f} / {modes['remat']['on']['ms']:.3f} ms per step; "
         f"phase 12: xla bake {face3d['bake']['xla_ms']:.3f} ms against K6's {face3d['bake']['k6_ms']:.4f} ms, "
-        f"{face3d['bake']['differ']} pixels apart; peak device memory from phase 12c's bake on "
+        f"{face3d['bake']['differ']} pixels apart; phase 13: progressive dense frame {kinds['read_s']['progressive']:.3f} "
+        f"s against baseline {kinds['read_s']['baseline']:.3f} s, decode {kinds['decode_s_per_mpx']['progressive']:.5f} "
+        f"against {kinds['decode_s_per_mpx']['baseline']:.5f} s per Mpx; peak device memory from phase 12c's bake on "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)

@@ -140,7 +140,6 @@ def test_config_keys_the_port_lacks():
         (("raster", "interpret"), True, ValueError),
         (("texture", "bake_backend"), "banded", ValueError),
         (("neighbor_weight_k",), 1000.0, ValueError),
-        (("data", "max_cams"), 12, ValueError),
         (("schedule", "no_such_key"), 1, ValueError),
     ]:
         bad = json.loads(json.dumps(raw))
@@ -161,9 +160,11 @@ def test_config_keys_the_port_lacks():
         assert (cfg.texture.bake_backend, cfg.texture.bake_window, cfg.texture.bake_bands) == (backend, window, bands)
         assert JConfig.from_json(cfg.to_json()) == jcfg
     # the multi-rank keys load at any value: tile sharding and the orbax
-    # resume backend are ported; so are every dense binning cadence and the
-    # photometric remat
+    # resume backend are ported; so are every dense binning cadence, the
+    # photometric remat and the camera cap of a scene built without a view
+    # count
     for path, value in ((("texture", "tile_shard"), True), (("data", "checkpoint_backend"), "orbax"),
+                        (("data", "max_cams"), 12),
                         (("texture", "rebin_freq"), 1), (("texture", "rebin_freq"), -3),
                         (("texture", "remat_photometric"), True)):
         good = json.loads(json.dumps(raw))

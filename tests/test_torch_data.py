@@ -14,7 +14,7 @@ quarter turns) and ``frame_tensor`` turns and converts them; its values are
 held to JAX's float32 ones. The same tree re-saved by PIL as JPEG (views
 and parsing images, at several qualities and chroma samplings) reads alike
 too. Then the refusals and degradations (a size mismatch with JAX's
-message, a missing mask dir, a missing per-view mask, a progressive
+message, a missing mask dir, a missing per-view mask, an arithmetic-coded
 ``.jpg`` view) and the asset loaders (``load_obj`` with its ``vt``
 fallback, ``sample_vertex_colors`` through the port's PNG decoder,
 ``load_facial_regions``).
@@ -233,7 +233,8 @@ def test_jpeg_tree_reads_alike(port_tree, tmp_path, quality, subsampling):
 
 def test_jpg_view_raises_naming_the_path(port_tree, tmp_path):
     """A ``.jpg`` view among PNGs reads as JAX reads it (listed first, as in
-    JAX); a progressive one raises, naming its path."""
+    JAX), a progressive one too; an arithmetic-coded one raises, naming its
+    path."""
     root = _copy_tree(port_tree, tmp_path / "jpg")
     fdir = os.path.join(root, port_tree.seq, "000001")
     Image.open(os.path.join(fdir, "view02.png")).save(os.path.join(fdir, "view02.jpg"))
@@ -244,8 +245,14 @@ def test_jpg_view_raises_naming_the_path(port_tree, tmp_path):
     got, want = src.frame(1), JDiskSequence(jcfg).frame(1)
     np.testing.assert_array_equal(_unit(got.images), want.images)
     np.testing.assert_array_equal(_unit(got.masks), want.masks)
-    Image.open(os.path.join(fdir, "view02.jpg")).save(os.path.join(fdir, "view02.jpg"), progressive=True)
-    with pytest.raises(ValueError, match="000001/view02.jpg: progressive JPEG"):
+    view = os.path.join(fdir, "view02.jpg")
+    Image.open(view).save(view, progressive=True)
+    np.testing.assert_array_equal(_unit(src.frame(1).images), JDiskSequence(jcfg).frame(1).images)
+    with open(view, "rb") as fh:
+        data = fh.read()
+    with open(view, "wb") as fh:
+        fh.write(data.replace(b"\xff\xc2", b"\xff\xca", 1))  # the progressive frame header, arithmetic-coded
+    with pytest.raises(ValueError, match="000001/view02.jpg: arithmetic-coded JPEG"):
         src.frame(1)
 
 

@@ -10,7 +10,9 @@ chroma planes 1 and 2 samples wide, where libjpeg replicates instead of
 interpolating; restart intervals; optimized Huffman tables; gray) and on the
 committed fixtures, whose PIL decodes must also still hash as
 ``fixtures/manifest.json`` says (what the card's host, which has no PIL, is
-held to). Progressive and CMYK files raise, naming the file.
+held to). CMYK and arithmetic-coded files raise, naming the file; a
+progressive one reads as PIL reads it (``test_torch_image_kinds.py`` holds
+every other kind the decoder reads).
 """
 
 import io
@@ -20,6 +22,7 @@ import pytest
 from PIL import Image
 
 from topo4d_tpu_torch import fixtures
+from topo4d_tpu_torch.pipeline.data import read_image
 from topo4d_tpu_torch.utils.jpeg import decode_jpeg, read_jpeg
 
 
@@ -89,9 +92,12 @@ def test_refusals_name_the_file(tmp_path):
     arr = _image(20, 24, seed=1)
     path = tmp_path / "prog.jpg"
     path.write_bytes(_jpeg(arr, progressive=True))
-    with pytest.raises(ValueError, match="prog.jpg: progressive JPEG"):
+    np.testing.assert_array_equal(read_jpeg(str(path)), _pil(path.read_bytes()))  # progressive: read
+    path = tmp_path / "arith.jpg"
+    path.write_bytes(_jpeg(arr).replace(b"\xff\xc0", b"\xff\xc9", 1))  # the frame header of arithmetic coding
+    with pytest.raises(ValueError, match="arith.jpg: arithmetic-coded JPEG"):
         read_jpeg(str(path))
-    with pytest.raises(ValueError, match="cmyk.jpg: Adobe APP14"):
+    with pytest.raises(ValueError, match="cmyk.jpg: 4 components"):
         buf = io.BytesIO()
         Image.fromarray(arr).convert("CMYK").save(buf, format="JPEG")
         decode_jpeg(buf.getvalue(), "cmyk.jpg")
@@ -103,9 +109,10 @@ def test_refusals_name_the_file(tmp_path):
 
 @pytest.mark.parametrize("name", list(fixtures.manifest()))
 def test_fixtures_match_pil_and_manifest(name):
+    """Every fixture, the PNG among them, through the loader's reader."""
     entry = fixtures.manifest()[name]
     want = np.asarray(Image.open(fixtures.path(name)))
     assert list(want.shape) == entry["shape"] and fixtures.sha256(want) == entry["sha256"]
-    got = read_jpeg(fixtures.path(name))
+    got = read_image(fixtures.path(name))
     assert got.shape == want.shape
     np.testing.assert_array_equal(got, want)

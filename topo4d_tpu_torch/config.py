@@ -189,6 +189,9 @@ class DataConfig:
     cmap_index: Dict[str, int] = dataclasses.field(default_factory=lambda: dict(DEFAULT_CMAP_INDEX))
     # views rendered to <out>/%06d/vis<name>_<iter>.png at each geometry log row
     log_views: List[str] = dataclasses.field(default_factory=lambda: ["K98707293"])
+    # the per-view camera corrections of a scene built without a view count
+    # (``build_scene(num_views=None)``)
+    max_cams: int = 24
 
 
 @dataclasses.dataclass
@@ -296,14 +299,12 @@ ANY = object()
 # Keys of the JAX package's config that the port has no field for, each at
 # the value for which the port's behaviour is the JAX package's: the Pallas
 # interpreter off, any entry window of the Pallas blend (it changes no
-# result), the one-ring weight sharpness the port computes with, the
-# 24-camera cap of scenes built without a view count (the port always passes
-# the source's).
+# result), the one-ring weight sharpness the port computes with. The first
+# two are TPU devices, not ported by design.
 JAX_ONLY_DEFAULTS = {
     "raster.interpret": False,
     "raster.chunk": ANY,
     "neighbor_weight_k": 2000.0,
-    "data.max_cams": 24,
 }
 
 

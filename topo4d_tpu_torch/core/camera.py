@@ -42,6 +42,13 @@ class Camera:
     def tan_fovy(self) -> torch.Tensor:
         return self.height / (2.0 * self.fy)
 
+    @property
+    def cam_center(self) -> torch.Tensor:
+        """The camera's center in world coordinates: -R^T t."""
+        rot = self.w2c[..., :3, :3]
+        t = self.w2c[..., :3, 3]
+        return -torch.einsum("...ji,...j->...i", rot, t)
+
     def __getitem__(self, idx) -> "Camera":
         """Index a batched camera down to a single view."""
         return dataclasses.replace(
@@ -105,3 +112,23 @@ def full_projection_matrix(cam: Camera) -> torch.Tensor:
 def ndc_to_pixel(ndc: torch.Tensor, size: int) -> torch.Tensor:
     """The rasterizer's ndc2Pix: ((ndc + 1) * size - 1) / 2."""
     return ((ndc + 1.0) * size - 1.0) * 0.5
+
+
+def world_to_view(cam: Camera, points: torch.Tensor) -> torch.Tensor:
+    """(N, 3) world points in camera coordinates (a leading view axis of
+    ``cam`` carries over)."""
+    return torch.einsum("...ij,nj->...ni", cam.w2c[..., :3, :3], points) + cam.w2c[..., None, :3, 3]
+
+
+def project_points(cam: Camera, points: torch.Tensor):
+    """(N, 3) world points -> (pixel coordinates (N, 2), view z (N,)): the
+    rasterizer's homogeneous path (the clip-space w divide with its 1e-7
+    guard, ``ndc_to_pixel``)."""
+    proj = full_projection_matrix(cam)
+    homp = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    clip = torch.einsum("...ij,nj->...ni", proj, homp)
+    inv_w = 1.0 / (clip[..., 3] + 1e-7)
+    ndc = clip[..., :3] * inv_w[..., None]
+    pix = torch.stack([ndc_to_pixel(ndc[..., 0], cam.width), ndc_to_pixel(ndc[..., 1], cam.height)], dim=-1)
+    view_z = torch.einsum("...j,nj->...n", cam.w2c[..., 2, :3], points) + cam.w2c[..., None, 2, 3]
+    return pix, view_z

@@ -12,7 +12,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from topo4d_tpu_torch.core.camera import Camera, full_projection_matrix, ndc_to_pixel
-from topo4d_tpu_torch.core.quaternion import quat_normalize
+from topo4d_tpu_torch.core.quaternion import quat_normalize, quat_to_rotmat
 
 # diff-gaussian-rasterization constants (forward.cu semantics).
 COV2D_DILATION = 0.3  # low-pass dilation added to the 2D covariance diagonal
@@ -41,6 +41,12 @@ def activate_params(params: Dict[str, torch.Tensor]) -> GaussianRenderVars:
         opacities=torch.sigmoid(params["logit_opacities"]).reshape(-1),
         scales=torch.exp(params["log_scales"]),
     )
+
+
+def build_cov3d(rotations: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The 3D covariance R S S^T R^T from quaternions and scales -> (N, 3, 3)."""
+    m = quat_to_rotmat(rotations) * scales[..., None, :]
+    return m @ m.transpose(-1, -2)
 
 
 class Projected(NamedTuple):

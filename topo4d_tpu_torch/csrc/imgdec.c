@@ -1,17 +1,30 @@
-/* Host image decoding for the loader: the PNG unfilter and a baseline JPEG
- * decoder, plain C99 with a C interface for ctypes (native.py builds it).
+/* Host image decoding for the loader: the PNG unfilter and a JPEG decoder,
+ * plain C99 with a C interface for ctypes (native.py builds it).
  *
- * png_unfilter: the five PNG row filters (PNG spec section 9.2), bit for bit.
+ * png_unfilter: the five PNG row filters (PNG spec section 9.2), bit for bit,
+ * at any whole number of bytes per pixel.
  *
- * jpeg_info / jpeg_decode: sequential Huffman JPEG (SOF0/SOF1), 8-bit
- * samples, 1 or 3 components, sampling 4:4:4, 4:2:2 or 4:2:0, restart
- * markers. The output is what libjpeg-turbo gives at its defaults (the
- * decoder PIL runs): the islow integer IDCT of jidctint.c, fancy
- * upsampling (jdsample.c h2v1_fancy_upsample / h2v2_fancy_upsample, the
- * plain replicating upsamplers when a downsampled component is at most 2
- * samples wide) and the integer YCbCr->RGB tables of jdcolor.c. Anything
- * else (progressive, arithmetic coding, 12-bit samples, 4 components, an
- * Adobe APP14 marker, other sampling) is refused with a message.
+ * jpeg_info / jpeg_decode: Huffman JPEG, sequential (SOF0/SOF1) or
+ * progressive (SOF2: DC and AC first and refinement scans, EOB runs,
+ * interleaved and non-interleaved scans, restart markers), 8-bit samples,
+ * 1 or 3 components, any sampling factors 1-4 whose ratios to the largest
+ * are whole numbers. The output is what libjpeg-turbo gives at its defaults
+ * (the decoder PIL runs): the islow integer IDCT of jidctint.c, the
+ * upsampler jdsample.c jinit_upsampler picks (h2v1_fancy_upsample and
+ * h2v2_fancy_upsample when the downsampled component is more than 2 samples
+ * wide, else the replicating h2v1/h2v2 ones; h1v2_fancy_upsample for a
+ * vertical ratio of 2 alone; int_upsample, which replicates, for every
+ * other ratio), the colour space jdapimin.c default_decompress_parms picks
+ * (JFIF: YCbCr; else an Adobe APP14 transform 0: RGB, any other: YCbCr;
+ * else component ids 'R', 'G', 'B': RGB; else YCbCr) and the integer
+ * YCbCr->RGB tables of jdcolor.c. Progressive coefficients are kept for the
+ * whole image and go through the same IDCT, upsampling and colour code as
+ * sequential ones. A progressive file whose scans leave any coefficient bit
+ * unsent is refused: libjpeg-turbo smooths such blocks
+ * (jdcoefct.c decompress_smooth_data), which this decoder does not. Also
+ * refused with a message: arithmetic coding, lossless and hierarchical
+ * files, 12-bit samples, 2 or 4 components, fractional sampling ratios and
+ * interleaved scans of more than 10 blocks per MCU (libjpeg's limit).
  *
  * Every function returns 0 on success. On failure it returns non-zero and
  * writes a message into err (errlen bytes).
@@ -94,9 +107,13 @@ typedef struct {
 typedef struct {
     int id, h, v, tq;
     int td, ta;               /* the current scan's tables */
-    int bw, bh;               /* blocks across and down in the plane */
+    int bw, bh;               /* blocks across and down in the plane (whole MCUs) */
     int dw, dh;               /* downsampled width and height (libjpeg's) */
     uint8_t *plane;           /* bw * 8 by bh * 8 samples */
+    int16_t *coef;            /* progressive: bw * bh blocks of 64 coefficients, natural order */
+    uint16_t q[64];           /* the quantization table as it was at the component's first scan */
+    int latched;
+    int coef_bits[64];        /* progressive: the lowest bit sent of each zigzag coefficient, -1 = none */
     int pred;
     int seen;                 /* decoded in some scan */
 } Comp;
@@ -106,7 +123,10 @@ typedef struct {
     int width, height, ncomp, hmax, vmax;
     int mcux, mcuy;
     int restart;
-    int jfif, sof;
+    int jfif, sof, progressive;
+    int adobe, adobe_transform;
+    int rgb;                  /* three components coded as RGB, not YCbCr */
+    int eobrun;               /* progressive AC scans: blocks left in the current end-of-band run */
     uint16_t q[4][64];        /* natural order */
     int qdef[4];
     Huff dc[4], ac[4];
@@ -216,7 +236,7 @@ static int read_sof(Jpeg *j, const uint8_t *p, int len) {
     j->ncomp = p[7];
     if (j->height == 0 || j->width == 0) return fail(j, "zero image size (DNL markers are not read)");
     if (j->ncomp != 1 && j->ncomp != 3) {
-        snprintf(msg, sizeof msg, "%d components (only gray and YCbCr JPEG are read; CMYK is not)", j->ncomp);
+        snprintf(msg, sizeof msg, "%d components (only gray and three-component JPEG are read; CMYK/YCCK is not)", j->ncomp);
         return fail(j, msg);
     }
     if (len < 8 + 3 * j->ncomp) return fail(j, "bad SOF segment");
@@ -237,13 +257,13 @@ static int read_sof(Jpeg *j, const uint8_t *p, int len) {
     }
     for (int c = 0; c < j->ncomp; c++) {
         Comp *k = &j->comp[c];
-        const int rh = j->hmax / k->h, rv = j->vmax / k->v;
-        if (j->hmax % k->h || j->vmax % k->v || !((rh == 1 && rv == 1) || (rh == 2 && rv == 1) || (rh == 2 && rv == 2))) {
+        if (j->hmax % k->h || j->vmax % k->v) {
             snprintf(msg, sizeof msg,
-                     "sampling factors %dx%d against %dx%d (only 4:4:4, 4:2:2 and 4:2:0 are read)",
+                     "sampling factors %dx%d against %dx%d (fractional sampling ratios are not read)",
                      k->h, k->v, j->hmax, j->vmax);
             return fail(j, msg);
         }
+        for (int i = 0; i < 64; i++) k->coef_bits[i] = -1;
     }
     j->mcux = (j->width + 8 * j->hmax - 1) / (8 * j->hmax);
     j->mcuy = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
@@ -257,9 +277,10 @@ static int read_sof(Jpeg *j, const uint8_t *p, int len) {
     return 0;
 }
 
-/* Walk the markers up to the first SOS (or to the end with scan == NULL):
- * tables, restart interval, frame header. */
-static int read_markers(Jpeg *j, const uint8_t **pos) {
+/* Walk the markers up to the next SOS (*pos <- its segment): tables,
+ * restart interval, frame header, JFIF and Adobe markers. At EOI, *eoi <- 1
+ * when eoi is given, else it is an error. */
+static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
     const uint8_t *p = *pos;
     char msg[160];
     for (;;) {
@@ -269,31 +290,40 @@ static int read_markers(Jpeg *j, const uint8_t **pos) {
         const int m = *p++;
         int len = 0;
         if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-        if (m == 0xD9) return fail(j, "EOI before a scan of every component");
+        if (m == 0xD9) {
+            if (!eoi) return fail(j, "EOI before a scan of every component");
+            *eoi = 1;
+            *pos = p;
+            return 0;
+        }
         if (seg_len(j, p, &len)) return 1;
         switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
             if (j->sof) return fail(j, "two frame headers");
             j->sof = m;
+            j->progressive = m == 0xC2;
             if (read_sof(j, p, len)) return 1;
             break;
-        case 0xC2:
-        case 0xC6:
-        case 0xCA:
-        case 0xCE:
-            return fail(j, "progressive JPEG (only baseline sequential JPEG is read)");
         case 0xC3:
-        case 0xC7:
-        case 0xCB:
-        case 0xCF:
-            return fail(j, "lossless JPEG (only baseline sequential JPEG is read)");
+            return fail(j, "lossless JPEG (SOF3; only sequential and progressive Huffman JPEG is read)");
         case 0xC5:
-            return fail(j, "hierarchical JPEG (only baseline sequential JPEG is read)");
+        case 0xC6:
+        case 0xC7:
+            snprintf(msg, sizeof msg,
+                     "hierarchical JPEG (SOF%d; only sequential and progressive Huffman JPEG is read)", m - 0xC0);
+            return fail(j, msg);
         case 0xC9:
-        case 0xCC:
+        case 0xCA:
+        case 0xCB:
         case 0xCD:
-            return fail(j, "arithmetic-coded JPEG (only Huffman-coded JPEG is read)");
+        case 0xCE:
+        case 0xCF:
+            snprintf(msg, sizeof msg, "arithmetic-coded JPEG (SOF%d; only Huffman-coded JPEG is read)", m - 0xC0);
+            return fail(j, msg);
+        case 0xCC:
+            return fail(j, "arithmetic-coded JPEG (a DAC marker; only Huffman-coded JPEG is read)");
         case 0xC4:
             if (read_dht(j, p, len)) return 1;
             break;
@@ -307,11 +337,14 @@ static int read_markers(Jpeg *j, const uint8_t **pos) {
         case 0xDC:
             return fail(j, "DNL marker (not read)");
         case 0xE0:
-            if (len >= 7 && memcmp(p + 2, "JFIF\0", 5) == 0) j->jfif = 1;
+            /* jdmarker.c examine_app0: a JFIF marker has 14 bytes of data */
+            if (len >= 16 && memcmp(p + 2, "JFIF\0", 5) == 0) j->jfif = 1;
             break;
         case 0xEE:
-            if (len >= 7 && memcmp(p + 2, "Adobe", 5) == 0) {
-                return fail(j, "Adobe APP14 marker (CMYK/YCCK/RGB transforms are not read)");
+            /* examine_app14: 12 bytes of data, the transform last */
+            if (len >= 14 && memcmp(p + 2, "Adobe", 5) == 0) {
+                j->adobe = 1;
+                j->adobe_transform = p[13];
             }
             break;
         case 0xDA:
@@ -328,10 +361,16 @@ static int read_markers(Jpeg *j, const uint8_t **pos) {
     }
 }
 
+/* The colour space of three components (jdapimin.c default_decompress_parms). */
 static int check_frame(Jpeg *j) {
-    if (!j->sof) return fail(j, "no SOF0/SOF1 frame header before the scan");
-    if (j->ncomp == 3 && !j->jfif && j->comp[0].id == 'R' && j->comp[1].id == 'G' && j->comp[2].id == 'B') {
-        return fail(j, "RGB-coded JPEG (only YCbCr and gray are read)");
+    if (!j->sof) return fail(j, "no SOF0/SOF1/SOF2 frame header before the scan");
+    if (j->ncomp == 3) {
+        if (j->jfif)
+            j->rgb = 0;
+        else if (j->adobe)
+            j->rgb = j->adobe_transform == 0;
+        else
+            j->rgb = j->comp[0].id == 'R' && j->comp[1].id == 'G' && j->comp[2].id == 'B';
     }
     return 0;
 }
@@ -534,7 +573,7 @@ static void idct_islow(const int16_t *coef, const uint16_t *q, uint8_t *out, int
     }
 }
 
-static void decode_block(Bits *b, Comp *k, const Huff *dc, const Huff *ac, const uint16_t *q, int bx, int by) {
+static void decode_block(Bits *b, Comp *k, const Huff *dc, const Huff *ac, int bx, int by) {
     int16_t coef[64 + 16];
     memset(coef, 0, sizeof coef);
     const int t = decode_huff(b, dc);
@@ -554,7 +593,90 @@ static void decode_block(Bits *b, Comp *k, const Huff *dc, const Huff *ac, const
         }
     }
     const int stride = k->bw * 8;
-    idct_islow(coef, q, k->plane + ((int64_t)by * 8) * stride + (int64_t)bx * 8, stride);
+    idct_islow(coef, k->q, k->plane + ((int64_t)by * 8) * stride + (int64_t)bx * 8, stride);
+}
+
+/* Progressive scans (jdphuff.c): coefficients are stored unscaled and
+ * shifted left by the scan's Al; a refinement adds bit Al. */
+
+static inline int16_t shifted(int v, int al) {
+    return (int16_t)(uint16_t)((unsigned)v << al);
+}
+
+static void dc_first(Bits *b, Comp *k, const Huff *dc, int16_t *blk, int al) {
+    const int t = decode_huff(b, dc);
+    k->pred += t ? extend(get_bits(b, t), t) : 0;
+    blk[0] = shifted(k->pred, al);
+}
+
+static void dc_refine(Bits *b, int16_t *blk, int al) {
+    if (get_bits(b, 1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+}
+
+static void ac_first(Jpeg *j, Bits *b, const Huff *ac, int16_t *blk, int ss, int se, int al) {
+    if (j->eobrun > 0) {
+        j->eobrun--;
+        return;
+    }
+    for (int k = ss; k <= se; k++) {
+        const int rs = decode_huff(b, ac);
+        const int r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            blk[ZIGZAG[k]] = shifted(extend(get_bits(b, s), s), al);
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            j->eobrun = 1 << r;
+            if (r) j->eobrun += get_bits(b, r);
+            j->eobrun--;
+            break;
+        }
+    }
+}
+
+/* A correction bit for each coefficient already nonzero: 1 moves it away
+ * from zero by 1 << al. */
+static inline void correct(Bits *b, int16_t *c, int p1) {
+    if (get_bits(b, 1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c - p1);
+}
+
+static void ac_refine(Jpeg *j, Bits *b, const Huff *ac, int16_t *blk, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (j->eobrun == 0) {
+        for (; k <= se; k++) {
+            const int rs = decode_huff(b, ac);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                /* a newly nonzero coefficient of magnitude 1 << al; its sign bit */
+                s = get_bits(b, 1) ? p1 : -p1;
+            } else if (r != 15) {
+                j->eobrun = 1 << r;
+                if (r) j->eobrun += get_bits(b, r);
+                break; /* the rest of the block is the end-of-band run's */
+            }
+            /* pass r zero coefficients (correcting the nonzero ones met on
+             * the way), stopping on the zero that takes s */
+            do {
+                int16_t *c = blk + ZIGZAG[k];
+                if (*c != 0) {
+                    correct(b, c, p1);
+                } else if (--r < 0) {
+                    break;
+                }
+                k++;
+            } while (k <= se);
+            if (s) blk[ZIGZAG[k]] = (int16_t)s;
+        }
+    }
+    if (j->eobrun > 0) {
+        for (; k <= se; k++) {
+            int16_t *c = blk + ZIGZAG[k];
+            if (*c != 0) correct(b, c, p1);
+        }
+        j->eobrun--;
+    }
 }
 
 static void restart(Bits *b) {
@@ -568,13 +690,31 @@ static void restart(Bits *b) {
 }
 
 /* One scan starting at the SOS segment p; *pos <- the first byte after its
- * entropy-coded data. */
+ * entropy-coded data. Sequential scans go through the IDCT into each
+ * component's plane block by block; progressive ones into its coefficients. */
 static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
     int len;
+    char msg[160];
     if (seg_len(j, p, &len)) return 1;
     const int ns = p[2];
     if (ns < 1 || ns > j->ncomp || len < 6 + 2 * ns) return fail(j, "bad SOS segment");
+    const uint8_t *q = p + 3 + 2 * ns;
+    const int ss = q[0], se = q[1], ah = q[2] >> 4, al = q[2] & 15;
+    if (!j->progressive) {
+        if (ss != 0 || se != 63 || ah != 0 || al != 0) return fail(j, "spectral selection in a sequential scan");
+    } else if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) {
+        snprintf(msg, sizeof msg, "bad progressive scan (Ss %d, Se %d over %d components)", ss, se, ns);
+        return fail(j, msg);
+    } else if ((ah != 0 && al != ah - 1) || al > 13) {
+        snprintf(msg, sizeof msg, "bad successive approximation (Ah %d, Al %d)", ah, al);
+        return fail(j, msg);
+    }
+    /* which tables the scan reads: sequential both; progressive DC first
+     * scans the DC table, AC scans the AC table, DC refinements none */
+    const int need_dc = !j->progressive || (ss == 0 && ah == 0);
+    const int need_ac = !j->progressive || ss > 0;
     Comp *sc[3];
+    int blocks = 0;
     for (int i = 0; i < ns; i++) {
         const int id = p[3 + 2 * i], tables = p[4 + 2 * i];
         sc[i] = NULL;
@@ -582,17 +722,30 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
             if (j->comp[c].id == id) sc[i] = &j->comp[c];
         }
         if (!sc[i]) return fail(j, "SOS names a component the frame has not");
-        sc[i]->td = tables >> 4;
-        sc[i]->ta = tables & 15;
-        if (sc[i]->td > 3 || sc[i]->ta > 3 || !j->dc[sc[i]->td].defined || !j->ac[sc[i]->ta].defined) {
+        Comp *k = sc[i];
+        k->td = tables >> 4;
+        k->ta = tables & 15;
+        if (k->td > 3 || k->ta > 3 || (need_dc && !j->dc[k->td].defined) || (need_ac && !j->ac[k->ta].defined)) {
             return fail(j, "SOS uses an undefined Huffman table");
         }
-        if (!j->qdef[sc[i]->tq]) return fail(j, "a component uses an undefined quantization table");
-        sc[i]->seen = 1;
-        sc[i]->pred = 0;
+        if (!k->latched) {
+            /* jdinput.c latch_quant_tables: a component keeps the table
+             * it had at its first scan */
+            if (!j->qdef[k->tq]) return fail(j, "a component uses an undefined quantization table");
+            memcpy(k->q, j->q[k->tq], sizeof k->q);
+            k->latched = 1;
+        }
+        k->seen = 1;
+        k->pred = 0;
+        blocks += k->h * k->v;
+        if (j->progressive) {
+            for (int c = ss; c <= se; c++) k->coef_bits[c] = al;
+        }
     }
-    const uint8_t *q = p + 3 + 2 * ns;
-    if (q[0] != 0 || q[1] != 63 || q[2] != 0) return fail(j, "spectral selection in a sequential scan");
+    if (ns > 1 && blocks > 10) {
+        snprintf(msg, sizeof msg, "%d blocks per MCU (libjpeg reads at most 10)", blocks);
+        return fail(j, msg);
+    }
     Bits b = {p + len, j->end, 0, 0, 0};
     int64_t mcus, mcux;
     if (ns == 1) {
@@ -604,24 +757,40 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
         mcux = j->mcux;
         mcus = (int64_t)j->mcux * j->mcuy;
     }
+    j->eobrun = 0;
     int todo = j->restart;
     for (int64_t m = 0; m < mcus; m++) {
         if (j->restart && todo == 0) {
             restart(&b);
             for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+            j->eobrun = 0;
             todo = j->restart;
         }
         const int mx = (int)(m % mcux), my = (int)(m / mcux);
         for (int i = 0; i < ns; i++) {
             Comp *k = sc[i];
             const Huff *dc = &j->dc[k->td], *ac = &j->ac[k->ta];
-            const uint16_t *qt = j->q[k->tq];
-            if (ns == 1) {
-                decode_block(&b, k, dc, ac, qt, mx, my);
+            if (!j->progressive) {
+                if (ns == 1) {
+                    decode_block(&b, k, dc, ac, mx, my);
+                    continue;
+                }
+                for (int v = 0; v < k->v; v++) {
+                    for (int h = 0; h < k->h; h++) decode_block(&b, k, dc, ac, mx * k->h + h, my * k->v + v);
+                }
                 continue;
             }
-            for (int v = 0; v < k->v; v++) {
-                for (int h = 0; h < k->h; h++) decode_block(&b, k, dc, ac, qt, mx * k->h + h, my * k->v + v);
+            const int nh = ns == 1 ? 1 : k->h, nv = ns == 1 ? 1 : k->v;
+            for (int v = 0; v < nv; v++) {
+                for (int h = 0; h < nh; h++) {
+                    int16_t *blk = k->coef + ((int64_t)(my * nv + v) * k->bw + mx * nh + h) * 64;
+                    if (ss > 0)
+                        (ah ? ac_refine : ac_first)(j, &b, ac, blk, ss, se, al);
+                    else if (ah)
+                        dc_refine(&b, blk, al);
+                    else
+                        dc_first(&b, k, dc, blk, al);
+                }
             }
         }
         todo--;
@@ -630,6 +799,34 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
     const uint8_t *e = b.p;
     while (e + 1 < j->end && !(e[0] == 0xFF && e[1] != 0x00 && !(e[1] >= 0xD0 && e[1] <= 0xD7))) e++;
     *pos = e;
+    return 0;
+}
+
+/* After the last progressive scan: each component's blocks (those inside
+ * its own size) through the IDCT into its plane. */
+static int idct_coefficients(Jpeg *j) {
+    char msg[200];
+    for (int c = 0; c < j->ncomp; c++) {
+        const Comp *k = &j->comp[c];
+        for (int i = 0; i < 64; i++) {
+            if (k->coef_bits[i] != 0) {
+                snprintf(msg, sizeof msg,
+                         "progressive scans leave bits of coefficient %d of component %d unsent (libjpeg-turbo "
+                         "smooths such blocks, which is not done here)", i, c);
+                return fail(j, msg);
+            }
+        }
+    }
+    for (int c = 0; c < j->ncomp; c++) {
+        const Comp *k = &j->comp[c];
+        const int stride = k->bw * 8, nbx = (k->dw + 7) / 8, nby = (k->dh + 7) / 8;
+        for (int by = 0; by < nby; by++) {
+            for (int bx = 0; bx < nbx; bx++) {
+                idct_islow(k->coef + ((int64_t)by * k->bw + bx) * 64, k->q,
+                           k->plane + (int64_t)by * 8 * stride + (int64_t)bx * 8, stride);
+            }
+        }
+    }
     return 0;
 }
 
@@ -647,11 +844,28 @@ static void upsample(const Jpeg *j, const Comp *k, uint8_t *out) {
         for (int y = 0; y < h; y++) memcpy(out + (int64_t)y * w, pl + (int64_t)y * stride, (size_t)w);
         return;
     }
-    if (dw <= 2) {
-        /* h2v1_upsample / h2v2_upsample: each sample replicated */
+    if (rh == 1 && rv == 2) {
+        /* h1v2_fancy_upsample: 3/4 nearer row + 1/4 further row, biases 1
+         * (the row above) and 2 (below); the first and last real rows
+         * repeat past the edges, as jdmainct.c's context rows do */
+        for (int y = 0; y < h; y++) {
+            const int r = y >> 1;
+            int rn = (y & 1) ? r + 1 : r - 1;
+            if (rn < 0) rn = 0;
+            if (rn > dh - 1) rn = dh - 1;
+            const uint8_t *a = pl + (int64_t)r * stride, *b = pl + (int64_t)rn * stride;
+            const int bias = (y & 1) ? 2 : 1;
+            uint8_t *o = out + (int64_t)y * w;
+            for (int x = 0; x < w; x++) o[x] = (uint8_t)((3 * a[x] + b[x] + bias) >> 2);
+        }
+        return;
+    }
+    if (dw <= 2 || rh != 2 || rv > 2) {
+        /* h2v1_upsample / h2v2_upsample at most 2 samples wide, and
+         * int_upsample for every other ratio: each sample replicated */
         for (int y = 0; y < h; y++) {
             const uint8_t *in = pl + (int64_t)(y / rv) * stride;
-            for (int x = 0; x < w; x++) out[(int64_t)y * w + x] = in[x / 2];
+            for (int x = 0; x < w; x++) out[(int64_t)y * w + x] = in[x / rh];
         }
         return;
     }
@@ -730,7 +944,7 @@ static int parse(Jpeg *j, const uint8_t *data, int64_t n, char *err, int64_t err
     j->errlen = errlen;
     if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return fail(j, "not a JPEG file (no SOI marker)");
     const uint8_t *p = data + 2;
-    if (read_markers(j, &p)) return 1;
+    if (read_markers(j, &p, NULL)) return 1;
     if (check_frame(j)) return 1;
     *scan = p;
     return 0;
@@ -748,7 +962,7 @@ int jpeg_info(const uint8_t *data, int64_t n, int32_t *hwc, char *err, int64_t e
 }
 
 /* out <- the decoded image, height x width x components uint8 (RGB for
- * three components). */
+ * three components, whether coded as YCbCr or RGB). */
 int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out, char *err, int64_t errlen) {
     Jpeg j;
     const uint8_t *p;
@@ -756,19 +970,25 @@ int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out, char *err, int64_t
     int rc = 0;
     for (int c = 0; c < j.ncomp; c++) {
         Comp *k = &j.comp[c];
-        k->plane = calloc((size_t)k->bw * 8 * (size_t)k->bh * 8, 1);
-        if (!k->plane) {
+        const size_t blocks = (size_t)k->bw * (size_t)k->bh;
+        k->plane = calloc(blocks * 64, 1);
+        if (j.progressive) k->coef = calloc(blocks * 64, sizeof(int16_t));
+        if (!k->plane || (j.progressive && !k->coef)) {
             rc = fail(&j, "out of memory");
             goto done;
         }
     }
+    /* sequential: until every component had its scan; progressive: every
+     * scan up to EOI */
     for (;;) {
         if ((rc = decode_scan(&j, p, &p))) goto done;
-        int more = 0;
+        int more = 0, eoi = 0;
         for (int c = 0; c < j.ncomp; c++) more |= !j.comp[c].seen;
-        if (!more) break;
-        if ((rc = read_markers(&j, &p))) goto done;
+        if (!more && !j.progressive) break;
+        if ((rc = read_markers(&j, &p, j.progressive ? &eoi : NULL))) goto done;
+        if (eoi) break;
     }
+    if (j.progressive && (rc = idct_coefficients(&j))) goto done;
     const int64_t npx = (int64_t)j.width * j.height;
     if (j.ncomp == 1) {
         upsample(&j, &j.comp[0], out);
@@ -781,6 +1001,15 @@ int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out, char *err, int64_t
     }
     for (int c = 0; c < 3; c++) upsample(&j, &j.comp[c], planes + c * npx);
     const uint8_t *yp = planes, *cb = planes + npx, *cr = planes + 2 * npx;
+    if (j.rgb) {
+        for (int64_t i = 0; i < npx; i++) {
+            out[3 * i] = yp[i];
+            out[3 * i + 1] = cb[i];
+            out[3 * i + 2] = cr[i];
+        }
+        free(planes);
+        goto done;
+    }
     for (int64_t i = 0; i < npx; i++) {
         const int y = yp[i], b = cb[i], r = cr[i];
         out[3 * i] = clamp255(y + CR_R[r]);
@@ -789,6 +1018,9 @@ int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out, char *err, int64_t
     }
     free(planes);
 done:
-    for (int c = 0; c < j.ncomp; c++) free(j.comp[c].plane);
+    for (int c = 0; c < j.ncomp; c++) {
+        free(j.comp[c].plane);
+        free(j.comp[c].coef);
+    }
     return rc;
 }

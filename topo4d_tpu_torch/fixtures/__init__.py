@@ -1,12 +1,19 @@
-"""JPEG fixtures that PIL wrote, with each one's shape and the SHA-256 of
-PIL's decode (``manifest.json``): what ``utils/jpeg.py`` is held to where
-PIL is absent, as on the card's host (``chip_smoke.py`` phase 9).
+"""Image fixtures with each one's shape and the SHA-256 of PIL's decode
+(``manifest.json``): what ``utils/jpeg.py`` and ``utils/png.py`` are held to
+where PIL is absent, as on the card's host (``chip_smoke.py`` phases 9 and
+13).
 
-``DENSE`` is a dense view at the capture size, 4096x3000 (a landscape
-sensor), 4:2:0 with a restart interval; the others are working-size views
-in 4:2:2 and 4:4:4 and a gray image. Regenerate them with PIL by
-``python -m topo4d_tpu_torch.fixtures`` (the images are made from a seed;
-the hashes are PIL's decode of the files written).
+``BASELINE`` are the sequential JPEGs PIL wrote: ``DENSE``, a dense view at
+the capture size, 4096x3000 (a landscape sensor), 4:2:0 with a restart
+interval; working-size views in 4:2:2 and 4:4:4 and a gray image. ``KINDS``
+are the other kinds the loader reads: ``DENSE_PROGRESSIVE``, the same dense
+image as PIL's progressive JPEG; progressive 4:4:4 and gray views; an Adobe
+APP14 marker of transform 0 (RGB) and of transform 1 (YCbCr) spliced into
+PIL's output in place of its JFIF marker; 4:4:0 and 4:1:1 views from
+``jpeg_writer.encode_baseline`` (PIL writes neither sampling); an
+Adam7-interlaced 16-bit RGB PNG from ``png_writer.encode_png_any``.
+Regenerate them by ``python -m topo4d_tpu_torch.fixtures`` (the images are
+made from a seed; the hashes are PIL's decode of the files written).
 """
 
 from __future__ import annotations
@@ -21,11 +28,24 @@ import numpy as np
 FIXTURE_DIR = os.path.dirname(os.path.abspath(__file__))
 MANIFEST = os.path.join(FIXTURE_DIR, "manifest.json")
 DENSE = "dense_4096x3000_q85_420.jpg"
+DENSE_PROGRESSIVE = "dense_4096x3000_q85_420_progressive.jpg"
+BASELINE = (DENSE, "view_517x389_q75_422.jpg", "view_517x389_q95_444.jpg", "gray_515x387_q85.jpg")
+KINDS = (
+    DENSE_PROGRESSIVE,
+    "view_259x195_q90_444_progressive.jpg",
+    "gray_257x193_q85_progressive.jpg",
+    "view_261x197_q85_adobe0.jpg",
+    "view_261x197_q85_adobe1.jpg",
+    "view_263x199_q85_440.jpg",
+    "view_263x199_q85_411.jpg",
+    "view_127x93_rgb16_adam7.png",
+)
 
 
 def manifest() -> Dict[str, dict]:
     """file name -> {"shape": [H, W(, 3)], "sha256": hex digest of PIL's
-    decoded bytes, "save": PIL's save options}."""
+    decoded bytes, "save": how it was written (PIL's save options, or the
+    writer's and splice's)}."""
     with open(MANIFEST) as fh:
         return json.load(fh)
 

@@ -1,4 +1,5 @@
-"""Regenerate the JPEG fixtures and ``manifest.json`` with PIL:
+"""Regenerate the image fixtures and ``manifest.json`` (PIL writes and
+decodes them):
 
     python -m topo4d_tpu_torch.fixtures
 
@@ -8,18 +9,40 @@ sinusoidal texture and noise, so that every band of the DCT carries data.
 
 from __future__ import annotations
 
+import io
 import json
 
 import numpy as np
 
-from topo4d_tpu_torch.fixtures import DENSE, MANIFEST, path, sha256
+from topo4d_tpu_torch.fixtures import DENSE, DENSE_PROGRESSIVE, MANIFEST, path, sha256
+from topo4d_tpu_torch.fixtures.jpeg_writer import encode_baseline
+from topo4d_tpu_torch.fixtures.png_writer import encode_png_any
 
-# file name -> (height, width, gray?, seed, PIL save options)
+# file name -> (height, width, gray?, seed, how it is written): PIL's save
+# options, with "adobe_transform" for an APP14 marker spliced in place of
+# PIL's JFIF marker; "writer" for this package's writers
 FIXTURES = {
     DENSE: (3000, 4096, False, 0, {"quality": 85, "subsampling": 2, "restart_marker_rows": 4}),
     "view_517x389_q75_422.jpg": (389, 517, False, 1, {"quality": 75, "subsampling": 1}),
     "view_517x389_q95_444.jpg": (389, 517, False, 2, {"quality": 95, "subsampling": 0}),
     "gray_515x387_q85.jpg": (387, 515, True, 3, {"quality": 85}),
+    DENSE_PROGRESSIVE: (
+        3000, 4096, False, 0, {"quality": 85, "subsampling": 2, "restart_marker_rows": 4, "progressive": True}
+    ),
+    "view_259x195_q90_444_progressive.jpg": (195, 259, False, 4, {"quality": 90, "subsampling": 0, "progressive": True}),
+    "gray_257x193_q85_progressive.jpg": (193, 257, True, 5, {"quality": 85, "progressive": True}),
+    "view_261x197_q85_adobe0.jpg": (197, 261, False, 6, {"quality": 85, "subsampling": 0, "adobe_transform": 0}),
+    "view_261x197_q85_adobe1.jpg": (197, 261, False, 7, {"quality": 85, "subsampling": 2, "adobe_transform": 1}),
+    "view_263x199_q85_440.jpg": (
+        199, 263, False, 8, {"writer": "encode_baseline", "quality": 85, "sampling": [[1, 2], [1, 1], [1, 1]]}
+    ),
+    "view_263x199_q85_411.jpg": (
+        199, 263, False, 9, {"writer": "encode_baseline", "quality": 85, "sampling": [[4, 1], [1, 1], [1, 1]],
+                             "restart": 3}
+    ),
+    "view_127x93_rgb16_adam7.png": (
+        93, 127, False, 10, {"writer": "encode_png_any", "depth": 16, "color_type": 2, "interlace": True}
+    ),
 }
 
 
@@ -40,12 +63,43 @@ def make_image(h: int, w: int, gray: bool, seed: int) -> np.ndarray:
     return img[..., 1] if gray else img
 
 
+def splice_adobe(data: bytes, transform: int) -> bytes:
+    """PIL's JPEG with its JFIF APP0 segment replaced by an Adobe APP14
+    segment of ``transform`` (as Photoshop writes: version 100, no flags)."""
+    if data[2:4] != b"\xff\xe0":
+        raise ValueError("expected PIL's JFIF APP0 segment right after SOI")
+    app0_end = 4 + int.from_bytes(data[4:6], "big")
+    app14 = b"\xff\xee\x00\x0eAdobe" + bytes([0, 100, 0, 0, 0, 0, transform])
+    return data[:2] + app14 + data[app0_end:]
+
+
+def encode(img: np.ndarray, save: dict, seed: int) -> bytes:
+    save = dict(save)
+    writer = save.pop("writer", None)
+    if writer == "encode_baseline":
+        return encode_baseline(img, sampling=[tuple(f) for f in save["sampling"]], quality=save["quality"],
+                               restart=save.get("restart", 0))
+    if writer == "encode_png_any":
+        # 16-bit samples whose low bytes carry noise: PIL keeps the high bytes
+        low = np.random.default_rng(seed).integers(0, 256, img.shape)
+        return encode_png_any(img.astype(np.uint16) * 256 + low, save["depth"], save["color_type"],
+                              interlace=save["interlace"])
+    from PIL import Image
+
+    transform = save.pop("adobe_transform", None)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", **save)
+    data = buf.getvalue()
+    return data if transform is None else splice_adobe(data, transform)
+
+
 def main() -> None:
     from PIL import Image
 
     out = {}
     for name, (h, w, gray, seed, save) in FIXTURES.items():
-        Image.fromarray(make_image(h, w, gray, seed)).save(path(name), format="JPEG", **save)
+        with open(path(name), "wb") as fh:
+            fh.write(encode(make_image(h, w, gray, seed), save, seed))
         with Image.open(path(name)) as im:
             pixels = np.asarray(im)
         out[name] = {"shape": list(pixels.shape), "sha256": sha256(pixels), "save": save}

@@ -8,6 +8,7 @@ copies nothing from the host.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -125,6 +126,35 @@ def dihedral_cos(vertices: torch.Tensor, quads: DihedralQuadruples, eps: float =
     (the double projection of loss_util.py:171-208)."""
     qg = prepare_quad_gather(quads, vertices.shape[0], vertices.device)
     return _dihedral_cos(vertices, qg, eps)
+
+
+def flatten_loss(
+    vertices: torch.Tensor, quads: DihedralQuadruples, threshold_deg: float = 0.0, eps: float = 1e-6
+) -> torch.Tensor:
+    """The hard flatten penalty sum (cos + 1)^2 over the shared edges, edges
+    whose cosine is above cos(threshold_deg) exempt (FlattenLoss.forward);
+    the unfused form of ``fused_flatten_loss``."""
+    cos = dihedral_cos(vertices, quads, eps)
+    threshold = math.cos(threshold_deg * math.pi / 180.0)
+    cos = torch.where(cos > threshold, torch.full_like(cos, -1.0), cos)
+    return torch.sum((cos + 1.0) ** 2)
+
+
+def soft_flatten_loss(
+    vertices: torch.Tensor, quads: DihedralQuadruples, cos_init: Optional[torch.Tensor] = None, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The soft flatten penalty against the initial dihedral angles
+    (SoftFlattenLoss) -> (loss, the current cosines, detached), so that
+    frame 0 can keep them as ``cos_init`` (reference train.py:364-368).
+    Without ``cos_init`` it is the hard penalty sum (cos + 1)^2."""
+    cos = dihedral_cos(vertices, quads, eps)
+    if cos_init is not None:
+        angle = torch.arccos(torch.clamp(cos, -1.0, 1.0))
+        angle0 = torch.arccos(torch.clamp(cos_init, -1.0, 1.0))
+        loss = torch.sum(1.0 - torch.cos(torch.abs(angle - angle0)))
+    else:
+        loss = torch.sum((cos + 1.0) ** 2)
+    return loss, cos.detach()
 
 
 class FusedFlatten(NamedTuple):
@@ -320,3 +350,16 @@ def build_umbrella_flatten(
         if reg.size == 0:
             reg = np.arange(num_vertices)
     return UmbrellaFlatten(idx, msk, num, reg.astype(np.int32))
+
+
+def umbrella_flatten_loss(vertices: torch.Tensor, state: UmbrellaFlatten) -> torch.Tensor:
+    """The MSE between each region vertex and the mean of its one-ring
+    (FlattenLoss_v2.forward); the unfused form of ``fused_umbrella_loss``."""
+    dev = vertices.device
+    idx = torch.as_tensor(state.neighbor_indices, dtype=torch.int64, device=dev)
+    mask = torch.as_tensor(state.neighbor_mask, device=dev)
+    num = torch.as_tensor(state.neighbor_num, device=dev)
+    nbr = vertices[idx] * mask[..., None]
+    ave = torch.sum(nbr, dim=1) / torch.clamp(num[:, None], min=1.0)
+    reg = torch.as_tensor(state.region, dtype=torch.int64, device=dev)
+    return torch.mean((ave[reg] - vertices[reg]) ** 2)

@@ -22,6 +22,21 @@ def l1_loss_sum_last(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.sum(torch.abs(x - y), dim=-1))
 
 
+def l2_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """mean sqrt((x - y)^2 + 1e-20) (reference ``l2_loss``)."""
+    return torch.mean(torch.sqrt((x - y) ** 2 + 1e-20))
+
+
+def weighted_l2_loss_v1(x: torch.Tensor, y: torch.Tensor, w) -> torch.Tensor:
+    """mean sqrt((x - y)^2 * w + 1e-20) (reference helpers.py:126-127)."""
+    return torch.mean(torch.sqrt((x - y) ** 2 * w + 1e-20))
+
+
+def weighted_l2_loss_v2(x: torch.Tensor, y: torch.Tensor, w) -> torch.Tensor:
+    """mean sqrt(sum_last((x - y)^2) * w + 1e-20) (reference helpers.py:130-131)."""
+    return torch.mean(torch.sqrt(torch.sum((x - y) ** 2, dim=-1) * w + 1e-20))
+
+
 def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """Per-leading-dim MSE: (C, ...) -> (C, 1)."""
     d = (img1 - img2) ** 2

@@ -5,7 +5,7 @@ use into ``<repo>/build/``, named by a hash of the source and the flags, as
 ``kernels.py`` names the CUDA kernels:
 
 - ``imgdec`` (``csrc/imgdec.c``): the loader's image decoding, the PNG
-  unfilter and the baseline JPEG decoder; C99, built by ``$CC``, else ``cc``,
+  unfilter and the JPEG decoder; C99, built by ``$CC``, else ``cc``,
   else ``gcc``;
 - ``scanline`` (``csrc/scanline.cpp``): the scanline z-buffer renderer of
   ``mesh3d.scanline``; C++, built by ``$CXX``, else ``c++``, else ``g++``.

@@ -87,9 +87,9 @@ def _stack_cameras(cam_dicts: List[Dict], near: float, far: float, device) -> Ca
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file as ``np.asarray(PIL.Image.open(path))`` gives it
-    (uint8): a PNG or a baseline JPEG, told apart by the file's leading
-    bytes (as PIL does), whatever its extension."""
+    """An image file as ``np.asarray(PIL.Image.open(path))`` gives it: a
+    PNG or a JPEG, told apart by the file's leading bytes (as PIL does),
+    whatever its extension."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data.startswith(SIGNATURE):

@@ -1,21 +1,23 @@
 """Scene assembly: startup mesh -> params, statics, constraints.
 
 Counterpart of ``pipeline/scene.py`` (``build_scene`` :62-235 with the dense
-texture mesh, ``init_dense_params`` :237, ``build_constraints`` :325,
-``cache_first_frame_attrs`` :416, ``build_dense_pre_constraints`` :432).
+texture mesh, ``init_dense_params`` :237, ``merge_constraints`` :289,
+``build_constraints`` :325, ``cache_first_frame_attrs`` :416,
+``build_dense_pre_constraints`` :432).
 Host NumPy throughout; the trainer moves the results to the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from topo4d_tpu_torch.config import Config
 from topo4d_tpu_torch.core.quaternion import normal_to_quat_reference
+from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.losses.flatten import (
     DihedralQuadruples,
     UmbrellaFlatten,
@@ -61,15 +63,17 @@ def build_scene(
     mesh: MeshObj,
     regions: FacialRegions,
     cfg: Config,
-    num_views: int,
+    num_views: Optional[int] = None,
     vertex_colors: Optional[np.ndarray] = None,  # (V, 3) in [0, 1]
     trans_g: Optional[np.ndarray] = None,
 ):
     """-> (params dict of NumPy arrays, SceneStatics). Mirrors train.py:115-269.
 
-    ``vertex_colors`` defaults to mid-gray (the reference samples them from
-    the startup texture).
+    ``num_views`` (the per-view ``cam_m`` / ``cam_c`` rows) defaults to
+    ``cfg.data.max_cams``; ``vertex_colors`` to mid-gray (the reference
+    samples them from the startup texture).
     """
+    num_views = num_views or cfg.data.max_cams
     trans_g = np.eye(4) if trans_g is None else np.asarray(trans_g)
     inv_g = np.linalg.inv(trans_g)
     vertices = mesh.vertices @ inv_g[:3, :3].T + inv_g[:3, 3]
@@ -200,18 +204,48 @@ def _const(param, idx, value, like):
     )
 
 
+def merge_constraints(cons: List[ScatterConstraint]) -> List[ScatterConstraint]:
+    """One scatter per parameter: the reference writes its regions one
+    after another (the last write wins where they overlap,
+    train.py:676-700), so keeping each index's last value gives the same
+    result in a single write."""
+    by_param: Dict[str, Dict[int, int]] = {}
+    values: Dict[str, list] = {}
+    for c in cons:
+        vals = np.asarray(c.value)
+        if vals.ndim == 1:
+            vals = np.broadcast_to(vals[None], (len(c.idx),) + vals.shape)
+        slot = by_param.setdefault(c.param, {})
+        vlist = values.setdefault(c.param, [])
+        for j, idx in enumerate(np.asarray(c.idx)):
+            slot[int(idx)] = len(vlist)
+            vlist.append(vals[j])
+    out = []
+    for param, slot in by_param.items():
+        idx = np.fromiter(slot.keys(), np.int32, len(slot))
+        sel = np.fromiter(slot.values(), np.int64, len(slot))
+        out.append(ScatterConstraint(param=param, idx=idx, value=np.stack(values[param])[sel]))
+    return out
+
+
 def build_constraints(
     phase: str,
     params0: Dict[str, np.ndarray],  # frame-0 initial params (host)
     regions: FacialRegions,
     first_frame_attrs: Optional[Dict[str, np.ndarray]] = None,
     device="cuda",
-) -> List[DenseConstraint]:
-    """Post-step region writes for ``phase`` in {"init_early", "init", "track"},
-    compiled to one masked select per parameter (train.py:676-700).
+    merge: bool = True,
+    dense: bool = True,
+) -> List[Union[DenseConstraint, ScatterConstraint]]:
+    """Post-step region writes for ``phase`` in {"init_early", "init", "track"}
+    (train.py:676-700).
 
     init_early covers the first 70% of frame-0 iterations, where the eye
-    region is additionally frozen (train.py:682-686).
+    region is additionally frozen (train.py:682-686). With ``dense`` (the
+    form the trainer runs) the writes are compiled to one masked select per
+    parameter; else with ``merge`` to one scatter per parameter
+    (``merge_constraints``), else they stay the sequential scatters. The
+    scatters' values are put on ``device``.
     """
     m = regions.masks
     rm = regions.region_masks
@@ -258,7 +292,13 @@ def build_constraints(
                               value=ffa["face_bottom_colors"]),
             _const("rgb_colors", m["mouth_inner_masks"], 0.0, p0["rgb_colors"]),
         ]
-    return compile_dense_constraints(p0, cons, device)
+    if dense:
+        return compile_dense_constraints(p0, cons, device)
+    dev = resolve_device(device)
+    return [
+        dataclasses.replace(c, value=torch.as_tensor(np.asarray(c.value, np.float32), device=dev))
+        for c in (merge_constraints(cons) if merge else cons)
+    ]
 
 
 def cache_first_frame_attrs(params, regions: FacialRegions) -> Dict[str, np.ndarray]:

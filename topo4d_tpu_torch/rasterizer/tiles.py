@@ -50,6 +50,16 @@ class Binning(NamedTuple):
     compact: Optional[CompactTiles] = None
 
 
+class TileBins(NamedTuple):
+    """Sorted entries and per-tile ranges (``bin_gaussians``)."""
+
+    gauss_id: torch.Tensor  # (E,) int32 gaussian of each sorted entry
+    entry_valid: torch.Tensor  # (E,) bool
+    tile_start: torch.Tensor  # (T,) int32 first entry of each tile
+    tile_count: torch.Tensor  # (T,) int32 entries of each tile
+    num_cropped: torch.Tensor  # () int32 gaussians whose tile rect was cropped
+
+
 class PackedBins(NamedTuple):
     """Depth-sorted per-tile entry ranges with packed per-entry data.
 
@@ -157,6 +167,42 @@ def compute_binning(proj: Projected, width: int, height: int, max_span: int = 4)
         num_cropped=num_cropped,
         inv_positions=inv.reshape(n, max_span * max_span),
     )
+
+
+def bin_gaussians(proj: Projected, width: int, height: int, max_span: int = 4) -> TileBins:
+    """The duplicate-and-sort binning as sorted entries and tile ranges: a
+    Gaussian spanning more than ``max_span`` tiles on an axis is cropped to
+    its top-left ``max_span`` x ``max_span`` tiles and counted."""
+    b = compute_binning(proj, width, height, max_span)
+    return TileBins(
+        gauss_id=b.sorted_gid.to(torch.int32), entry_valid=b.entry_valid, tile_start=b.tile_start,
+        tile_count=b.tile_count, num_cropped=b.num_cropped,
+    )
+
+
+def bin_gaussians_packed(
+    proj: Projected,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    width: int,
+    height: int,
+    max_span: int = 4,
+    chunk: int = PACK_CHUNK,
+) -> PackedBins:
+    """The binning with every entry's fields packed (``PackedBins``), tail
+    padded with -1 by (-E) % ``chunk`` + ``chunk`` columns (``chunk`` a
+    multiple of 128): ``compute_binning`` then ``pack_with_binning``, whose
+    backward folds the entries' gradients back to the Gaussians by a gather.
+    Invalid entries (tile T) carry zeros where the JAX package's carry the
+    sorted data; no blend reads them."""
+    if chunk % PACK_CHUNK:
+        raise ValueError(f"chunk must be a multiple of {PACK_CHUNK}")
+    bins = pack_with_binning(proj, colors, opacities, compute_binning(proj, width, height, max_span))
+    if chunk != PACK_CHUNK:
+        e = proj.means2d.shape[0] * max_span * max_span
+        packed = torch.nn.functional.pad(bins.packed[:, :e], (0, (-e) % chunk + chunk), value=-1.0)
+        bins = bins._replace(packed=packed)
+    return bins
 
 
 class _GatherEntries(torch.autograd.Function):

@@ -19,6 +19,7 @@ import torch
 
 from topo4d_tpu_torch.config import DEFAULT_CMAP_INDEX, DEFAULT_ROTATE_MASK
 from topo4d_tpu_torch.core.camera import Camera, make_camera
+from topo4d_tpu_torch.core.gaussian import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_MIN
 from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.topology.adjacency import triangulate_faces
 from topo4d_tpu_torch.topology.regions import FACE_REGION_NAMES, FacialRegions
@@ -37,6 +38,70 @@ def _ring_pose(width, height, distance, angle):
     c2w = np.eye(4, dtype=np.float32)
     c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up2, forward, pos
     return k, np.linalg.inv(c2w)
+
+
+def make_synthetic_scene(n: int = 256, seed: int = 0, spread: float = 0.5, scale: float = 0.03) -> Dict[str, np.ndarray]:
+    """Random raw (pre-activation) Gaussian params around the origin."""
+    rng = np.random.default_rng(seed)
+    return {
+        "means3D": rng.normal(0.0, spread, (n, 3)).astype(np.float32),
+        "rgb_colors": rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32),
+        "unnorm_rotations": rng.normal(0.0, 1.0, (n, 4)).astype(np.float32),
+        "logit_opacities": rng.normal(2.0, 1.0, (n, 1)).astype(np.float32),
+        "log_scales": np.log(rng.uniform(0.5 * scale, 2.0 * scale, (n, 3))).astype(np.float32),
+    }
+
+
+def sequential_blend_numpy(
+    pix: np.ndarray,  # (P, 2)
+    means2d: np.ndarray,  # (M, 2) front-to-back order
+    conics: np.ndarray,  # (M, 3)
+    colors: np.ndarray,  # (M, 3)
+    depths: np.ndarray,  # (M,)
+    opacities: np.ndarray,  # (M,)
+    valid: np.ndarray,  # (M,)
+    bg: np.ndarray,  # (3,)
+    rect=None,  # optional (x0, y0, x1, y1) tile rects, in tiles
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The CUDA rasterizer's per-pixel blending loop, literally and in
+    float64: an oracle independent of the blend kernels. ``rect`` adds its
+    tile-rect cull (a splat blends only into pixels whose 16x16 tile lies
+    in its rect). -> (rgb (P, 3), depth (P,), alpha (P,))."""
+    p = pix.shape[0]
+    rgb = np.zeros((p, 3))
+    dep = np.zeros(p)
+    out_a = np.zeros(p)
+    for pi in range(p):
+        t = 1.0
+        c = np.zeros(3)
+        d = 0.0
+        ptx = int(np.floor(pix[pi, 0] / 16.0))
+        pty = int(np.floor(pix[pi, 1] / 16.0))
+        for gi in range(means2d.shape[0]):
+            if not valid[gi]:
+                continue
+            if rect is not None:
+                x0, y0, x1, y1 = rect
+                if not (x0[gi] <= ptx < x1[gi] and y0[gi] <= pty < y1[gi]):
+                    continue
+            dx = means2d[gi, 0] - pix[pi, 0]
+            dy = means2d[gi, 1] - pix[pi, 1]
+            power = -0.5 * (conics[gi, 0] * dx * dx + conics[gi, 2] * dy * dy) - conics[gi, 1] * dx * dy
+            if power > 0.0:
+                continue
+            alpha = min(ALPHA_MAX, opacities[gi] * np.exp(power))
+            if alpha < ALPHA_MIN:
+                continue
+            test_t = t * (1.0 - alpha)
+            if test_t < TRANSMITTANCE_MIN:
+                break
+            c = c + colors[gi] * alpha * t
+            d = d + depths[gi] * alpha * t
+            t = test_t
+        rgb[pi] = c + t * bg
+        dep[pi] = d
+        out_a[pi] = 1.0 - t
+    return rgb, dep, out_a
 
 
 def make_synthetic_camera(

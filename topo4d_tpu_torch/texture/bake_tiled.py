@@ -144,6 +144,48 @@ def _bin_core(verts_px: np.ndarray, tris: np.ndarray, height: int, width: int):
             tiles_x, tiles_y)
 
 
+ROWS = 24  # rows of the JAX package's packed layout (``bin_triangles_np``)
+
+
+def bin_triangles_np(
+    verts_px: np.ndarray,  # (V, 3) pixel-space uv coords + z
+    tris: np.ndarray,  # (F, 3) int
+    colors: np.ndarray,  # (V, C >= 3)
+    height: int,
+    width: int,
+    chunk: int = 128,
+    e_round: int = 1 << 17,
+    m_round: int = 8192,
+):
+    """The host binning in the JAX package's packed layout -> (packed (24,
+    E_pad) float32, tmap (M_pad,) int32, start, count, tiles_x, tiles_y, m).
+
+    Rows 0-5 the corners' x, y; 6-8 their depths; 9-17 their colors (3
+    channels per corner); 18 the tile id; the rest and the padding -1.
+    Occupied tile ``tmap[i]`` owns entries ``start[i] .. start[i] + count[i]
+    - 1`` for i < m; padding rows name tile tiles_x * tiles_y. E_pad and
+    M_pad round up to ``e_round`` (past E + ``chunk``) and ``m_round``.
+    """
+    geom, fe, tile_ids, start, count, tiles_x, tiles_y = _bin_core(verts_px, tris, height, width)
+    e, m = geom.shape[1], tile_ids.size
+    e_pad = max(-(-(e + chunk) // e_round) * e_round, e_round)
+    packed = np.full((ROWS, e_pad), -1.0, np.float32)
+    packed[0:9, :e] = geom[0:9]
+    packed[18, :e] = geom[9]
+    c = np.asarray(colors, np.float32)
+    for k in range(3):
+        for ch in range(3):
+            packed[9 + 3 * k + ch, :e] = c[:, ch][fe[:, k]]
+    m_pad = max(-(-m // m_round) * m_round, m_round)
+    tmap = np.full(m_pad, tiles_x * tiles_y, np.int32)
+    tmap[:m] = tile_ids
+    start_a = np.zeros(m_pad, np.int32)
+    start_a[:m] = start
+    count_a = np.zeros(m_pad, np.int32)
+    count_a[:m] = count
+    return packed, tmap, start_a, count_a, tiles_x, tiles_y, m
+
+
 def compute_bake_binning(
     verts_px: np.ndarray,
     tris: np.ndarray,

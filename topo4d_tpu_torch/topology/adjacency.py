@@ -76,6 +76,27 @@ def build_one_ring(
     )
 
 
+def inverse_slots(indices: np.ndarray) -> np.ndarray:
+    """For each (v, j): the slot s with indices[indices[v, j], s] == v (the
+    first such slot), or j where the slot pads v with itself.
+
+    One-ring adjacency is symmetric and self-pads point at themselves, so
+    the inverse exists; it turns the backward of ``x[indices]`` into a
+    gather (``losses.neighbors.gather_neighbors``).
+    """
+    indices = np.asarray(indices, np.int64)
+    n, k = indices.shape
+    # (u, w) -> the first slot s of w in u's ring
+    keys = np.arange(n)[:, None] * n + indices
+    uniq, first = np.unique(keys.reshape(-1), return_index=True)
+    want = indices * n + np.arange(n)[:, None]
+    at = np.searchsorted(uniq, want)
+    if not np.array_equal(uniq[np.minimum(at, uniq.size - 1)], want):
+        raise ValueError("the one-ring indices are not symmetric")
+    slot = first[at] % k
+    return np.where(indices == np.arange(n)[:, None], np.arange(k)[None, :], slot).astype(np.int32)
+
+
 def triangulate_faces(faces: Sequence[Sequence[int]]) -> List[List[int]]:
     """Fan-triangulate quads (q0,q1,q2)+(q0,q2,q3); keep triangles."""
     out: List[List[int]] = []
@@ -101,6 +122,16 @@ def split_faces_by_mask(faces: np.ndarray, face_idx: np.ndarray, mask: Sequence[
         faces[~touching],
         face_idx[~touching].astype(np.int32),
     )
+
+
+def faces_fully_inside(faces: np.ndarray, mask: Sequence[int]) -> np.ndarray:
+    """The faces whose vertices are all in ``mask`` (reference ``vertex2face``)."""
+    return np.asarray(faces)[_to_bool(faces, mask).all(axis=1)]
+
+
+def faces_touching(faces: np.ndarray, mask: Sequence[int]) -> np.ndarray:
+    """The faces with any vertex in ``mask`` (reference ``vertex2face_more``)."""
+    return np.asarray(faces)[_to_bool(faces, mask).any(axis=1)]
 
 
 def _to_bool(faces: np.ndarray, mask: Sequence[int]) -> np.ndarray:

@@ -101,6 +101,36 @@ def write_obj_with_uv(
             fh.write("f" + "".join(f" {int(v) + 1}/{int(t) + 1}" for v, t in zip(face, uv_face)) + "\n")
 
 
+def write_obj_del_vertex(
+    path: str,
+    vertices: np.ndarray,
+    faces: Sequence[Sequence[int]],
+    uvs: np.ndarray,
+    uv_faces: Sequence[Sequence[int]],
+    del_list: Sequence[int],
+    neighbor_indices: Optional[np.ndarray] = None,
+) -> None:
+    """The OBJ export with a vertex subset removed (reference helpers.py:275-298).
+
+    With ``neighbor_indices`` a vertex is deleted only if all of its one-ring
+    neighbors are listed too (no dangling faces). Faces touching a deleted
+    vertex are dropped and the remaining vertices renumbered; the UVs are
+    written unchanged (the reference keeps the whole vt list).
+    """
+    del_set = set(int(v) for v in del_list)
+    if neighbor_indices is not None:
+        del_set = {v for v in del_set if all(int(n) in del_set for n in neighbor_indices[v])}
+    keep = [i for i in range(vertices.shape[0]) if i not in del_set]
+    remap = {old: new for new, old in enumerate(keep)}
+    new_faces, new_uv_faces = [], []
+    for face, uv_face in zip(faces, uv_faces):
+        if any(v in del_set for v in face):
+            continue
+        new_faces.append([remap[v] for v in face])
+        new_uv_faces.append(list(uv_face))
+    write_obj_with_uv(path, vertices[keep], new_faces, uvs, new_uv_faces)
+
+
 def sample_vertex_colors(
     texture: np.ndarray,  # (H, W, 3) float or uint8
     num_vertices: int,

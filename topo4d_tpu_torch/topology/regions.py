@@ -127,3 +127,13 @@ def build_region_weight_matrix(
     for key, mult in multipliers.items():
         w[regions.mask(key), :] *= mult / global_weight
     return w
+
+
+def region_lookup(regions: FacialRegions, num_vertices: int) -> Dict[str, np.ndarray]:
+    """A boolean (num_vertices,) membership vector for each region and mask."""
+    out = {}
+    for name, idx in {**regions.region_masks, **regions.masks}.items():
+        b = np.zeros(num_vertices, bool)
+        b[idx] = True
+        out[name] = b
+    return out

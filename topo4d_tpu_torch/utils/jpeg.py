@@ -1,13 +1,16 @@
-"""A baseline JPEG reader: the C decoder of ``csrc/imgdec.c``.
+"""A JPEG reader: the C decoder of ``csrc/imgdec.c``.
 
 ``decode_jpeg`` returns what ``np.asarray(PIL.Image.open(f))`` returns for
-the JPEGs it reads, bit for bit: (H, W, 3) uint8 for YCbCr, (H, W) for
-gray, decoded as libjpeg-turbo decodes at its defaults (islow IDCT, fancy
-upsampling, its integer color tables). It reads sequential Huffman files
-with 8-bit samples, 1 or 3 components, sampling 4:4:4, 4:2:2 or 4:2:0 and
-restart markers. Progressive, arithmetic-coded, lossless and 12-bit files,
-CMYK and Adobe-marked files and other sampling raise ``ValueError``, naming
-the file.
+the JPEGs it reads, bit for bit: (H, W, 3) uint8 for three components,
+(H, W) for gray, decoded as libjpeg-turbo decodes at its defaults (islow
+IDCT, the upsampler it picks, its colour-space choice and integer colour
+tables). It reads sequential and progressive Huffman files with 8-bit
+samples, 1 or 3 components coded as YCbCr or RGB (JFIF, Adobe APP14 or
+'R', 'G', 'B' component ids), any sampling factors whose ratios are whole,
+and restart markers. Arithmetic-coded, lossless, hierarchical and 12-bit
+files, 2 or 4 components, fractional sampling, MCUs of more than 10 blocks
+and progressive files whose scans leave coefficient bits unsent (which
+libjpeg-turbo smooths) raise ``ValueError``, naming the file.
 """
 
 from __future__ import annotations

@@ -1,15 +1,36 @@
-"""An 8-bit PNG writer and reader on ``zlib``, ``struct`` and the host C
+"""An 8-bit PNG writer and a PNG reader on ``zlib``, ``struct`` and the host C
 library.
 
 The JAX package reads and writes images through PIL (``pipeline/data.py``,
 ``pipeline/export.py``); this package must not need it. The writer emits
-8-bit gray, RGB or RGBA, one IDAT chunk, filter type 0 (none) on every row, deflate at
-``level`` (6, PIL's default). The reader takes what PIL writes for 8-bit
-gray, gray+alpha, RGB and RGBA images: non-interlaced, any number of IDAT
-chunks, a filter type from 0 to 4 chosen per row. Anything else (16-bit
-samples, palettes, interlacing) raises, naming the file. Filtered rows are
-undone by ``png_unfilter`` of ``csrc/imgdec.c`` (``unfilter``), which holds
-no interpreter lock; ``unfilter_plain`` is its NumPy mirror, for the tests.
+8-bit gray, RGB or RGBA, one IDAT chunk, filter type 0 (none) on every row,
+deflate at ``level`` (6, PIL's default). The reader takes every PNG: each
+colour type at each bit depth PNG allows, with or without Adam7
+interlacing, any number of IDAT chunks, a filter type from 0 to 4 chosen
+per row, ancillary chunks (``tRNS``, ``gAMA``, ...) skipped as they change
+nothing in PIL's array. It returns what ``np.asarray(PIL.Image.open(f))``
+gives (Pillow 12.1), whatever the interlace:
+
+    colour type     depth   PIL mode  array
+    0 gray          1       1         (H, W) bool
+    0 gray          2       L         (H, W) uint8, sample * 85
+    0 gray          4       L         (H, W) uint8, sample * 17
+    0 gray          8       L         (H, W) uint8
+    0 gray          16      I;16      (H, W) uint16
+    2 RGB           8       RGB       (H, W, 3) uint8
+    2 RGB           16      RGB       (H, W, 3) uint8, the high bytes
+    3 palette       1-8     P         (H, W) uint8, the indices
+    4 gray+alpha    8       LA        (H, W, 2) uint8
+    4 gray+alpha    16      RGBA      (H, W, 4) uint8: gray, gray, gray, alpha, the high bytes
+    6 RGBA          8       RGBA      (H, W, 4) uint8
+    6 RGBA          16      RGBA      (H, W, 4) uint8, the high bytes
+
+Filtered rows are undone by ``png_unfilter`` of ``csrc/imgdec.c``
+(``unfilter``) at the real bytes per pixel (2 per sample at 16 bits, 1 below
+8 bits), which holds no interpreter lock; ``unfilter_plain`` is its NumPy
+mirror, for the tests. Sub-byte samples are unpacked after the unfilter.
+An interlaced image is seven filtered passes, each unfiltered alone and
+scattered into place.
 """
 
 from __future__ import annotations
@@ -22,7 +43,10 @@ import numpy as np
 from topo4d_tpu_torch import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # color type -> samples per pixel (gray, gray+alpha, RGB, RGBA)
+CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4, 3: 1}  # color type -> samples per pixel (gray, gray+alpha, RGB, RGBA, palette)
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -109,10 +133,55 @@ def unfilter(raw: np.ndarray, c: int) -> np.ndarray:
     return out
 
 
+def _row_bytes(w: int, c: int, depth: int) -> int:
+    return (w * c * depth + 7) // 8
+
+
+def _unpack(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """(H, row bytes) unfiltered rows -> (H, W * C) samples: uint16 at 16
+    bits, uint8 otherwise (sub-byte samples from the high bits down)."""
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)
+    if depth == 8:
+        return rows
+    h = rows.shape[0]
+    bits = np.unpackbits(rows, axis=1)[:, : w * c * depth].reshape(h, w * c, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)
+
+
+def _pass(raw: np.ndarray, h: int, w: int, c: int, depth: int, name: str) -> np.ndarray:
+    """One image (or Adam7 pass) of ``h`` filtered rows -> (h, W * C) samples."""
+    rows = raw.reshape(h, 1 + _row_bytes(w, c, depth))
+    kinds = rows[:, 0]
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"{name}: filter type {int(kinds.max())} in row {int(np.argmax(kinds > 4))}")
+    bpp = max(1, c * depth // 8)
+    out = unfilter(rows, bpp) if kinds.any() else rows[:, 1:].copy()
+    return _unpack(out, w, c, depth)
+
+
+def _as_pil(samples: np.ndarray, h: int, w: int, ctype: int, depth: int) -> np.ndarray:
+    """(H, W * C) samples -> what PIL's array holds (the table above)."""
+    c = CHANNELS[ctype]
+    px = samples.reshape(h, w, c) if c > 1 else samples.reshape(h, w)
+    if ctype == 0:
+        if depth == 1:
+            return px != 0
+        if depth < 8:
+            return px * np.uint8(255 // ((1 << depth) - 1))
+        return px
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
+        if ctype == 4:  # PIL reads 16-bit gray+alpha as RGBA
+            return px[..., [0, 0, 0, 1]]
+    return px
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The bytes of a PNG file -> what ``np.asarray(PIL.Image.open(...))``
-    gives for it: (H, W) uint8 for gray, (H, W, C) for gray+alpha (2), RGB
-    (3) and RGBA (4). ``name`` labels the errors."""
+    gives for it (the table in the module docstring). ``name`` labels the
+    errors."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     # chunk bodies as views of ``data``: a reading thread copies as little
@@ -133,28 +202,36 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         pos += 12 + n
     if header is None:
         raise ValueError(f"{name}: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in CHANNELS or interlace != 0:
+    w, h, depth, ctype, method, filtering, interlace = header
+    if ctype not in DEPTHS or depth not in DEPTHS[ctype] or method != 0 or filtering != 0 or interlace > 1:
         raise ValueError(
-            f"{name}: bit depth {depth}, color type {ctype}, interlace {interlace}; only 8-bit gray, gray+alpha, "
-            "RGB and RGBA without interlace are read"
+            f"{name}: bit depth {depth}, color type {ctype}, compression {method}, filter method {filtering}, "
+            f"interlace {interlace} is not a valid PNG header"
         )
     c = CHANNELS[ctype]
-    stride = c * w
+    passes = [(0, 0, 1, 1)] if interlace == 0 else ADAM7
+    sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
+    sizes = [(ph, pw) if ph > 0 and pw > 0 else (0, 0) for ph, pw in sizes]  # an empty pass has no rows
+    total = sum(ph * (1 + _row_bytes(pw, c, depth)) for ph, pw in sizes)
     # the output's size is known: one inflate call, which holds no
     # interpreter lock (a growing output buffer takes the lock at each step)
     stream = idat[0] if len(idat) == 1 else b"".join(idat)
-    raw = np.frombuffer(zlib.decompress(stream, bufsize=h * (1 + stride) + 1), np.uint8)
-    if raw.size != h * (1 + stride):
-        raise ValueError(f"{name}: {raw.size} bytes of image data, expected {h * (1 + stride)}")
-    raw = raw.reshape(h, 1 + stride)
-    kinds = raw[:, 0]
-    if kinds.max(initial=0) > 4:
-        raise ValueError(f"{name}: filter type {int(kinds.max())} in row {int(np.argmax(kinds > 4))}")
-    out = unfilter(raw, c) if kinds.any() else raw[:, 1:].copy()
-    return out.reshape(h, w, c) if c > 1 else out.reshape(h, w)
-
-
+    raw = np.frombuffer(zlib.decompress(stream, bufsize=total + 1), np.uint8)
+    if raw.size != total:
+        raise ValueError(f"{name}: {raw.size} bytes of image data, expected {total}")
+    if interlace == 0:
+        samples = _pass(raw, h, w, c, depth, name)
+    else:
+        samples = np.empty((h, w * c), np.uint16 if depth == 16 else np.uint8)
+        grid = samples.reshape(h, w, c)
+        off = 0
+        for (x0, y0, dx, dy), (ph, pw) in zip(passes, sizes):
+            if ph == 0:
+                continue
+            size = ph * (1 + _row_bytes(pw, c, depth))
+            grid[y0::dy, x0::dx] = _pass(raw[off : off + size], ph, pw, c, depth, name).reshape(ph, pw, c)
+            off += size
+    return _as_pil(samples, h, w, ctype, depth)
 def read_png(path: str) -> np.ndarray:
     """``decode_png`` of the file at ``path``."""
     with open(path, "rb") as fh:
