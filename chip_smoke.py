@@ -166,17 +166,20 @@ order; any failure raises and exits non-zero:
    dense UV layout against K6's canvas, bit for bit;
 13. the image kinds beyond phase 9's and the functions added last
    (``phase_kinds``): a. the fixtures of the other kinds (progressive,
-   Adobe-marked, 4:4:0 and 4:1:1 JPEG; an Adam7 16-bit RGB PNG) decoded by
-   the C library against the manifest's SHA-256 of PIL's decodes; b. a
-   24-view tree of the progressive 4096x3000 fixture on phase 9's
-   ``cameras.xml``, read through ``DiskSequence`` and turned on the card,
-   each view bit for bit against the fixture's decode turned on the host;
-   its dense frame read and its single-thread decode timed in turns with a
-   tree of the baseline fixture; with ``--ref imgdec=PATH`` (an earlier
-   commit's ``csrc/imgdec.c``) the baseline JPEG and 8-bit PNG decodes of a
-   dense view through both libraries, in turns, bits equal; c. the tensor
-   functions added last (the L2 and unfused flatten losses with their
-   gradients, ``gather_neighbors``, the quaternion and camera functions,
+   Adobe-marked, 4:4:0 and 4:1:1 JPEG; arithmetic-coded JPEG, sequential
+   and progressive, with DAC conditioning, two of them written by libjpeg;
+   progressive files whose scans leave bits unsent, smoothed; an Adam7
+   16-bit RGB PNG) decoded by the C library against the manifest's SHA-256
+   of PIL's decodes; b. a 24-view tree of the progressive 4096x3000
+   fixture on phase 9's ``cameras.xml``, read through ``DiskSequence`` and
+   turned on the card, each view bit for bit against the fixture's decode
+   turned on the host; its dense frame read and its single-thread decode
+   timed in turns with a tree of the baseline fixture; with ``--ref
+   imgdec=PATH`` (an earlier commit's ``csrc/imgdec.c``) the baseline JPEG,
+   progressive JPEG and 8-bit PNG decodes of a dense view through both
+   libraries, in turns, bits equal; c. the tensor functions added last
+   (the L2 and unfused flatten losses with their gradients,
+   ``gather_neighbors``, the quaternion and camera functions,
    ``build_cov3d``, ``bin_gaussians`` and ``bin_gaussians_packed``, the
    merged and sequential constraint writes) on the card against the CPU at
    the head's 8,280 Gaussians.
@@ -3650,10 +3653,10 @@ def load_ref_imgdec(path):
 
 def decoders_against_ref(path, lib):
     """The existing paths against an earlier commit's host library: the
-    dense baseline JPEG fixture and two 8-bit PNGs of its pixels (every row
-    Sub, every row Paeth) decoded by this commit's Python over this
-    library and over ``lib``, in turns (ref, new, new, ref) x KINDS_TURNS,
-    the bits equal -> {input: {"new": s, "ref": s}}."""
+    dense baseline and progressive JPEG fixtures and two 8-bit PNGs of the
+    baseline's pixels (every row Sub, every row Paeth) decoded by this
+    commit's Python over this library and over ``lib``, in turns (ref, new,
+    new, ref) x KINDS_TURNS, the bits equal -> {input: {"new": s, "ref": s}}."""
     from unittest import mock
 
     from topo4d_tpu_torch import fixtures, native
@@ -3662,9 +3665,11 @@ def decoders_against_ref(path, lib):
 
     with open(fixtures.path(fixtures.DENSE), "rb") as fh:
         jpg = fh.read()
+    with open(fixtures.path(fixtures.DENSE_PROGRESSIVE), "rb") as fh:
+        progressive = fh.read()
     img = decode_jpeg(jpg)
-    inputs = {"baseline JPEG": (decode_jpeg, jpg), "PNG, Sub rows": (decode_png, filtered_png(img, 1)),
-              "PNG, Paeth rows": (decode_png, filtered_png(img, 4))}
+    inputs = {"baseline JPEG": (decode_jpeg, jpg), "progressive JPEG": (decode_jpeg, progressive),
+              "PNG, Sub rows": (decode_png, filtered_png(img, 1)), "PNG, Paeth rows": (decode_png, filtered_png(img, 4))}
     out = {}
     for label, (decode, data) in inputs.items():
         times, got = {"new": [], "ref": []}, {}
@@ -3795,15 +3800,16 @@ def surface_card_vs_cpu(statics, params_np, cams):
 def phase_kinds(calib, statics, params_np, cams):
     """Phase 13: the image kinds the loader reads beyond phase 9's and the
     functions the port added last. 13a: the new fixtures (progressive,
-    Adobe-marked, 4:4:0 and 4:1:1 JPEG; an Adam7 16-bit PNG) decoded here
-    against the manifest's SHA-256 of PIL's decodes. 13b: a 24-view dense
-    tree of the progressive 4096x3000 fixture (phase 9's ``cameras.xml``),
-    read through ``DiskSequence`` and turned on the card, each view bit for
-    bit against the fixture's decode turned on the host; its dense frame
-    read on ``LOAD_THREADS`` threads and its single-thread decode timed in
-    turns with a tree of the baseline fixture; with ``--ref imgdec=PATH``
-    the baseline JPEG and 8-bit PNG decodes against that library.
-    13c: ``surface_card_vs_cpu``."""
+    Adobe-marked, 4:4:0 and 4:1:1 JPEG; arithmetic-coded JPEG, unsent bits
+    smoothed; an Adam7 16-bit PNG) decoded here against the manifest's
+    SHA-256 of PIL's decodes. 13b: a 24-view dense tree of the progressive
+    4096x3000 fixture (phase 9's ``cameras.xml``), read through
+    ``DiskSequence`` and turned on the card, each view bit for bit against
+    the fixture's decode turned on the host; its dense frame read on
+    ``LOAD_THREADS`` threads and its single-thread decode timed in turns
+    with a tree of the baseline fixture; with ``--ref imgdec=PATH`` the
+    baseline and progressive JPEG and 8-bit PNG decodes against that
+    library. 13c: ``surface_card_vs_cpu``."""
     from topo4d_tpu_torch import fixtures
     from topo4d_tpu_torch.pipeline.data import LOAD_THREADS
     from topo4d_tpu_torch.utils.jpeg import read_jpeg

@@ -233,8 +233,8 @@ def test_jpeg_tree_reads_alike(port_tree, tmp_path, quality, subsampling):
 
 def test_jpg_view_raises_naming_the_path(port_tree, tmp_path):
     """A ``.jpg`` view among PNGs reads as JAX reads it (listed first, as in
-    JAX), a progressive one too; an arithmetic-coded one raises, naming its
-    path."""
+    JAX), a progressive one and an arithmetic-coded one too; a lossless one,
+    which PIL fails on as well, raises, naming its path."""
     root = _copy_tree(port_tree, tmp_path / "jpg")
     fdir = os.path.join(root, port_tree.seq, "000001")
     Image.open(os.path.join(fdir, "view02.png")).save(os.path.join(fdir, "view02.jpg"))
@@ -252,7 +252,12 @@ def test_jpg_view_raises_naming_the_path(port_tree, tmp_path):
         data = fh.read()
     with open(view, "wb") as fh:
         fh.write(data.replace(b"\xff\xc2", b"\xff\xca", 1))  # the progressive frame header, arithmetic-coded
-    with pytest.raises(ValueError, match="000001/view02.jpg: arithmetic-coded JPEG"):
+    np.testing.assert_array_equal(_unit(src.frame(1).images), JDiskSequence(jcfg).frame(1).images)
+    with open(view, "wb") as fh:
+        fh.write(data.replace(b"\xff\xc2", b"\xff\xc3", 1))  # lossless
+    with pytest.raises(OSError):
+        JDiskSequence(jcfg).frame(1)
+    with pytest.raises(ValueError, match="000001/view02.jpg: lossless JPEG"):
         src.frame(1)
 
 

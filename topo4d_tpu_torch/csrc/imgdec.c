@@ -4,27 +4,31 @@
  * png_unfilter: the five PNG row filters (PNG spec section 9.2), bit for bit,
  * at any whole number of bytes per pixel.
  *
- * jpeg_info / jpeg_decode: Huffman JPEG, sequential (SOF0/SOF1) or
- * progressive (SOF2: DC and AC first and refinement scans, EOB runs,
- * interleaved and non-interleaved scans, restart markers), 8-bit samples,
- * 1 or 3 components, any sampling factors 1-4 whose ratios to the largest
- * are whole numbers. The output is what libjpeg-turbo gives at its defaults
- * (the decoder PIL runs): the islow integer IDCT of jidctint.c, the
- * upsampler jdsample.c jinit_upsampler picks (h2v1_fancy_upsample and
- * h2v2_fancy_upsample when the downsampled component is more than 2 samples
- * wide, else the replicating h2v1/h2v2 ones; h1v2_fancy_upsample for a
- * vertical ratio of 2 alone; int_upsample, which replicates, for every
- * other ratio), the colour space jdapimin.c default_decompress_parms picks
- * (JFIF: YCbCr; else an Adobe APP14 transform 0: RGB, any other: YCbCr;
- * else component ids 'R', 'G', 'B': RGB; else YCbCr) and the integer
- * YCbCr->RGB tables of jdcolor.c. Progressive coefficients are kept for the
- * whole image and go through the same IDCT, upsampling and colour code as
- * sequential ones. A progressive file whose scans leave any coefficient bit
- * unsent is refused: libjpeg-turbo smooths such blocks
- * (jdcoefct.c decompress_smooth_data), which this decoder does not. Also
- * refused with a message: arithmetic coding, lossless and hierarchical
- * files, 12-bit samples, 2 or 4 components, fractional sampling ratios and
- * interleaved scans of more than 10 blocks per MCU (libjpeg's limit).
+ * jpeg_info / jpeg_decode: sequential and progressive JPEG, Huffman-coded
+ * (SOF0/SOF1/SOF2) or arithmetic-coded (SOF9/SOF10, with or without DAC
+ * conditioning values: T.81 Annex D and libjpeg-turbo's jdarith.c): DC and
+ * AC first and refinement scans, EOB runs, interleaved and non-interleaved
+ * scans, restart markers, 8-bit samples, 1 or 3 components, any sampling
+ * factors 1-4 whose ratios to the largest are whole numbers. The output is
+ * what libjpeg-turbo 3.1 gives at its defaults (the decoder PIL runs) on
+ * x86-64: the islow integer IDCT of jidctint.c as its SIMD code computes it
+ * (16-bit lanes, which decide only on corrupt data), the upsampler jdsample.c
+ * jinit_upsampler picks (h2v1_fancy_upsample and h2v2_fancy_upsample when
+ * the downsampled component is more than 2 samples wide, else the
+ * replicating h2v1/h2v2 ones; h1v2_fancy_upsample for a vertical ratio of 2
+ * alone; int_upsample, which replicates, for every other ratio), the colour
+ * space jdapimin.c default_decompress_parms picks (JFIF: YCbCr; else an
+ * Adobe APP14 transform 0: RGB, any other: YCbCr; else component ids 'R',
+ * 'G', 'B': RGB; else YCbCr) and the integer YCbCr->RGB tables of jdcolor.c.
+ * Progressive coefficients are kept for the whole image and go through the
+ * same IDCT, upsampling and colour code as sequential ones; where the scans
+ * leave bits of coefficients 1-9 unsent, each block is first smoothed from
+ * the DC values around it, as jdcoefct.c decompress_smooth_data does.
+ * Refused with a message, as PIL fails on them too: lossless and
+ * hierarchical files, 12-bit samples, 2 components, fractional sampling
+ * ratios, interleaved scans of more than 10 blocks per MCU, DNL-sized files
+ * and bad DAC segments; and 4 components (CMYK/YCCK), which PIL reads as
+ * four channels that no three-channel view holds.
  *
  * Every function returns 0 on success. On failure it returns non-zero and
  * writes a message into err (errlen bytes).
@@ -106,6 +110,7 @@ typedef struct {
 
 typedef struct {
     int id, h, v, tq;
+    int sv;                   /* the vertical factor the frame declares (a gray file's too) */
     int td, ta;               /* the current scan's tables */
     int bw, bh;               /* blocks across and down in the plane (whole MCUs) */
     int dw, dh;               /* downsampled width and height (libjpeg's) */
@@ -115,6 +120,7 @@ typedef struct {
     int latched;
     int coef_bits[64];        /* progressive: the lowest bit sent of each zigzag coefficient, -1 = none */
     int pred;
+    int ctx;                  /* arithmetic scans: the DC conditioning of the last difference */
     int seen;                 /* decoded in some scan */
 } Comp;
 
@@ -123,13 +129,17 @@ typedef struct {
     int width, height, ncomp, hmax, vmax;
     int mcux, mcuy;
     int restart;
-    int jfif, sof, progressive;
+    int jfif, sof, progressive, arith;
+    int svmax;                /* the largest declared vertical factor */
     int adobe, adobe_transform;
     int rgb;                  /* three components coded as RGB, not YCbCr */
     int eobrun;               /* progressive AC scans: blocks left in the current end-of-band run */
     uint16_t q[4][64];        /* natural order */
     int qdef[4];
     Huff dc[4], ac[4];
+    uint8_t arith_l[16], arith_u[16], arith_k[16]; /* DAC conditioning: DC L and U, AC Kx */
+    uint8_t dc_stats[16][64], ac_stats[16][256];   /* arithmetic statistics bins of each table */
+    uint8_t fixed;            /* the bin of fixed probability 0.5 */
     Comp comp[3];
     char *err;
     int64_t errlen;
@@ -188,6 +198,19 @@ static int seg_len(Jpeg *j, const uint8_t *p, int *len) {
     return 0;
 }
 
+/* The first marker at or after p (jdmarker.c next_marker: other bytes and
+ * stuffed FF 00 pairs are skipped) -> its first FF byte, or end. */
+static const uint8_t *next_marker(const uint8_t *p, const uint8_t *end) {
+    for (;;) {
+        while (p < end && *p != 0xFF) p++;
+        const uint8_t *q = p;
+        while (q < end && *q == 0xFF) q++;
+        if (q >= end) return end;
+        if (*q != 0) return p;
+        p = q + 1;
+    }
+}
+
 static int read_dqt(Jpeg *j, const uint8_t *p, int len) {
     const uint8_t *e = p + len;
     p += 2;
@@ -224,6 +247,31 @@ static int read_dht(Jpeg *j, const uint8_t *p, int len) {
     return 0;
 }
 
+/* jdmarker.c get_dac: (index, value) pairs; index 0-15 a DC table (L the
+ * low nibble, U the high, L <= U), 16-31 an AC table (Kx). */
+static int read_dac(Jpeg *j, const uint8_t *p, int len) {
+    char msg[160];
+    if (len % 2) return fail(j, "bad DAC segment (odd length)");
+    for (int i = 2; i < len; i += 2) {
+        const int index = p[i], val = p[i + 1];
+        if (index >= 32) {
+            snprintf(msg, sizeof msg, "bad DAC segment (table index %d)", index);
+            return fail(j, msg);
+        }
+        if (index >= 16) {
+            j->arith_k[index - 16] = (uint8_t)val;
+        } else {
+            j->arith_l[index] = (uint8_t)(val & 15);
+            j->arith_u[index] = (uint8_t)(val >> 4);
+            if ((val & 15) > (val >> 4)) {
+                snprintf(msg, sizeof msg, "bad DAC segment (DC L %d above U %d)", val & 15, val >> 4);
+                return fail(j, msg);
+            }
+        }
+    }
+    return 0;
+}
+
 static int read_sof(Jpeg *j, const uint8_t *p, int len) {
     char msg[160];
     if (len < 8) return fail(j, "bad SOF segment");
@@ -248,9 +296,11 @@ static int read_sof(Jpeg *j, const uint8_t *p, int len) {
         k->v = p[9 + 3 * c] & 15;
         k->tq = p[10 + 3 * c];
         if (k->h < 1 || k->h > 4 || k->v < 1 || k->v > 4 || k->tq > 3) return fail(j, "bad SOF component");
+        k->sv = k->v;
         if (k->h > j->hmax) j->hmax = k->h;
         if (k->v > j->vmax) j->vmax = k->v;
     }
+    j->svmax = j->vmax;
     if (j->ncomp == 1) {
         /* one component: its blocks are the MCUs, whatever its factors say */
         j->comp[0].h = j->comp[0].v = j->hmax = j->vmax = 1;
@@ -284,9 +334,9 @@ static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
     const uint8_t *p = *pos;
     char msg[160];
     for (;;) {
-        while (p < j->end && *p != 0xFF) p++; /* junk between segments */
-        while (p < j->end && *p == 0xFF) p++;
+        p = next_marker(p, j->end); /* junk between segments is skipped */
         if (p >= j->end) return fail(j, "no SOS marker before the end of the data");
+        while (*p == 0xFF) p++;
         const int m = *p++;
         int len = 0;
         if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
@@ -301,29 +351,30 @@ static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
         case 0xC0:
         case 0xC1:
         case 0xC2:
+        case 0xC9:
+        case 0xCA:
             if (j->sof) return fail(j, "two frame headers");
             j->sof = m;
-            j->progressive = m == 0xC2;
+            j->progressive = m == 0xC2 || m == 0xCA;
+            j->arith = m >= 0xC9;
             if (read_sof(j, p, len)) return 1;
             break;
         case 0xC3:
-            return fail(j, "lossless JPEG (SOF3; only sequential and progressive Huffman JPEG is read)");
+        case 0xCB:
+            snprintf(msg, sizeof msg, "lossless JPEG (SOF%d; only sequential and progressive JPEG is read)", m - 0xC0);
+            return fail(j, msg);
         case 0xC5:
         case 0xC6:
         case 0xC7:
-            snprintf(msg, sizeof msg,
-                     "hierarchical JPEG (SOF%d; only sequential and progressive Huffman JPEG is read)", m - 0xC0);
-            return fail(j, msg);
-        case 0xC9:
-        case 0xCA:
-        case 0xCB:
         case 0xCD:
         case 0xCE:
         case 0xCF:
-            snprintf(msg, sizeof msg, "arithmetic-coded JPEG (SOF%d; only Huffman-coded JPEG is read)", m - 0xC0);
+            snprintf(msg, sizeof msg,
+                     "hierarchical JPEG (SOF%d; only sequential and progressive JPEG is read)", m - 0xC0);
             return fail(j, msg);
         case 0xCC:
-            return fail(j, "arithmetic-coded JPEG (a DAC marker; only Huffman-coded JPEG is read)");
+            if (read_dac(j, p, len)) return 1;
+            break;
         case 0xC4:
             if (read_dht(j, p, len)) return 1;
             break;
@@ -363,7 +414,7 @@ static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
 
 /* The colour space of three components (jdapimin.c default_decompress_parms). */
 static int check_frame(Jpeg *j) {
-    if (!j->sof) return fail(j, "no SOF0/SOF1/SOF2 frame header before the scan");
+    if (!j->sof) return fail(j, "no SOF0/SOF1/SOF2/SOF9/SOF10 frame header before the scan");
     if (j->ncomp == 3) {
         if (j->jfif)
             j->rgb = 0;
@@ -460,24 +511,140 @@ static inline int decode_huff(Bits *b, const Huff *t) {
 #define FIX_3_072711026 ((int32_t)25172)
 #define DESCALE(x, n) (((x) + ((int32_t)1 << ((n) - 1))) >> (n))
 
-/* the post-IDCT range limit (jdmaster.c prepare_range_limit_table): index
- * x & 1023 of a value x, giving clamp(x + 128, 0, 255) for |x| <= 512 */
-static uint8_t IDCT_LIMIT[1024];
+/* The islow IDCT as libjpeg-turbo's x86-64 SIMD code computes it
+ * (jidctint-sse2.asm, jidctint-avx2.asm: what PIL runs there). It equals
+ * jidctint.c's C wherever no 16-bit lane overflows, as for every block an
+ * 8-bit encoder writes, except that its final values saturate to -128..127
+ * before the +128 (packsswb) where the C's range table wraps beyond
+ * -512..511. idct_islow runs the C's two passes, its final values through
+ * a saturating table, and takes a block to idct_islow_lanes only when one
+ * of pass 1's outputs leaves -2^14..2^14 - 1: inside it, every input,
+ * 16-bit sum and output of both passes lies inside int16 (pass 1 is
+ * 4 * sqrt(8) times an orthogonal map, so its inputs are at most a quarter
+ * of the largest output), and the two agree.
+ * idct_islow_lanes follows the lanes wherever they decide: each
+ * coefficient is dequantized to 16 bits (pmullw), in0 + in4, in0 - in4 and
+ * the odd part's in7 + in3 and in5 + in1 are 16-bit sums (paddw), the even
+ * and odd products 32-bit (pmaddwd), pass 1's outputs saturate to 16 bits
+ * (packssdw). A block whose rows 1-7 are all zero takes pass 1's DC path,
+ * a 16-bit shift that wraps (psllw). */
 
-static void init_limit(void) {
-    for (int i = 0; i < 1024; i++) {
-        IDCT_LIMIT[i] = (uint8_t)(i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896);
-    }
+static inline int32_t wrap16(int32_t x) {
+    return (int16_t)(uint16_t)(uint32_t)x;
 }
 
-static void idct_islow(const int16_t *coef, const uint16_t *q, uint8_t *out, int stride) {
+static inline int32_t sat16(int32_t x) {
+    return x < -32768 ? -32768 : x > 32767 ? 32767 : x;
+}
+
+static inline uint8_t sample(int32_t x) {
+    return (uint8_t)((x < -128 ? -128 : x > 127 ? 127 : x) + 128);
+}
+
+/* 1 when one of the 8 values lies outside int16 */
+static inline int beyond16(const int32_t *v) {
+    int32_t m = 0;
+    for (int i = 0; i < 8; i++) m |= v[i] ^ (v[i] >> 31);
+    return m > 32767;
+}
+
+/* the block's rows 1-7 all zero: pass 1's DC path of the SIMD code */
+static int dc_block(const int16_t *coef) {
+    int ac = 0;
+    for (int i = 8; i < 64; i++) ac |= coef[i];
+    return !ac;
+}
+
+/* kept out of line: no block an 8-bit encoder writes reaches it */
+#if defined(__GNUC__)
+__attribute__((noinline, cold))
+#endif
+static void idct_islow_lanes(const int16_t *coef, const uint16_t *q, uint8_t *out, int stride) {
     int32_t ws[64];
     for (int c = 0; c < 8; c++) {
         const int16_t *in = coef + c;
         const uint16_t *qc = q + c;
         int32_t *w = ws + c;
         if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
+            /* a column of zero AC: the block's DC path wraps, the full
+             * column saturates (the same unless 4 * DC leaves int16) */
+            int32_t dc = wrap16((int32_t)in[0] * qc[0]) * (1 << PASS1_BITS);
+            if (dc != wrap16(dc)) dc = dc_block(coef) ? wrap16(dc) : sat16(dc);
+            for (int r = 0; r < 8; r++) w[8 * r] = dc;
+            continue;
+        }
+        const int32_t d0 = wrap16((int32_t)in[0] * qc[0]), d1 = wrap16((int32_t)in[8] * qc[8]);
+        const int32_t d2 = wrap16((int32_t)in[16] * qc[16]), d3 = wrap16((int32_t)in[24] * qc[24]);
+        const int32_t d4 = wrap16((int32_t)in[32] * qc[32]), d5 = wrap16((int32_t)in[40] * qc[40]);
+        const int32_t d6 = wrap16((int32_t)in[48] * qc[48]), d7 = wrap16((int32_t)in[56] * qc[56]);
+        const int32_t tmp3e = d2 * (FIX_0_541196100 + FIX_0_765366865) + d6 * FIX_0_541196100;
+        const int32_t tmp2e = d2 * FIX_0_541196100 + d6 * (FIX_0_541196100 - FIX_1_847759065);
+        const int32_t tmp0e = wrap16(d0 + d4) * (1 << CONST_BITS), tmp1e = wrap16(d0 - d4) * (1 << CONST_BITS);
+        const int32_t tmp10 = tmp0e + tmp3e, tmp13 = tmp0e - tmp3e, tmp11 = tmp1e + tmp2e, tmp12 = tmp1e - tmp2e;
+        const int32_t z3 = wrap16(d7 + d3), z4 = wrap16(d5 + d1);
+        const int32_t z3o = z3 * (FIX_1_175875602 - FIX_1_961570560) + z4 * FIX_1_175875602;
+        const int32_t z4o = z3 * FIX_1_175875602 + z4 * (FIX_1_175875602 - FIX_0_390180644);
+        const int32_t tmp0 = d7 * (FIX_0_298631336 - FIX_0_899976223) + d1 * -FIX_0_899976223 + z3o;
+        const int32_t tmp3 = d7 * -FIX_0_899976223 + d1 * (FIX_1_501321110 - FIX_0_899976223) + z4o;
+        const int32_t tmp1 = d5 * (FIX_2_053119869 - FIX_2_562915447) + d3 * -FIX_2_562915447 + z4o;
+        const int32_t tmp2 = d5 * -FIX_2_562915447 + d3 * (FIX_3_072711026 - FIX_2_562915447) + z3o;
+        const int n = CONST_BITS - PASS1_BITS;
+        int32_t o[8] = {DESCALE(tmp10 + tmp3, n), DESCALE(tmp11 + tmp2, n), DESCALE(tmp12 + tmp1, n),
+                        DESCALE(tmp13 + tmp0, n), DESCALE(tmp13 - tmp0, n), DESCALE(tmp12 - tmp1, n),
+                        DESCALE(tmp11 - tmp2, n), DESCALE(tmp10 - tmp3, n)};
+        if (beyond16(o)) {
+            for (int r = 0; r < 8; r++) o[r] = sat16(o[r]);
+        }
+        for (int r = 0; r < 8; r++) w[8 * r] = o[r];
+    }
+    for (int r = 0; r < 8; r++) {
+        const int32_t *w = ws + 8 * r;
+        uint8_t *o = out + (int64_t)r * stride;
+        if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+            memset(o, sample(DESCALE(w[0] * (1 << CONST_BITS), CONST_BITS + PASS1_BITS + 3)), 8);
+            continue;
+        }
+        const int32_t tmp3e = w[2] * (FIX_0_541196100 + FIX_0_765366865) + w[6] * FIX_0_541196100;
+        const int32_t tmp2e = w[2] * FIX_0_541196100 + w[6] * (FIX_0_541196100 - FIX_1_847759065);
+        const int32_t tmp0e = wrap16(w[0] + w[4]) * (1 << CONST_BITS), tmp1e = wrap16(w[0] - w[4]) * (1 << CONST_BITS);
+        const int32_t tmp10 = tmp0e + tmp3e, tmp13 = tmp0e - tmp3e, tmp11 = tmp1e + tmp2e, tmp12 = tmp1e - tmp2e;
+        const int32_t z3 = wrap16(w[7] + w[3]), z4 = wrap16(w[5] + w[1]);
+        const int32_t z3o = z3 * (FIX_1_175875602 - FIX_1_961570560) + z4 * FIX_1_175875602;
+        const int32_t z4o = z3 * FIX_1_175875602 + z4 * (FIX_1_175875602 - FIX_0_390180644);
+        const int32_t tmp0 = w[7] * (FIX_0_298631336 - FIX_0_899976223) + w[1] * -FIX_0_899976223 + z3o;
+        const int32_t tmp3 = w[7] * -FIX_0_899976223 + w[1] * (FIX_1_501321110 - FIX_0_899976223) + z4o;
+        const int32_t tmp1 = w[5] * (FIX_2_053119869 - FIX_2_562915447) + w[3] * -FIX_2_562915447 + z4o;
+        const int32_t tmp2 = w[5] * -FIX_2_562915447 + w[3] * (FIX_3_072711026 - FIX_2_562915447) + z3o;
+        const int n = CONST_BITS + PASS1_BITS + 3;
+        o[0] = sample(DESCALE(tmp10 + tmp3, n));
+        o[7] = sample(DESCALE(tmp10 - tmp3, n));
+        o[1] = sample(DESCALE(tmp11 + tmp2, n));
+        o[6] = sample(DESCALE(tmp11 - tmp2, n));
+        o[2] = sample(DESCALE(tmp12 + tmp1, n));
+        o[5] = sample(DESCALE(tmp12 - tmp1, n));
+        o[3] = sample(DESCALE(tmp13 + tmp0, n));
+        o[4] = sample(DESCALE(tmp13 - tmp0, n));
+    }
+}
+
+/* sample(x) by table for |x| < 8192, which holds for every output of
+ * idct_islow's second pass (at most a quarter of pass 1's largest value) */
+static uint8_t IDCT_LIMIT[16384];
+
+static void init_limit(void) {
+    for (int i = 0; i < 16384; i++) IDCT_LIMIT[i] = sample(i < 8192 ? i : i - 16384);
+}
+
+static void idct_islow(const int16_t *coef, const uint16_t *q, uint8_t *out, int stride) {
+    int32_t ws[64];
+    uint32_t m = 0; /* the OR of pass 1's outputs, each biased by 2^14 */
+    for (int c = 0; c < 8; c++) {
+        const int16_t *in = coef + c;
+        const uint16_t *qc = q + c;
+        int32_t *w = ws + c;
+        if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
             const int32_t dc = ((int32_t)in[0] * qc[0]) * (1 << PASS1_BITS);
+            m |= (uint32_t)dc + 16384u;
             for (int r = 0; r < 8; r++) w[8 * r] = dc;
             continue;
         }
@@ -514,21 +681,31 @@ static void idct_islow(const int16_t *coef, const uint16_t *q, uint8_t *out, int
         tmp2 += z2 + z3;
         tmp3 += z1 + z4;
         const int n = CONST_BITS - PASS1_BITS;
-        w[0] = DESCALE(tmp10 + tmp3, n);
-        w[56] = DESCALE(tmp10 - tmp3, n);
-        w[8] = DESCALE(tmp11 + tmp2, n);
-        w[48] = DESCALE(tmp11 - tmp2, n);
-        w[16] = DESCALE(tmp12 + tmp1, n);
-        w[40] = DESCALE(tmp12 - tmp1, n);
-        w[24] = DESCALE(tmp13 + tmp0, n);
-        w[32] = DESCALE(tmp13 - tmp0, n);
+        const int32_t o0 = DESCALE(tmp10 + tmp3, n), o7 = DESCALE(tmp10 - tmp3, n);
+        const int32_t o1 = DESCALE(tmp11 + tmp2, n), o6 = DESCALE(tmp11 - tmp2, n);
+        const int32_t o2 = DESCALE(tmp12 + tmp1, n), o5 = DESCALE(tmp12 - tmp1, n);
+        const int32_t o3 = DESCALE(tmp13 + tmp0, n), o4 = DESCALE(tmp13 - tmp0, n);
+        m |= ((uint32_t)o0 + 16384u) | ((uint32_t)o1 + 16384u) | ((uint32_t)o2 + 16384u) |
+             ((uint32_t)o3 + 16384u) | ((uint32_t)o4 + 16384u) | ((uint32_t)o5 + 16384u) |
+             ((uint32_t)o6 + 16384u) | ((uint32_t)o7 + 16384u);
+        w[0] = o0;
+        w[8] = o1;
+        w[16] = o2;
+        w[24] = o3;
+        w[32] = o4;
+        w[40] = o5;
+        w[48] = o6;
+        w[56] = o7;
+    }
+    if (m >> 15) { /* a pass-1 output outside -2^14..2^14 - 1 */
+        idct_islow_lanes(coef, q, out, stride);
+        return;
     }
     for (int r = 0; r < 8; r++) {
         const int32_t *w = ws + 8 * r;
         uint8_t *o = out + (int64_t)r * stride;
         if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-            const uint8_t v = IDCT_LIMIT[DESCALE(w[0], PASS1_BITS + 3) & 1023];
-            memset(o, v, 8);
+            memset(o, IDCT_LIMIT[DESCALE(w[0], PASS1_BITS + 3) & 16383], 8);
             continue;
         }
         int32_t z2 = w[2], z3 = w[6];
@@ -562,14 +739,14 @@ static void idct_islow(const int16_t *coef, const uint16_t *q, uint8_t *out, int
         tmp2 += z2 + z3;
         tmp3 += z1 + z4;
         const int n = CONST_BITS + PASS1_BITS + 3;
-        o[0] = IDCT_LIMIT[DESCALE(tmp10 + tmp3, n) & 1023];
-        o[7] = IDCT_LIMIT[DESCALE(tmp10 - tmp3, n) & 1023];
-        o[1] = IDCT_LIMIT[DESCALE(tmp11 + tmp2, n) & 1023];
-        o[6] = IDCT_LIMIT[DESCALE(tmp11 - tmp2, n) & 1023];
-        o[2] = IDCT_LIMIT[DESCALE(tmp12 + tmp1, n) & 1023];
-        o[5] = IDCT_LIMIT[DESCALE(tmp12 - tmp1, n) & 1023];
-        o[3] = IDCT_LIMIT[DESCALE(tmp13 + tmp0, n) & 1023];
-        o[4] = IDCT_LIMIT[DESCALE(tmp13 - tmp0, n) & 1023];
+        o[0] = IDCT_LIMIT[DESCALE(tmp10 + tmp3, n) & 16383];
+        o[7] = IDCT_LIMIT[DESCALE(tmp10 - tmp3, n) & 16383];
+        o[1] = IDCT_LIMIT[DESCALE(tmp11 + tmp2, n) & 16383];
+        o[6] = IDCT_LIMIT[DESCALE(tmp11 - tmp2, n) & 16383];
+        o[2] = IDCT_LIMIT[DESCALE(tmp12 + tmp1, n) & 16383];
+        o[5] = IDCT_LIMIT[DESCALE(tmp12 - tmp1, n) & 16383];
+        o[3] = IDCT_LIMIT[DESCALE(tmp13 + tmp0, n) & 16383];
+        o[4] = IDCT_LIMIT[DESCALE(tmp13 - tmp0, n) & 16383];
     }
 }
 
@@ -679,20 +856,52 @@ static void ac_refine(Jpeg *j, Bits *b, const Huff *ac, int16_t *blk, int ss, in
     }
 }
 
-static void restart(Bits *b) {
-    b->acc = 0;
-    b->nbits = 0;
-    const uint8_t *p = b->p;
-    while (p + 1 < b->end && p[0] == 0xFF && p[1] == 0xFF) p++;
-    if (p + 1 < b->end && p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7) p += 2;
-    b->p = p;
-    b->marker = 0;
+/* jdmarker.c read_restart_marker and jpeg_resync_to_restart, at a restart
+ * boundary: from p (on the marker the entropy decoder met, or where it
+ * stopped: the rest is skipped) the next marker. RSTn, n = *rst, the one
+ * expected, is consumed. Otherwise libjpeg resyncs: a marker below SOF0
+ * (not a valid one) or one of the two restarts before n is skipped for the
+ * marker after it; one of the two restarts after n, or any marker not a
+ * restart, is left unread (*unread <- 1: the interval reads as zeros); any
+ * other restart is consumed. *rst <- n + 1 mod 8. Returns the position. */
+static const uint8_t *read_restart(const uint8_t *p, const uint8_t *end, int *rst, int *unread) {
+    const int n = *rst;
+    *rst = (n + 1) & 7;
+    for (p = next_marker(p, end); p < end; p = next_marker(p, end)) {
+        const uint8_t *q = p;
+        while (*q == 0xFF) q++;
+        const int m = *q;
+        const int rn = m >= 0xD0 && m <= 0xD7 ? (m - 0xD0 - n) & 7 : -1; /* how far past n */
+        if (rn == 0 || rn == 3 || rn == 4 || rn == 5) {
+            *unread = 0;
+            return q + 1;
+        }
+        if (!(m < 0xC0 || rn == 6 || rn == 7)) break; /* rn 1, 2, or not a restart: left unread */
+        p = q + 1;
+    }
+    *unread = 1;
+    return p;
 }
 
-/* One scan starting at the SOS segment p; *pos <- the first byte after its
- * entropy-coded data. Sequential scans go through the IDCT into each
- * component's plane block by block; progressive ones into its coefficients. */
-static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
+static void restart(Bits *b, int *rst) {
+    b->acc = 0;
+    b->nbits = 0;
+    b->p = read_restart(b->p, b->end, rst, &b->marker);
+}
+
+/* The SOS segment at p: a scan's components, spectral band and bit
+ * position, checked as jdphuff.c / jdarith.c start_pass check them (a
+ * sequential scan's Ss, Se, Ah and Al are not read: libjpeg-turbo only
+ * warns), its MCU count, and its first entropy-coded byte. The components
+ * latch their quantization tables and the progressive bit record. */
+typedef struct {
+    int ns, ss, se, ah, al;
+    Comp *sc[3];
+    int64_t mcus, mcux;
+    const uint8_t *data;
+} Scan;
+
+static int scan_header(Jpeg *j, const uint8_t *p, Scan *s) {
     int len;
     char msg[160];
     if (seg_len(j, p, &len)) return 1;
@@ -701,7 +910,7 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
     const uint8_t *q = p + 3 + 2 * ns;
     const int ss = q[0], se = q[1], ah = q[2] >> 4, al = q[2] & 15;
     if (!j->progressive) {
-        if (ss != 0 || se != 63 || ah != 0 || al != 0) return fail(j, "spectral selection in a sequential scan");
+        /* jdhuff.c / jdarith.c start_pass: a warning; the block is read whole */
     } else if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) {
         snprintf(msg, sizeof msg, "bad progressive scan (Ss %d, Se %d over %d components)", ss, se, ns);
         return fail(j, msg);
@@ -709,23 +918,24 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
         snprintf(msg, sizeof msg, "bad successive approximation (Ah %d, Al %d)", ah, al);
         return fail(j, msg);
     }
-    /* which tables the scan reads: sequential both; progressive DC first
-     * scans the DC table, AC scans the AC table, DC refinements none */
-    const int need_dc = !j->progressive || (ss == 0 && ah == 0);
-    const int need_ac = !j->progressive || ss > 0;
-    Comp *sc[3];
+    /* which Huffman tables the scan reads: sequential both; progressive DC
+     * first scans the DC table, AC scans the AC table, DC refinements none.
+     * Arithmetic scans read statistics bins, which every table number has. */
+    const int need_dc = !j->arith && (!j->progressive || (ss == 0 && ah == 0));
+    const int need_ac = !j->arith && (!j->progressive || ss > 0);
     int blocks = 0;
     for (int i = 0; i < ns; i++) {
         const int id = p[3 + 2 * i], tables = p[4 + 2 * i];
-        sc[i] = NULL;
+        s->sc[i] = NULL;
         for (int c = 0; c < j->ncomp; c++) {
-            if (j->comp[c].id == id) sc[i] = &j->comp[c];
+            if (j->comp[c].id == id) s->sc[i] = &j->comp[c];
         }
-        if (!sc[i]) return fail(j, "SOS names a component the frame has not");
-        Comp *k = sc[i];
+        if (!s->sc[i]) return fail(j, "SOS names a component the frame has not");
+        Comp *k = s->sc[i];
         k->td = tables >> 4;
         k->ta = tables & 15;
-        if (k->td > 3 || k->ta > 3 || (need_dc && !j->dc[k->td].defined) || (need_ac && !j->ac[k->ta].defined)) {
+        if (!j->arith &&
+            (k->td > 3 || k->ta > 3 || (need_dc && !j->dc[k->td].defined) || (need_ac && !j->ac[k->ta].defined))) {
             return fail(j, "SOS uses an undefined Huffman table");
         }
         if (!k->latched) {
@@ -737,6 +947,7 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
         }
         k->seen = 1;
         k->pred = 0;
+        k->ctx = 0;
         blocks += k->h * k->v;
         if (j->progressive) {
             for (int c = ss; c <= se; c++) k->coef_bits[c] = al;
@@ -746,22 +957,40 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
         snprintf(msg, sizeof msg, "%d blocks per MCU (libjpeg reads at most 10)", blocks);
         return fail(j, msg);
     }
-    Bits b = {p + len, j->end, 0, 0, 0};
-    int64_t mcus, mcux;
     if (ns == 1) {
         /* non-interleaved: one block per MCU over the component's own blocks */
-        Comp *k = sc[0];
-        mcux = (k->dw + 7) / 8;
-        mcus = mcux * ((k->dh + 7) / 8);
+        const Comp *k = s->sc[0];
+        s->mcux = (k->dw + 7) / 8;
+        s->mcus = s->mcux * ((k->dh + 7) / 8);
     } else {
-        mcux = j->mcux;
-        mcus = (int64_t)j->mcux * j->mcuy;
+        s->mcux = j->mcux;
+        s->mcus = (int64_t)j->mcux * j->mcuy;
     }
+    s->ns = ns;
+    s->ss = ss;
+    s->se = se;
+    s->ah = ah;
+    s->al = al;
+    s->data = p + len;
+    return 0;
+}
+
+/* One Huffman scan starting at the SOS segment p; *pos <- the first byte
+ * after its entropy-coded data. Sequential scans go through the IDCT into
+ * each component's plane block by block; progressive ones into its
+ * coefficients. */
+static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
+    Scan s;
+    if (scan_header(j, p, &s)) return 1;
+    const int ns = s.ns, ss = s.ss, se = s.se, ah = s.ah, al = s.al;
+    Comp *const sc[3] = {s.sc[0], s.sc[1], s.sc[2]}; /* a local copy: no store aliases it */
+    const int64_t mcus = s.mcus, mcux = s.mcux;
+    Bits b = {s.data, j->end, 0, 0, 0};
     j->eobrun = 0;
-    int todo = j->restart;
+    int todo = j->restart, rst = 0;
     for (int64_t m = 0; m < mcus; m++) {
         if (j->restart && todo == 0) {
-            restart(&b);
+            restart(&b, &rst);
             for (int i = 0; i < ns; i++) sc[i]->pred = 0;
             j->eobrun = 0;
             todo = j->restart;
@@ -795,30 +1024,453 @@ static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
         }
         todo--;
     }
-    /* the bytes left of a partly read byte are dropped; find the next marker */
-    const uint8_t *e = b.p;
-    while (e + 1 < j->end && !(e[0] == 0xFF && e[1] != 0x00 && !(e[1] >= 0xD0 && e[1] <= 0xD7))) e++;
-    *pos = e;
+    /* the bits left of a partly read byte are dropped */
+    *pos = next_marker(b.p, j->end);
     return 0;
 }
 
-/* After the last progressive scan: each component's blocks (those inside
- * its own size) through the IDCT into its plane. */
-static int idct_coefficients(Jpeg *j) {
-    char msg[200];
-    for (int c = 0; c < j->ncomp; c++) {
-        const Comp *k = &j->comp[c];
-        for (int i = 0; i < 64; i++) {
-            if (k->coef_bits[i] != 0) {
-                snprintf(msg, sizeof msg,
-                         "progressive scans leave bits of coefficient %d of component %d unsent (libjpeg-turbo "
-                         "smooths such blocks, which is not done here)", i, c);
-                return fail(j, msg);
+/* ------------------------------------------------------------------------ */
+/* JPEG: arithmetic decoding (T.81 Annex D, F.1.4 and G.1.3; jdarith.c)      */
+/* ------------------------------------------------------------------------ */
+
+/* T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+ * Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed estimate 0.5. */
+#define V(qe, lps, mps, sw) (((uint32_t)(qe) << 16) | ((uint32_t)(mps) << 8) | ((uint32_t)(sw) << 7) | (uint32_t)(lps))
+static const uint32_t ARITAB[114] = {
+    V(0x5a1d, 1, 1, 1), V(0x2586, 14, 2, 0), V(0x1114, 16, 3, 0), V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0), V(0x01da, 23, 6, 0), V(0x00e5, 25, 7, 0), V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0), V(0x001a, 33, 10, 0), V(0x000d, 35, 11, 0), V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0), V(0x0001, 12, 13, 0), V(0x5a7f, 15, 15, 1), V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0), V(0x207c, 39, 18, 0), V(0x17b9, 40, 19, 0), V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0), V(0x09a1, 45, 22, 0), V(0x072f, 46, 23, 0), V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0), V(0x0303, 51, 26, 0), V(0x0240, 52, 27, 0), V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0), V(0x00f5, 57, 30, 0), V(0x00b7, 59, 31, 0), V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0), V(0x004e, 63, 34, 0), V(0x003b, 32, 35, 0), V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1), V(0x484c, 64, 38, 0), V(0x3a0d, 65, 39, 0), V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0), V(0x1f33, 69, 42, 0), V(0x19a8, 70, 43, 0), V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0), V(0x0e74, 74, 46, 0), V(0x0bfb, 75, 47, 0), V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0), V(0x0706, 79, 50, 0), V(0x05cd, 48, 51, 0), V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0), V(0x0363, 51, 54, 0), V(0x02d4, 52, 55, 0), V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0), V(0x01a4, 55, 58, 0), V(0x0160, 56, 59, 0), V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0), V(0x00cb, 59, 62, 0), V(0x00ab, 61, 63, 0), V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1), V(0x4d04, 80, 66, 0), V(0x412c, 81, 67, 0), V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0), V(0x293c, 84, 70, 0), V(0x2379, 86, 71, 0), V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0), V(0x174e, 72, 74, 0), V(0x1424, 72, 75, 0), V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0), V(0x0d51, 75, 78, 0), V(0x0bb6, 77, 79, 0), V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1), V(0x4d1c, 88, 82, 0), V(0x438e, 89, 83, 0), V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0), V(0x2eae, 92, 86, 0), V(0x299a, 93, 87, 0), V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1), V(0x4ca9, 95, 90, 0), V(0x44d9, 96, 91, 0), V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0), V(0x32b4, 99, 94, 0), V(0x2e17, 93, 86, 0), V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0), V(0x47e5, 102, 98, 0), V(0x41cf, 103, 99, 0), V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0), V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0), V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0),
+};
+#undef V
+
+/* The decoder registers: C (the code value and its input bits), A (the
+ * interval), ct (bits left in C's input byte; -16 before the first two
+ * bytes, -1 after a bad code: the rest of the scan, up to a restart, is not
+ * read). After a marker the input is zeros. */
+typedef struct {
+    const uint8_t *p, *end;
+    int64_t c, a;
+    int ct;
+    int marker;     /* a marker was met: p stays on it */
+} Arith;
+
+static int arith_byte(Arith *e) {
+    if (e->marker || e->p >= e->end) {
+        e->marker = 1;
+        return 0;
+    }
+    const int d = *e->p;
+    if (d != 0xFF) {
+        e->p++;
+        return d;
+    }
+    const uint8_t *q = e->p + 1;
+    while (q < e->end && *q == 0xFF) q++; /* extra FF bytes are swallowed */
+    if (q < e->end && *q == 0) {
+        e->p = q + 1;
+        return 0xFF; /* a stuffed zero */
+    }
+    e->marker = 1;
+    return 0;
+}
+
+/* One binary decision in the statistics bin st (D.2.4-D.2.6). */
+static int arith_decode(Arith *e, uint8_t *st) {
+    while (e->a < 0x8000) {
+        if (--e->ct < 0) {
+            e->c = (int64_t)(((uint64_t)e->c << 8) | (uint64_t)arith_byte(e));
+            if ((e->ct += 8) < 0 && ++e->ct == 0) e->a = 0x8000; /* the first two bytes read */
+        }
+        e->a <<= 1;
+    }
+    const int sv = *st;
+    uint32_t qe = ARITAB[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF); /* Next_Index_LPS and Switch_MPS */
+    qe >>= 8;
+    const int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = e->a - qe;
+    e->a = temp;
+    temp <<= e->ct;
+    if (e->c >= temp) {
+        e->c -= temp;
+        /* conditional LPS exchange */
+        if (e->a < (int64_t)qe) {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+            return sv >> 7;
+        }
+        e->a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        return (sv >> 7) ^ 1;
+    }
+    if (e->a < 0x8000) {
+        /* conditional MPS exchange */
+        if (e->a < (int64_t)qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            return (sv >> 7) ^ 1;
+        }
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+    }
+    return sv >> 7;
+}
+
+/* jdarith.c process_restart: past the restart marker (read_restart); the
+ * registers start over. */
+static void arith_restart(Arith *e, int *rst) {
+    e->p = read_restart(e->p, e->end, rst, &e->marker);
+    e->c = 0;
+    e->a = 0;
+    e->ct = -16;
+}
+
+/* A DC difference (F.1.4.4.1, Figures F.19-F.24), k->ctx updated; on a
+ * magnitude overflow e->ct <- -1. */
+static int arith_dc_diff(Jpeg *j, Arith *e, Comp *k) {
+    uint8_t *st = j->dc_stats[k->td] + k->ctx;
+    if (arith_decode(e, st) == 0) {
+        k->ctx = 0;
+        return 0;
+    }
+    const int sign = arith_decode(e, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(e, st);
+    if (m) {
+        st = j->dc_stats[k->td] + 20;
+        while (arith_decode(e, st)) {
+            if ((m <<= 1) == 0x8000) {
+                e->ct = -1;
+                return 0;
+            }
+            st++;
+        }
+    }
+    if (m < (1 << j->arith_l[k->td]) >> 1)
+        k->ctx = 0;
+    else if (m > (1 << j->arith_u[k->td]) >> 1)
+        k->ctx = 12 + sign * 4;
+    else
+        k->ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1) {
+        if (arith_decode(e, st)) v |= m;
+    }
+    v += 1;
+    return sign ? -v : v;
+}
+
+/* AC coefficients ss..se of a block (Figure F.20), each stored shifted
+ * left by al; on a bad code e->ct <- -1 and the block stops there. */
+static void arith_ac_first(Jpeg *j, Arith *e, int tbl, int16_t *blk, int ss, int se, int al) {
+    uint8_t *stats = j->ac_stats[tbl];
+    const int kx = j->arith_k[tbl];
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = stats + 3 * (k - 1);
+        if (arith_decode(e, st)) break; /* end of block */
+        while (arith_decode(e, st + 1) == 0) {
+            st += 3;
+            if (++k > se) {
+                e->ct = -1; /* spectral overflow */
+                return;
+            }
+        }
+        const int sign = arith_decode(e, &j->fixed);
+        st += 2;
+        int m = arith_decode(e, st);
+        if (m && arith_decode(e, st)) {
+            m <<= 1;
+            st = stats + (k <= kx ? 189 : 217);
+            while (arith_decode(e, st)) {
+                if ((m <<= 1) == 0x8000) {
+                    e->ct = -1; /* magnitude overflow */
+                    return;
+                }
+                st++;
+            }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1) {
+            if (arith_decode(e, st)) v |= m;
+        }
+        v += 1;
+        blk[ZIGZAG[k]] = shifted(sign ? -v : v, al);
+    }
+}
+
+/* An AC refinement of ss..se (G.1.3.3): the end of the earlier stages'
+ * block is the last nonzero coefficient; each nonzero one takes a
+ * correction bit, each zero one may become +-(1 << al). */
+static void arith_ac_refine(Jpeg *j, Arith *e, int tbl, int16_t *blk, int ss, int se, int al) {
+    uint8_t *stats = j->ac_stats[tbl];
+    const int p1 = 1 << al;
+    int kex = se;
+    while (kex > 0 && !blk[ZIGZAG[kex]]) kex--;
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = stats + 3 * (k - 1);
+        if (k > kex && arith_decode(e, st)) break; /* end of block */
+        for (;;) {
+            int16_t *c = blk + ZIGZAG[k];
+            if (*c) {
+                if (arith_decode(e, st + 2)) *c = (int16_t)(*c < 0 ? *c - p1 : *c + p1);
+                break;
+            }
+            if (arith_decode(e, st + 1)) {
+                *c = (int16_t)(arith_decode(e, &j->fixed) ? -p1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > se) {
+                e->ct = -1; /* spectral overflow */
+                return;
             }
         }
     }
+}
+
+/* The statistics and predictions a scan's tables start from (jdarith.c
+ * start_pass and process_restart): DC bins for sequential and DC first
+ * scans, AC bins for sequential and AC scans, all zero. */
+static void arith_reset(Jpeg *j, const Scan *s) {
+    for (int i = 0; i < s->ns; i++) {
+        Comp *k = s->sc[i];
+        if (!j->progressive || (s->ss == 0 && s->ah == 0)) {
+            memset(j->dc_stats[k->td], 0, sizeof j->dc_stats[0]);
+            k->pred = 0;
+            k->ctx = 0;
+        }
+        if (!j->progressive || s->ss) memset(j->ac_stats[k->ta], 0, sizeof j->ac_stats[0]);
+    }
+}
+
+/* One arithmetic-coded scan (jdarith.c decode_mcu, decode_mcu_DC_first,
+ * decode_mcu_DC_refine, decode_mcu_AC_first, decode_mcu_AC_refine), as
+ * decode_scan: sequential blocks through the IDCT into the planes (a block
+ * after a bad code is zero), progressive ones into the coefficients. */
+static int decode_scan_arith(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
+    Scan s;
+    if (scan_header(j, p, &s)) return 1;
+    const int ns = s.ns, ss = s.ss, se = s.se, ah = s.ah, al = s.al;
+    arith_reset(j, &s);
+    Arith e = {s.data, j->end, 0, 0, -16, 0};
+    int todo = j->restart, rst = 0;
+    int16_t coef[64];
+    for (int64_t m = 0; m < s.mcus; m++) {
+        if (j->restart && todo == 0) {
+            arith_restart(&e, &rst);
+            arith_reset(j, &s);
+            todo = j->restart;
+        }
+        todo--;
+        const int mx = (int)(m % s.mcux), my = (int)(m / s.mcux);
+        for (int i = 0; i < ns; i++) {
+            Comp *k = s.sc[i];
+            const int nh = ns == 1 ? 1 : k->h, nv = ns == 1 ? 1 : k->v;
+            for (int v = 0; v < nv; v++) {
+                for (int h = 0; h < nh; h++) {
+                    const int bx = mx * nh + h, by = my * nv + v;
+                    if (!j->progressive) {
+                        memset(coef, 0, sizeof coef);
+                        if (e.ct != -1) {
+                            const int diff = arith_dc_diff(j, &e, k);
+                            if (e.ct != -1) {
+                                k->pred = (k->pred + diff) & 0xFFFF;
+                                coef[0] = (int16_t)(uint16_t)k->pred;
+                                arith_ac_first(j, &e, k->ta, coef, 1, 63, 0);
+                            }
+                        }
+                        const int stride = k->bw * 8;
+                        idct_islow(coef, k->q, k->plane + ((int64_t)by * 8) * stride + (int64_t)bx * 8, stride);
+                        continue;
+                    }
+                    int16_t *blk = k->coef + ((int64_t)by * k->bw + bx) * 64;
+                    if (ss == 0 && ah) {
+                        /* DC refinement: the next bit, at fixed probability */
+                        if (arith_decode(&e, &j->fixed)) blk[0] = (int16_t)(blk[0] | (1 << al));
+                    } else if (e.ct == -1) {
+                        continue;
+                    } else if (ss == 0) {
+                        const int diff = arith_dc_diff(j, &e, k);
+                        if (e.ct == -1) continue;
+                        k->pred = (k->pred + diff) & 0xFFFF;
+                        blk[0] = shifted(k->pred, al);
+                    } else if (ah) {
+                        arith_ac_refine(j, &e, k->ta, blk, ss, se, al);
+                    } else {
+                        arith_ac_first(j, &e, k->ta, blk, ss, se, al);
+                    }
+                }
+            }
+        }
+    }
+    *pos = next_marker(e.p, j->end);
+    return 0;
+}
+
+/* ------------------------------------------------------------------------ */
+/* JPEG: block smoothing and the IDCT of progressive coefficients            */
+/* ------------------------------------------------------------------------ */
+
+/* jdcoefct.c smoothing_ok, after the whole file is read: a progressive file
+ * whose components each latched a quantization table with entries 0-9 (in
+ * zigzag order) nonzero and had their DC at least partly sent, one of them
+ * leaving bits of a coefficient 1-9 unsent. */
+static int smoothing_ok(const Jpeg *j) {
+    int useful = 0;
     for (int c = 0; c < j->ncomp; c++) {
         const Comp *k = &j->comp[c];
+        if (!k->latched || k->coef_bits[0] < 0) return 0;
+        for (int i = 0; i < 10; i++) {
+            if (!k->q[ZIGZAG[i]]) return 0;
+        }
+        for (int i = 1; i < 10; i++) useful |= k->coef_bits[i] != 0;
+    }
+    return useful;
+}
+
+/* An estimate of a coefficient from num = Q00 * (a weighted sum of DC
+ * values) over its quantizer q, rounded to nearest away from zero; with
+ * al > 0 no larger in magnitude than its unsent bits can hold. */
+static int16_t estimate(int64_t num, int64_t q, int al) {
+    int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+/* jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later) over one
+ * component: each block's coefficients 1-9 that are zero and not fully
+ * sent estimated from the 5x5 DC values around it (when no AC bit of 1-9
+ * was sent, the DC too), then the IDCT. Edge blocks repeat their
+ * neighbours; the rows follow libjpeg-turbo's iMCU-row arithmetic, whose
+ * last iMCU row counts only its own block rows. */
+static void idct_smoothed(const Jpeg *j, const Comp *k) {
+    const int *cb = k->coef_bits;
+    int change_dc = 1;
+    for (int i = 1; i < 10; i++) change_dc &= cb[i] == -1;
+    const uint16_t *q = k->q;
+    const int64_t q00 = q[0], q01 = q[1], q10 = q[8], q20 = q[16], q11 = q[9], q02 = q[2];
+    const int64_t q03 = q[3], q12 = q[10], q21 = q[17], q30 = q[24];
+    const int nbx = (k->dw + 7) / 8, nby = (k->dh + 7) / 8, stride = k->bw * 8;
+    const int sv = k->sv, imcu_rows = (j->height + 8 * j->svmax - 1) / (8 * j->svmax);
+    int16_t w[64];
+    int d[26];
+    for (int r = 0; r < imcu_rows; r++) {
+        int block_rows = sv;
+        if (r == imcu_rows - 1 && nby % sv) block_rows = nby % sv;
+        const int image_rows = block_rows * imcu_rows;
+        for (int b = 0; b < block_rows; b++) {
+            const int row = r * sv + b, ir = r * block_rows + b;
+            int rows[5];
+            rows[2] = row;
+            rows[1] = ir > 0 ? row - 1 : row;
+            rows[0] = ir > 1 ? row - 2 : rows[1];
+            rows[3] = ir < image_rows - 1 ? row + 1 : row;
+            rows[4] = ir < image_rows - 2 ? row + 2 : rows[3];
+            for (int bx = 0; bx < nbx; bx++) {
+                for (int y = 0; y < 5; y++) {
+                    for (int x = 0; x < 5; x++) {
+                        int col = bx + x - 2;
+                        col = col < 0 ? 0 : col > nbx - 1 ? nbx - 1 : col;
+                        /* rows past the coefficient store are the zeroed padding of libjpeg's */
+                        d[1 + 5 * y + x] = rows[y] < k->bh ? k->coef[((int64_t)rows[y] * k->bw + col) * 64] : 0;
+                    }
+                }
+                memcpy(w, k->coef + ((int64_t)row * k->bw + bx) * 64, sizeof w);
+                int al;
+                if ((al = cb[1]) != 0 && w[1] == 0) {
+                    w[1] = estimate(q00 * (change_dc ? -d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9] +
+                                                           3 * d[10] - 3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15] -
+                                                           3 * d[16] + 13 * d[17] - 13 * d[19] + 3 * d[20] - d[21] - d[22] +
+                                                           d[24] + d[25]
+                                                     : -7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]),
+                                    q01, al);
+                }
+                if ((al = cb[2]) != 0 && w[8] == 0) {
+                    w[8] = estimate(q00 * (change_dc ? -d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] + 13 * d[7] +
+                                                           38 * d[8] + 13 * d[9] - d[10] + d[16] - 13 * d[17] - 38 * d[18] -
+                                                           13 * d[19] + d[20] + d[21] + 3 * d[22] + 3 * d[23] + 3 * d[24] +
+                                                           d[25]
+                                                     : -7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]),
+                                    q10, al);
+                }
+                if ((al = cb[3]) != 0 && w[16] == 0) {
+                    w[16] = estimate(q00 * (change_dc ? d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13] -
+                                                            5 * d[14] + 2 * d[17] + 7 * d[18] + 2 * d[19] + d[23]
+                                                      : -d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]),
+                                     q20, al);
+                }
+                if ((al = cb[4]) != 0 && w[9] == 0) {
+                    w[9] = estimate(q00 * (change_dc ? -d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] + d[21] -
+                                                           d[25]
+                                                     : d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22] -
+                                                           d[24] + d[4] - d[6] + 10 * d[7] - 10 * d[9]),
+                                    q11, al);
+                }
+                if ((al = cb[5]) != 0 && w[2] == 0) {
+                    w[2] = estimate(q00 * (change_dc ? 2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13] +
+                                                           7 * d[14] + d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19]
+                                                     : -d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]),
+                                    q02, al);
+                }
+                if (change_dc) {
+                    if ((al = cb[6]) != 0 && w[3] == 0)
+                        w[3] = estimate(q00 * (d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]), q03, al);
+                    if ((al = cb[7]) != 0 && w[10] == 0)
+                        w[10] = estimate(q00 * (d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]), q12, al);
+                    if ((al = cb[8]) != 0 && w[17] == 0)
+                        w[17] = estimate(q00 * (d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]), q21, al);
+                    if ((al = cb[9]) != 0 && w[24] == 0)
+                        w[24] = estimate(q00 * (d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]), q30, al);
+                    w[0] = estimate(q00 * (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] + 6 * d[7] +
+                                           42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] + 152 * d[13] +
+                                           42 * d[14] - 8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+                                           6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25]),
+                                    q00, 0);
+                }
+                idct_islow(w, q, k->plane + (int64_t)row * 8 * stride + (int64_t)bx * 8, stride);
+            }
+        }
+    }
+}
+
+/* After the last progressive scan: each component's blocks (those inside
+ * its own size) through the IDCT into its plane, smoothed first where
+ * smoothing_ok says so. */
+static void idct_coefficients(Jpeg *j) {
+    const int smooth = smoothing_ok(j);
+    for (int c = 0; c < j->ncomp; c++) {
+        const Comp *k = &j->comp[c];
+        if (smooth) {
+            idct_smoothed(j, k);
+            continue;
+        }
         const int stride = k->bw * 8, nbx = (k->dw + 7) / 8, nby = (k->dh + 7) / 8;
         for (int by = 0; by < nby; by++) {
             for (int bx = 0; bx < nbx; bx++) {
@@ -827,7 +1479,6 @@ static int idct_coefficients(Jpeg *j) {
             }
         }
     }
-    return 0;
 }
 
 /* ------------------------------------------------------------------------ */
@@ -942,6 +1593,11 @@ static int parse(Jpeg *j, const uint8_t *data, int64_t n, char *err, int64_t err
     j->end = data + n;
     j->err = err;
     j->errlen = errlen;
+    for (int t = 0; t < 16; t++) { /* jdmarker.c get_soi: the defaults without a DAC */
+        j->arith_u[t] = 1;
+        j->arith_k[t] = 5;
+    }
+    j->fixed = 113;
     if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return fail(j, "not a JPEG file (no SOI marker)");
     const uint8_t *p = data + 2;
     if (read_markers(j, &p, NULL)) return 1;
@@ -981,14 +1637,14 @@ int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out, char *err, int64_t
     /* sequential: until every component had its scan; progressive: every
      * scan up to EOI */
     for (;;) {
-        if ((rc = decode_scan(&j, p, &p))) goto done;
+        if ((rc = (j.arith ? decode_scan_arith : decode_scan)(&j, p, &p))) goto done;
         int more = 0, eoi = 0;
         for (int c = 0; c < j.ncomp; c++) more |= !j.comp[c].seen;
         if (!more && !j.progressive) break;
         if ((rc = read_markers(&j, &p, j.progressive ? &eoi : NULL))) goto done;
         if (eoi) break;
     }
-    if (j.progressive && (rc = idct_coefficients(&j))) goto done;
+    if (j.progressive) idct_coefficients(&j);
     const int64_t npx = (int64_t)j.width * j.height;
     if (j.ncomp == 1) {
         upsample(&j, &j.comp[0], out);

@@ -5,6 +5,8 @@ decodes them):
 
 Each image is made from a seed: smooth shading, hard-edged ellipses, a
 sinusoidal texture and noise, so that every band of the DCT carries data.
+The two files libjpeg wrote (``libjpeg_arith.c``) are kept as committed;
+only their manifest entries are rewritten.
 """
 
 from __future__ import annotations
@@ -15,12 +17,15 @@ import json
 import numpy as np
 
 from topo4d_tpu_torch.fixtures import DENSE, DENSE_PROGRESSIVE, MANIFEST, path, sha256
-from topo4d_tpu_torch.fixtures.jpeg_writer import encode_baseline
+from topo4d_tpu_torch.fixtures.jpeg_writer import encode_baseline, encode_scans
 from topo4d_tpu_torch.fixtures.png_writer import encode_png_any
+
+SAMPLING_420 = [[2, 2], [1, 1], [1, 1]]
 
 # file name -> (height, width, gray?, seed, how it is written): PIL's save
 # options, with "adobe_transform" for an APP14 marker spliced in place of
-# PIL's JFIF marker; "writer" for this package's writers
+# PIL's JFIF marker and "scans_kept" for a progressive file cut after that
+# many scans; "writer" for this package's writers, or libjpeg's (kept)
 FIXTURES = {
     DENSE: (3000, 4096, False, 0, {"quality": 85, "subsampling": 2, "restart_marker_rows": 4}),
     "view_517x389_q75_422.jpg": (389, 517, False, 1, {"quality": 75, "subsampling": 1}),
@@ -42,6 +47,32 @@ FIXTURES = {
     ),
     "view_127x93_rgb16_adam7.png": (
         93, 127, False, 10, {"writer": "encode_png_any", "depth": 16, "color_type": 2, "interlace": True}
+    ),
+    "libjpeg_61x43_q85_420_arith.jpg": (43, 61, False, 11, {"writer": "libjpeg_arith.c", "progressive": 0}),
+    "libjpeg_61x43_q85_420_arith_progressive.jpg": (43, 61, False, 12, {"writer": "libjpeg_arith.c", "progressive": 1}),
+    "view_517x389_q75_422_arith.jpg": (
+        389, 517, False, 13, {"writer": "encode_scans", "quality": 75, "sampling": [[2, 1], [1, 1], [1, 1]],
+                              "arithmetic": True, "progressive": False}
+    ),
+    "view_259x195_q90_444_arith_progressive.jpg": (
+        195, 259, False, 14, {"writer": "encode_scans", "quality": 90, "sampling": [[1, 1], [1, 1], [1, 1]],
+                              "arithmetic": True, "progressive": True, "restart": 7}
+    ),
+    "gray_257x193_q85_arith_progressive.jpg": (
+        193, 257, True, 15, {"writer": "encode_scans", "quality": 85, "arithmetic": True, "progressive": True}
+    ),
+    "view_261x197_q85_420_arith_dac.jpg": (
+        197, 261, False, 16, {"writer": "encode_scans", "quality": 85, "sampling": SAMPLING_420, "arithmetic": True,
+                              "progressive": False, "conditioning": [[2, 6, 2], [1, 4, 12]], "restart": 5}
+    ),
+    "view_259x195_q90_420_progressive_dc_only.jpg": (
+        195, 259, False, 17, {"quality": 90, "subsampling": 2, "progressive": True, "scans_kept": 1}
+    ),
+    "view_259x195_q85_444_arith_progressive_ac1_9_partial.jpg": (
+        195, 259, False, 18, {"writer": "encode_scans", "quality": 85, "sampling": [[1, 1], [1, 1], [1, 1]],
+                              "arithmetic": True, "progressive": True, "scans": [
+                                  [[0, 1, 2], 0, 0, 0, 0], [[0], 1, 9, 0, 2], [[1], 1, 9, 0, 1], [[2], 1, 9, 0, 1],
+                                  [[0], 10, 63, 0, 0], [[1], 10, 63, 0, 0], [[2], 10, 63, 0, 0], [[0], 1, 9, 2, 1]]}
     ),
 }
 
@@ -73,9 +104,31 @@ def splice_adobe(data: bytes, transform: int) -> bytes:
     return data[:2] + app14 + data[app0_end:]
 
 
+def keep_scans(data: bytes, keep: int) -> bytes:
+    """``data`` (a progressive JPEG) ending after its first ``keep`` scans:
+    the later scans, which refine the coefficients, are left out."""
+    pos, scans = 2, 0
+    while True:
+        marker = data[pos + 1]
+        if marker == 0xDA:
+            scans += 1
+            end = pos + 2 + int.from_bytes(data[pos + 2 : pos + 4], "big")
+            while not (data[end] == 0xFF and data[end + 1] not in (0x00, *range(0xD0, 0xD8))):
+                end += 1
+            if scans == keep:
+                return data[:end] + b"\xff\xd9"
+            pos = end
+        else:
+            pos += 2 + int.from_bytes(data[pos + 2 : pos + 4], "big")
+
+
 def encode(img: np.ndarray, save: dict, seed: int) -> bytes:
     save = dict(save)
     writer = save.pop("writer", None)
+    if writer == "encode_scans":
+        scans = save.pop("scans", None)
+        return encode_scans(img, sampling=[tuple(f) for f in save.pop("sampling", [[1, 1]])],
+                            scans=None if scans is None else [(tuple(c), *rest) for c, *rest in scans], **save)
     if writer == "encode_baseline":
         return encode_baseline(img, sampling=[tuple(f) for f in save["sampling"]], quality=save["quality"],
                                restart=save.get("restart", 0))
@@ -87,9 +140,12 @@ def encode(img: np.ndarray, save: dict, seed: int) -> bytes:
     from PIL import Image
 
     transform = save.pop("adobe_transform", None)
+    kept = save.pop("scans_kept", None)
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, format="JPEG", **save)
     data = buf.getvalue()
+    if kept is not None:
+        data = keep_scans(data, kept)
     return data if transform is None else splice_adobe(data, transform)
 
 
@@ -98,8 +154,9 @@ def main() -> None:
 
     out = {}
     for name, (h, w, gray, seed, save) in FIXTURES.items():
-        with open(path(name), "wb") as fh:
-            fh.write(encode(make_image(h, w, gray, seed), save, seed))
+        if save.get("writer") != "libjpeg_arith.c":
+            with open(path(name), "wb") as fh:
+                fh.write(encode(make_image(h, w, gray, seed), save, seed))
         with Image.open(path(name)) as im:
             pixels = np.asarray(im)
         out[name] = {"shape": list(pixels.shape), "sha256": sha256(pixels), "save": save}

@@ -89,7 +89,13 @@ def _stack_cameras(cam_dicts: List[Dict], near: float, far: float, device) -> Ca
 def read_image(path: str) -> np.ndarray:
     """An image file as ``np.asarray(PIL.Image.open(path))`` gives it: a
     PNG or a JPEG, told apart by the file's leading bytes (as PIL does),
-    whatever its extension."""
+    whatever its extension. Every JPEG kind PIL reads into three or one
+    channels is read: sequential and progressive, Huffman- and
+    arithmetic-coded, progressive scans with bits left unsent (smoothed as
+    libjpeg-turbo smooths them). What PIL fails on raises ``ValueError``
+    naming the file (lossless, hierarchical, 12-bit, two-component, DNL-sized
+    frames, more than 10 blocks per MCU, fractional sampling, bad DAC
+    segments), and so does CMYK, which PIL reads as four channels."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data.startswith(SIGNATURE):

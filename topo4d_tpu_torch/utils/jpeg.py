@@ -2,15 +2,20 @@
 
 ``decode_jpeg`` returns what ``np.asarray(PIL.Image.open(f))`` returns for
 the JPEGs it reads, bit for bit: (H, W, 3) uint8 for three components,
-(H, W) for gray, decoded as libjpeg-turbo decodes at its defaults (islow
-IDCT, the upsampler it picks, its colour-space choice and integer colour
-tables). It reads sequential and progressive Huffman files with 8-bit
-samples, 1 or 3 components coded as YCbCr or RGB (JFIF, Adobe APP14 or
-'R', 'G', 'B' component ids), any sampling factors whose ratios are whole,
-and restart markers. Arithmetic-coded, lossless, hierarchical and 12-bit
-files, 2 or 4 components, fractional sampling, MCUs of more than 10 blocks
-and progressive files whose scans leave coefficient bits unsent (which
-libjpeg-turbo smooths) raise ``ValueError``, naming the file.
+(H, W) for gray, decoded as libjpeg-turbo decodes at its defaults on x86-64
+(the islow IDCT of its SIMD code, the upsampler it picks, its colour-space
+choice and integer colour tables). It reads sequential and progressive
+files, Huffman-coded or arithmetic-coded (SOF9/SOF10, DAC conditioning),
+with 8-bit samples, 1 or 3 components coded as YCbCr or RGB (JFIF, Adobe
+APP14 or 'R', 'G', 'B' component ids), any sampling factors whose ratios
+are whole, and restart markers; progressive files whose scans leave bits
+of coefficients 1-9 unsent are smoothed as libjpeg-turbo's block smoothing
+does. Lossless, hierarchical and 12-bit files, 2 components, DNL-sized
+frames, fractional sampling, MCUs of more than 10 blocks and bad DAC
+segments, on which PIL fails too, and CMYK/YCCK (4 components, which PIL
+reads as four channels) raise ``ValueError``, naming the file. Unlike PIL,
+which reads a file in 64 KiB blocks that libjpeg's arithmetic decoder
+cannot wait on, it reads arithmetic-coded files of any size.
 """
 
 from __future__ import annotations
