@@ -10,7 +10,9 @@ same inputs, in turns: NAME ``tile_blend_fwd`` (K1) and
 ``tile_blend_v3_fwd`` (K4f, at each tps) must give K1's rows 0-5 bit for
 bit, ``uv_bake`` (K6) the kernel's canvas. NAME ``imgdec`` takes an
 earlier commit's ``csrc/imgdec.c``, the host library, which phase 13b
-times beside this one on the baseline JPEG and 8-bit PNG decodes. ``--log PATH`` also appends
+times beside this one on the baseline and progressive JPEG and 8-bit PNG
+decodes; NAME ``png`` an earlier commit's ``utils/png.py``, whose PNG
+reader those PNG decodes then run over the ref library. ``--log PATH`` also appends
 every log line to the file PATH. ``--seed N`` (0 by default) makes phase
 12's synthetic morphable model and its coefficients. Without arguments only
 the phases below run.
@@ -169,20 +171,26 @@ order; any failure raises and exits non-zero:
    Adobe-marked, 4:4:0 and 4:1:1 JPEG; arithmetic-coded JPEG, sequential
    and progressive, with DAC conditioning, two of them written by libjpeg;
    progressive files whose scans leave bits unsent, smoothed; an Adam7
-   16-bit RGB PNG) decoded by the C library against the manifest's SHA-256
-   of PIL's decodes; b. a 24-view tree of the progressive 4096x3000
+   16-bit RGB PNG, an 8-bit RGB PNG) decoded by the C library against the
+   manifest's SHA-256 of PIL's decodes; b. a 24-view tree of the progressive 4096x3000
    fixture on phase 9's ``cameras.xml``, read through ``DiskSequence`` and
    turned on the card, each view bit for bit against the fixture's decode
    turned on the host; its dense frame read and its single-thread decode
    timed in turns with a tree of the baseline fixture; with ``--ref
    imgdec=PATH`` (an earlier commit's ``csrc/imgdec.c``) the baseline JPEG,
    progressive JPEG and 8-bit PNG decodes of a dense view through both
-   libraries, in turns, bits equal; c. the tensor functions added last
+   libraries, in turns, bits equal (with ``--ref png=PATH``, an earlier
+   commit's ``utils/png.py``, the PNGs through that commit's reader); c. the tensor functions added last
    (the L2 and unfused flatten losses with their gradients,
    ``gather_neighbors``, the quaternion and camera functions,
    ``build_cov3d``, ``bin_gaussians`` and ``bin_gaussians_packed``, the
    merged and sequential constraint writes) on the card against the CPU at
-   the head's 8,280 Gaussians.
+   the head's 8,280 Gaussians; d. every damaged copy of the fixtures
+   (``fixtures.DAMAGED``: JPEG cut off, cut off and closed by EOI, a
+   restart marker deleted; PNG cut inside IEND, bad CRCs, streams of other
+   lengths, IDAT chunks split) read by ``read_image`` against PIL's
+   outcome in the manifest: its SHA-256, or a ``ValueError`` naming the
+   file.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3621,8 +3629,9 @@ def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, bl
 
 
 KINDS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_kinds")
-KINDS_TURNS = 2  # rounds of phase 13b's reads and decodes in turns (baseline, progressive, progressive, baseline)
+KINDS_TURNS = 4  # rounds of phase 13b's reads and decodes in turns (baseline, progressive, progressive, baseline)
 REF_IMGDEC = {}  # --ref imgdec=PATH: path -> the host library built from it
+REF_PNG = None  # --ref png=PATH: (PATH, an earlier commit's utils/png.py loaded as a module)
 
 
 def load_ref_imgdec(path):
@@ -3651,12 +3660,29 @@ def load_ref_imgdec(path):
     return lib
 
 
+def load_ref_png(path):
+    """``path``, an earlier commit's ``utils/png.py``, loaded as a module of
+    its own (it imports this package's ``native``, and so decodes over
+    whichever host library ``native.library`` gives)."""
+    import hashlib
+    import importlib.util
+
+    with open(path, "rb") as fh:
+        name = "ref_png_" + hashlib.sha256(fh.read()).hexdigest()[:12]
+    spec = importlib.util.spec_from_file_location(name, os.path.abspath(path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def decoders_against_ref(path, lib):
     """The existing paths against an earlier commit's host library: the
     dense baseline and progressive JPEG fixtures and two 8-bit PNGs of the
     baseline's pixels (every row Sub, every row Paeth) decoded by this
-    commit's Python over this library and over ``lib``, in turns (ref, new,
-    new, ref) x KINDS_TURNS, the bits equal -> {input: {"new": s, "ref": s}}."""
+    commit's Python over this library and over ``lib`` (the PNGs by the
+    ``--ref png=PATH`` module's ``decode_png`` over ``lib``, if one was
+    given: that commit's whole PNG reader), in turns (ref, new, new,
+    ref) x KINDS_TURNS, the bits equal -> {input: {"new": s, "ref": s}}."""
     from unittest import mock
 
     from topo4d_tpu_torch import fixtures, native
@@ -3668,25 +3694,76 @@ def decoders_against_ref(path, lib):
     with open(fixtures.path(fixtures.DENSE_PROGRESSIVE), "rb") as fh:
         progressive = fh.read()
     img = decode_jpeg(jpg)
-    inputs = {"baseline JPEG": (decode_jpeg, jpg), "progressive JPEG": (decode_jpeg, progressive),
-              "PNG, Sub rows": (decode_png, filtered_png(img, 1)), "PNG, Paeth rows": (decode_png, filtered_png(img, 4))}
+    ref_png = REF_PNG[1].decode_png if REF_PNG else decode_png
+    inputs = {"baseline JPEG": (decode_jpeg, decode_jpeg, jpg),
+              "progressive JPEG": (decode_jpeg, decode_jpeg, progressive),
+              "PNG, Sub rows": (decode_png, ref_png, filtered_png(img, 1)),
+              "PNG, Paeth rows": (decode_png, ref_png, filtered_png(img, 4))}
     out = {}
-    for label, (decode, data) in inputs.items():
+    for label, (decode, ref_decode, data) in inputs.items():
         times, got = {"new": [], "ref": []}, {}
         for _ in range(KINDS_TURNS):
             for which in ("ref", "new", "new", "ref"):
                 patch = mock.patch.object(native, "library", lambda name="imgdec": lib)
                 with patch if which == "ref" else contextlib.nullcontext():
                     t0 = time.perf_counter()
-                    px = decode(data)
+                    px = (ref_decode if which == "ref" else decode)(data)
                     times[which].append(time.perf_counter() - t0)
                 got[which] = px
         if not np.array_equal(got["new"], got["ref"]):
             raise AssertionError(f"phase 13b: {label} decodes to other bits than with --ref imgdec={path}")
         out[label] = {k: float(np.mean(v)) for k, v in times.items()}
-    log(f"phase 13b: decodes of a 4096x3000 view against --ref imgdec={path}, in turns, bits equal: "
+    log(f"phase 13b: decodes of a 4096x3000 view against --ref imgdec={path}"
+        + (f" (PNG: --ref png={REF_PNG[0]})" if REF_PNG else "")
+        + f", in turns x {KINDS_TURNS}, bits equal: "
         + "; ".join(f"{k} {v['new']:.4f} s against {v['ref']:.4f} s ({v['new'] / v['ref'] - 1:+.1%})"
                     for k, v in out.items()))
+    return out
+
+
+def hold_damaged():
+    """Phase 13d: every damaged copy of the fixtures (``fixtures.DAMAGED``:
+    JPEG cut off, cut off and closed by EOI, a restart marker deleted; PNG
+    cut inside IEND, bad CRCs, inflated streams of other lengths, IDAT
+    chunks split), written under ``KINDS_DIR`` and read by ``read_image``,
+    against PIL's outcome in the manifest: the shape and SHA-256 of the
+    decode, or a ``ValueError`` naming the file -> {"reads": n, "raises": n,
+    "s": seconds}."""
+    from topo4d_tpu_torch import fixtures
+    from topo4d_tpu_torch.pipeline.data import read_image
+
+    manifest = fixtures.manifest()
+    ddir = os.path.join(KINDS_DIR, "damaged")
+    os.makedirs(ddir, exist_ok=True)
+    out = {"reads": 0, "raises": 0}
+    t0 = time.perf_counter()
+    for name, cases in fixtures.DAMAGED.items():
+        stem, ext = os.path.splitext(name)
+        for case in cases:
+            want = manifest[name]["damaged"][case]
+            path = os.path.join(ddir, f"{stem}.{case}{ext}")
+            with open(path, "wb") as fh:
+                fh.write(fixtures.damaged(name, case))
+            if want == "raises":
+                try:
+                    read_image(path)
+                except ValueError as e:
+                    err = str(e)
+                else:
+                    raise AssertionError(f"phase 13d: {name}, {case}: read, where PIL raises")
+                if not err.startswith(path + ": "):
+                    raise AssertionError(f"phase 13d: {name}, {case}: the error does not name the file: {err}")
+                out["raises"] += 1
+            else:
+                px = read_image(path)
+                if fixtures.damaged_outcome(px) != want:
+                    raise AssertionError(f"phase 13d: {name}, {case}: the decode {px.shape} is not PIL's ({want})")
+                out["reads"] += 1
+            os.remove(path)
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 13d: {out['reads'] + out['raises']} damaged copies of {len(fixtures.DAMAGED)} fixtures held to PIL's "
+        f"outcomes (manifest): {out['reads']} decoded to PIL's SHA-256, {out['raises']} refused with the file named, "
+        f"{out['s']:.2f} s")
     return out
 
 
@@ -3801,7 +3878,7 @@ def phase_kinds(calib, statics, params_np, cams):
     """Phase 13: the image kinds the loader reads beyond phase 9's and the
     functions the port added last. 13a: the new fixtures (progressive,
     Adobe-marked, 4:4:0 and 4:1:1 JPEG; arithmetic-coded JPEG, unsent bits
-    smoothed; an Adam7 16-bit PNG) decoded here against the manifest's
+    smoothed; an Adam7 16-bit PNG, an 8-bit PNG) decoded here against the manifest's
     SHA-256 of PIL's decodes. 13b: a 24-view dense tree of the progressive
     4096x3000 fixture (phase 9's ``cameras.xml``), read through
     ``DiskSequence`` and turned on the card, each view bit for bit against
@@ -3809,7 +3886,8 @@ def phase_kinds(calib, statics, params_np, cams):
     ``LOAD_THREADS`` threads and its single-thread decode timed in turns
     with a tree of the baseline fixture; with ``--ref imgdec=PATH`` the
     baseline and progressive JPEG and 8-bit PNG decodes against that
-    library. 13c: ``surface_card_vs_cpu``."""
+    library (and ``--ref png=PATH``'s PNG reader). 13c:
+    ``surface_card_vs_cpu``. 13d: ``hold_damaged``."""
     from topo4d_tpu_torch import fixtures
     from topo4d_tpu_torch.pipeline.data import LOAD_THREADS
     from topo4d_tpu_torch.utils.jpeg import read_jpeg
@@ -3817,6 +3895,7 @@ def phase_kinds(calib, statics, params_np, cams):
     t_phase = time.perf_counter()
     shutil.rmtree(KINDS_DIR, ignore_errors=True)
     out = {"fixtures": hold_fixtures(fixtures.KINDS, "phase 13a: the other image kinds")}
+    out["damaged"] = hold_damaged()
     srcs, paths = {}, {"baseline": fixtures.DENSE, "progressive": fixtures.DENSE_PROGRESSIVE}
     for kind, name in paths.items():
         srcs[kind], pixels = jpeg_tree(os.path.join(KINDS_DIR, kind), calib, name)
@@ -3850,14 +3929,16 @@ def phase_kinds(calib, statics, params_np, cams):
 
 
 def main() -> int:
-    global CARD, LOG_FILE, SEED
+    global CARD, LOG_FILE, REF_PNG, SEED
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke run of topo4d_tpu_torch.")
     parser.add_argument("--ref", metavar="NAME=PATH", nargs="+", default=[],
                         help="sources of kernel NAME (tile_blend_fwd, tile_blend_v3_fwd or uv_bake: an earlier "
                         "commit's file, or a variant) to time beside the kernel in phase 6, each alone, in turns; "
-                        "imgdec=PATH: an earlier commit's csrc/imgdec.c, timed beside the host library in phase 13b")
+                        "imgdec=PATH: an earlier commit's csrc/imgdec.c, timed beside the host library in phase 13b; "
+                        "png=PATH: an earlier commit's topo4d_tpu_torch/utils/png.py, whose PNG reader phase 13b "
+                        "times over the imgdec refs")
     parser.add_argument("--log", metavar="PATH", default=None,
                         help="also append every log line to the file PATH")
     parser.add_argument("--seed", type=int, default=SEED,
@@ -3890,6 +3971,8 @@ def main() -> int:
         symbol, _, path = spec.partition("=")
         if symbol == "imgdec":
             REF_IMGDEC[path] = load_ref_imgdec(path)
+        elif symbol == "png":
+            REF_PNG = (path, load_ref_png(path))
         else:
             REFS.setdefault(symbol, {})[path] = load_ref(symbol, path)
     cfg, src, trainer, scene = build_main_path()

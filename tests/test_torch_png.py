@@ -6,7 +6,9 @@ odd widths; PIL picks a filter per row) and on files built here row by row
 with each filter type 0-4 and the image data split over several IDAT
 chunks. It round-trips the port's writer, reads 16-bit, palette and
 interlaced files as PIL does (``test_torch_image_kinds.py`` holds every
-kind) and refuses a header PNG does not allow and a bad CRC; ``read_image``
+kind) and refuses a header PNG does not allow, a bad CRC before the image
+data and a bad Adler-32 (``test_torch_damaged_captures.py`` holds the
+damaged files PIL reads); ``read_image``
 reads a JPEG view as PIL does, whatever its extension, a progressive one
 too. The C unfilter (``unfilter``) equals its NumPy mirror
 (``unfilter_plain``) and PIL on rows of each filter type.
@@ -201,9 +203,13 @@ def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="bad.png: bit depth 16, color type 3"):
         decode_png(_interlaced(rgb, depth=16, ctype=3), "bad.png")
     data = bytearray(encode_png(rgb))
-    data[-20] ^= 0xFF  # inside the IDAT body: its CRC no longer holds
-    with pytest.raises(ValueError, match="bad CRC"):
+    data[32] ^= 0xFF  # IHDR's CRC: PIL checks the CRCs of the chunks before IDAT
+    with pytest.raises(ValueError, match="crc.png: bad CRC in its IHDR chunk"):
         decode_png(bytes(data), "crc.png")
+    data = bytearray(encode_png(rgb))
+    data[-20] ^= 0xFF  # inside the IDAT body, its Adler-32: PIL reads no IDAT CRC, but inflate fails
+    with pytest.raises(ValueError, match="adler.png: broken image data .*incorrect data check"):
+        decode_png(bytes(data), "adler.png")
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a", "x.gif")
     # a JPEG view reads as PIL reads it, told apart by its leading bytes

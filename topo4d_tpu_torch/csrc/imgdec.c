@@ -29,6 +29,14 @@
  * ratios, interleaved scans of more than 10 blocks per MCU, DNL-sized files
  * and bad DAC segments; and 4 components (CMYK/YCCK), which PIL reads as
  * four channels that no three-channel view holds.
+ * Damaged and cut-off files read as PIL reads them, libjpeg-turbo fed in
+ * PIL's 64 KiB reads: past a segment's data the MCUs are skipped up to the
+ * next restart (decode_scan); a cut file raises where libjpeg would wait for
+ * more data before its last row is out (decode_scan, huff_suspends,
+ * arith_byte, jpeg_decode); after a sequential file's one scan the markers
+ * up to EOI are read, and a reserved or repeated one raises (read_markers);
+ * a code no table holds takes 17 bits; a table is checked when a scan
+ * first uses it.
  *
  * Every function returns 0 on success. On failure it returns non-zero and
  * writes a message into err (errlen bytes).
@@ -106,6 +114,7 @@ typedef struct {
     uint8_t look_len[512];    /* 9-bit lookahead: code length (0 = longer) */
     uint8_t look_val[512];
     int defined;
+    int built;                /* the tables above made from nbits and vals */
 } Huff;
 
 typedef struct {
@@ -119,6 +128,7 @@ typedef struct {
     uint16_t q[64];           /* the quantization table as it was at the component's first scan */
     int latched;
     int coef_bits[64];        /* progressive: the lowest bit sent of each zigzag coefficient, -1 = none */
+    int prev_bits[10];        /* coef_bits 0-9 as they were before the component's latest scan */
     int pred;
     int ctx;                  /* arithmetic scans: the DC conditioning of the last difference */
     int seen;                 /* decoded in some scan */
@@ -134,6 +144,9 @@ typedef struct {
     int adobe, adobe_transform;
     int rgb;                  /* three components coded as RGB, not YCbCr */
     int eobrun;               /* progressive AC scans: blocks left in the current end-of-band run */
+    int scans;                /* scans begun (libjpeg's input_scan_number) */
+    int64_t last_good;        /* the iMCU row of the last MCU a scan decoded (last_good_iMCU_row) */
+    int tail;                 /* reading the markers after a sequential file's one scan */
     uint16_t q[4][64];        /* natural order */
     int qdef[4];
     Huff dc[4], ac[4];
@@ -162,18 +175,24 @@ static int fail(Jpeg *j, const char *msg) {
     return 1;
 }
 
-static int build_huff(Jpeg *j, Huff *t) {
+/* jdhuff.c jpeg_make_d_derived_tbl, run as libjpeg runs it, when a scan
+ * first uses the table: a table with an all-ones code (or more codes than
+ * fit), or a DC value above 15, is an error then, and not before. */
+static int build_huff(Jpeg *j, Huff *t, int dc) {
     int code = 0, k = 0;
     for (int len = 1; len <= 16; len++) {
         t->valptr[len] = k;
         t->mincode[len] = code;
         code += t->nbits[len];
         k += t->nbits[len];
-        if (code > (1 << len)) return fail(j, "bad Huffman table");
+        if (code >= (1 << len)) return fail(j, "bad Huffman table");
         t->maxcode[len] = t->nbits[len] ? code - 1 : -1;
         code <<= 1;
     }
     t->maxcode[17] = 0x7fffffff;
+    for (int v = 0; dc && v < k; v++) {
+        if (t->vals[v] > 15) return fail(j, "bad Huffman table");
+    }
     memset(t->look_len, 0, sizeof t->look_len);
     code = 0;
     k = 0;
@@ -187,7 +206,7 @@ static int build_huff(Jpeg *j, Huff *t) {
         }
         code <<= 1;
     }
-    t->defined = 1;
+    t->built = 1;
     return 0;
 }
 
@@ -242,7 +261,8 @@ static int read_dht(Jpeg *j, const uint8_t *p, int len) {
         if (total > 256 || p + total > e) return fail(j, "bad Huffman table");
         memcpy(t->vals, p, (size_t)total);
         p += total;
-        if (build_huff(j, t)) return 1;
+        t->defined = 1;
+        t->built = 0;
     }
     return 0;
 }
@@ -327,23 +347,78 @@ static int read_sof(Jpeg *j, const uint8_t *p, int len) {
     return 0;
 }
 
+/* After the scan, a segment of marker m at p that the end of the data
+ * cuts: 1 (with the message) when libjpeg, which reads a segment as it
+ * goes, fails on the bytes there are before it would wait for more
+ * (jdmarker.c get_sof, get_sos, get_dht, get_dqt, get_dri, get_dac). */
+static int cut_segment_fails(Jpeg *j, int m, const uint8_t *p) {
+    const uint8_t *end = j->end;
+    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) return fail(j, "two frame headers");
+    if (p + 2 > end) return 0;
+    const int len = (p[0] << 8) | p[1];
+    switch (m) {
+    case 0xDA: /* its length checked against its component count */
+        return p + 3 <= end && (len != 2 * p[2] + 6 || p[2] < 1 || p[2] > 4) ? fail(j, "bad SOS segment") : 0;
+    case 0xDD:
+        return len != 4 ? fail(j, "bad DRI segment") : 0;
+    case 0xDB:
+        return p + 3 <= end && (p[2] & 15) > 3 ? fail(j, "bad quantization table") : 0;
+    case 0xCC:
+        for (const uint8_t *q = p + 2; q + 2 <= end && q + 2 <= p + len; q += 2) {
+            if (q[0] >= 32 || (q[0] < 16 && (q[1] & 15) > (q[1] >> 4))) return fail(j, "bad DAC segment");
+        }
+        return 0;
+    case 0xC4:
+        for (const uint8_t *q = p + 2; q + 17 <= end && p + len - q > 16; ) {
+            int count = 0;
+            for (int i = 1; i <= 16; i++) count += q[i];
+            if (count > 256 || count > p + len - q - 17) return fail(j, "bad Huffman table");
+            if (q + 17 + count > end) return 0; /* its values cut: libjpeg waits */
+            if ((q[0] & ~0x10) > 3) return fail(j, "bad Huffman table");
+            q += 17 + count;
+        }
+        return 0;
+    default:
+        return 0;
+    }
+}
+
 /* Walk the markers up to the next SOS (*pos <- its segment): tables,
- * restart interval, frame header, JFIF and Adobe markers. At EOI, *eoi <- 1
- * when eoi is given, else it is an error. */
+ * restart interval, frame header, JFIF and Adobe markers, as jdmarker.c
+ * read_markers takes them (a second SOI or frame header, a DRI segment not
+ * 4 bytes long and the reserved markers are errors). At EOI, *eoi <- 1 when
+ * eoi is given, else it is an error. After the one scan of a sequential
+ * file (j->tail), where PIL's jpeg_finish_decompress reads on to EOI, the
+ * end of the data, even inside a segment, ends the walk as EOI does (libjpeg
+ * waits for more data, and PIL, its rows out, stops), and SOS is an error. */
 static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
     const uint8_t *p = *pos;
     char msg[160];
     for (;;) {
         p = next_marker(p, j->end); /* junk between segments is skipped */
+        if (p >= j->end && j->tail) {
+            *eoi = 1;
+            return 0;
+        }
         if (p >= j->end) return fail(j, "no SOS marker before the end of the data");
         while (*p == 0xFF) p++;
         const int m = *p++;
         int len = 0;
-        if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+        if (m == 0xD8) return fail(j, "a second SOI marker");
+        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
         if (m == 0xD9) {
             if (!eoi) return fail(j, "EOI before a scan of every component");
             *eoi = 1;
             *pos = p;
+            return 0;
+        }
+        if (m < 0xC0 || m == 0xC8 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD)) {
+            snprintf(msg, sizeof msg, "unexpected marker 0xFF%02X", m); /* reserved: libjpeg stops at once */
+            return fail(j, msg);
+        }
+        if (j->tail && (p + 2 > j->end || p + ((p[0] << 8) | p[1]) > j->end)) {
+            if (cut_segment_fails(j, m, p)) return 1;
+            *eoi = 1; /* libjpeg waits for the rest of the segment */
             return 0;
         }
         if (seg_len(j, p, &len)) return 1;
@@ -382,11 +457,12 @@ static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
             if (read_dqt(j, p, len)) return 1;
             break;
         case 0xDD:
-            if (len < 4) return fail(j, "bad DRI segment");
+            if (len != 4) return fail(j, "bad DRI segment");
             j->restart = (p[2] << 8) | p[3];
             break;
         case 0xDC:
-            return fail(j, "DNL marker (not read)");
+            if (!j->tail) return fail(j, "DNL marker (not read)");
+            break;
         case 0xE0:
             /* jdmarker.c examine_app0: a JFIF marker has 14 bytes of data */
             if (len >= 16 && memcmp(p + 2, "JFIF\0", 5) == 0) j->jfif = 1;
@@ -399,14 +475,11 @@ static int read_markers(Jpeg *j, const uint8_t **pos, int *eoi) {
             }
             break;
         case 0xDA:
+            if (j->tail) return fail(j, "a second scan where EOI was expected");
             *pos = p;
             return 0;
         default:
-            if (m < 0xC0) {
-                snprintf(msg, sizeof msg, "unexpected marker 0xFF%02X", m);
-                return fail(j, msg);
-            }
-            break; /* APPn, COM and others: skipped */
+            break; /* APPn and COM: skipped */
         }
         p += len;
     }
@@ -430,24 +503,41 @@ static int check_frame(Jpeg *j) {
 /* JPEG: entropy decoding                                                    */
 /* ------------------------------------------------------------------------ */
 
+#define TRUNCATED "image file is truncated (the data ends inside a scan)"
+
+/* The entropy-coded bytes of a segment end at a marker (marker 1; p stays
+ * on its first FF) or, in a cut file, at the end of the data (marker 2).
+ * From there fill feeds zero bits, counted in zeros: a read took bits past
+ * the segment's data once nbits < zeros, which libjpeg-turbo calls
+ * insufficient data (jdhuff.c jpeg_fill_bit_buffer). FF bytes followed by
+ * 00 are one FF data byte, however many FFs come first, as libjpeg reads
+ * them. */
 typedef struct {
     const uint8_t *p, *end;
     uint64_t acc;   /* bits left-aligned */
     int nbits;
-    int marker;     /* a marker was met: zeros are fed from here on */
+    int marker;     /* 1: a marker was met; 2: the data ended */
+    int zeros;      /* zero bits fed after the marker or the end */
 } Bits;
 
 static void fill(Bits *b) {
     while (b->nbits <= 56) {
         int c = 0;
-        if (!b->marker && b->p < b->end) {
+        if (b->marker) {
+            b->zeros += 8;
+        } else if (b->p >= b->end) {
+            b->marker = 2;
+            b->zeros += 8;
+        } else {
             c = *b->p;
             if (c == 0xFF) {
-                const int n = b->p + 1 < b->end ? b->p[1] : 0xD9;
-                if (n == 0x00) {
-                    b->p += 2;
+                const uint8_t *q = b->p + 1;
+                while (q < b->end && *q == 0xFF) q++;
+                if (q < b->end && *q == 0x00) {
+                    b->p = q + 1;
                 } else {
-                    b->marker = 1; /* p stays on the marker */
+                    b->marker = q < b->end ? 1 : 2; /* p stays on the marker */
+                    b->zeros += 8;
                     c = 0;
                 }
             } else {
@@ -484,9 +574,11 @@ static inline int decode_huff(Bits *b, const Huff *t) {
     int code = (int)(b->acc >> (64 - 10));
     for (len = 10; len <= 16 && code > t->maxcode[len]; len++) code = (int)(b->acc >> (64 - len - 1));
     if (len > 16) {
-        /* a code no table holds: corrupt data; libjpeg warns and yields 0 */
-        b->acc <<= 16;
-        b->nbits -= 16;
+        /* a code no table holds: corrupt data; libjpeg reads a 17th bit,
+         * warns and yields 0 (jdhuff.c jpeg_huff_decode) */
+        if (b->nbits < 17) fill(b);
+        b->acc <<= 17;
+        b->nbits -= 17;
         return 0;
     }
     b->acc <<= len;
@@ -863,7 +955,9 @@ static void ac_refine(Jpeg *j, Bits *b, const Huff *ac, int16_t *blk, int ss, in
  * (not a valid one) or one of the two restarts before n is skipped for the
  * marker after it; one of the two restarts after n, or any marker not a
  * restart, is left unread (*unread <- 1: the interval reads as zeros); any
- * other restart is consumed. *rst <- n + 1 mod 8. Returns the position. */
+ * other restart is consumed. *rst <- n + 1 mod 8. Returns the position, or
+ * NULL when the data ends before a marker settles it: libjpeg's
+ * next_marker then waits for data that never comes, and PIL raises. */
 static const uint8_t *read_restart(const uint8_t *p, const uint8_t *end, int *rst, int *unread) {
     const int n = *rst;
     *rst = (n + 1) & 7;
@@ -876,17 +970,27 @@ static const uint8_t *read_restart(const uint8_t *p, const uint8_t *end, int *rs
             *unread = 0;
             return q + 1;
         }
-        if (!(m < 0xC0 || rn == 6 || rn == 7)) break; /* rn 1, 2, or not a restart: left unread */
+        if (!(m < 0xC0 || rn == 6 || rn == 7)) { /* rn 1, 2, or not a restart: left unread */
+            *unread = 1;
+            return p;
+        }
         p = q + 1;
     }
-    *unread = 1;
-    return p;
+    return NULL;
 }
 
-static void restart(Bits *b, int *rst) {
+/* jdhuff.c / jdphuff.c process_restart: the bits left are dropped, the
+ * marker read, the scan's DC predictions and end-of-band run reset; 1
+ * (with the message) when the data ends first. */
+static int restart(Jpeg *j, Bits *b, int *rst, Comp *const *sc, int ns) {
     b->acc = 0;
     b->nbits = 0;
+    b->zeros = 0;
     b->p = read_restart(b->p, b->end, rst, &b->marker);
+    if (b->p == NULL) return fail(j, TRUNCATED);
+    for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+    j->eobrun = 0;
+    return 0;
 }
 
 /* The SOS segment at p: a scan's components, spectral band and bit
@@ -924,6 +1028,7 @@ static int scan_header(Jpeg *j, const uint8_t *p, Scan *s) {
     const int need_dc = !j->arith && (!j->progressive || (ss == 0 && ah == 0));
     const int need_ac = !j->arith && (!j->progressive || ss > 0);
     int blocks = 0;
+    j->scans++;
     for (int i = 0; i < ns; i++) {
         const int id = p[3 + 2 * i], tables = p[4 + 2 * i];
         s->sc[i] = NULL;
@@ -938,6 +1043,10 @@ static int scan_header(Jpeg *j, const uint8_t *p, Scan *s) {
             (k->td > 3 || k->ta > 3 || (need_dc && !j->dc[k->td].defined) || (need_ac && !j->ac[k->ta].defined))) {
             return fail(j, "SOS uses an undefined Huffman table");
         }
+        if ((need_dc && !j->dc[k->td].built && build_huff(j, &j->dc[k->td], 1)) ||
+            (need_ac && !j->ac[k->ta].built && build_huff(j, &j->ac[k->ta], 0))) {
+            return 1;
+        }
         if (!k->latched) {
             /* jdinput.c latch_quant_tables: a component keeps the table
              * it had at its first scan */
@@ -950,6 +1059,9 @@ static int scan_header(Jpeg *j, const uint8_t *p, Scan *s) {
         k->ctx = 0;
         blocks += k->h * k->v;
         if (j->progressive) {
+            /* jdphuff.c / jdarith.c start_pass: the record before this
+             * scan, which smoothing takes for rows the scan left unread */
+            for (int c = ss < 1 ? ss : 1; c < 10; c++) k->prev_bits[c] = j->scans > 1 ? k->coef_bits[c] : 0;
             for (int c = ss; c <= se; c++) k->coef_bits[c] = al;
         }
     }
@@ -975,55 +1087,327 @@ static int scan_header(Jpeg *j, const uint8_t *p, Scan *s) {
     return 0;
 }
 
+/* ------------------------------------------------------------------------ */
+/* JPEG: damaged and cut-off Huffman scans                                   */
+/* ------------------------------------------------------------------------ */
+
+/* The iMCU row (8 * the largest declared vertical factor pixel rows) of
+ * the scan's MCU m: an interleaved scan's MCU row, or a one-component
+ * scan's block row over that component's declared vertical factor. */
+static int64_t imcu_row(const Scan *s, int64_t m) {
+    return m / s->mcux / (s->ns == 1 ? s->sc[0]->sv : 1);
+}
+
+/* MCUs m0 .. m0 + n - 1 of a sequential scan, which libjpeg leaves zero
+ * once its data has run out: every sample 128. */
+static void gray_mcus(const Scan *s, int64_t m0, int64_t n) {
+    for (int64_t m = m0; m < m0 + n; m++) {
+        const int64_t mx = m % s->mcux, my = m / s->mcux;
+        for (int i = 0; i < s->ns; i++) {
+            const Comp *k = s->sc[i];
+            const int nh = s->ns == 1 ? 1 : k->h, nv = s->ns == 1 ? 1 : k->v, stride = k->bw * 8;
+            for (int v = 0; v < nv; v++) {
+                for (int h = 0; h < nh; h++) {
+                    uint8_t *o = k->plane + ((my * nv + v) * 8) * (int64_t)stride + (mx * nh + h) * 8;
+                    for (int r = 0; r < 8; r++) memset(o + (int64_t)r * stride, 128, 8);
+                }
+            }
+        }
+    }
+}
+
+/* libjpeg-turbo's Huffman bit reader as PIL feeds it, counting bits only:
+ * jdhuff.c's jpeg_fill_bit_buffer (it reads until 57 bits are held, or a
+ * marker), decode_mcu_slow (it fills when a code's first 8 bits are not
+ * held, and then for each bit it lacks), decode_mcu_fast (while 512 bytes
+ * per block remain and no restart interval is set: 6 bytes when 16 bits or
+ * fewer are held; an MCU that meets a marker is read again slowly) and
+ * process_restart. PIL reads the file in 64 KiB blocks; libjpeg suspends
+ * when it wants a byte past those read, and reads the MCU again with the
+ * next block. At the file's end PIL raises "image file is truncated". */
+#define PIL_BLOCK 65536
+
+typedef struct {
+    const uint8_t *p, *avail;  /* the next byte; the end of what PIL has read */
+    uint64_t buf;
+    int left;                  /* bits held */
+    int marker;                /* a marker was met (p on it) */
+    int insufficient;          /* a bit past it was read: MCUs are skipped */
+} Lj;
+
+/* 1 when libjpeg suspends */
+static int lj_fill(Lj *w, int nbits) {
+    while (!w->marker && w->left < 57) {
+        if (w->p >= w->avail) return 1;
+        const uint8_t *q = w->p;
+        int c = *q++;
+        if (c == 0xFF) {
+            do {
+                if (q >= w->avail) return 1;
+                c = *q++;
+            } while (c == 0xFF);
+            if (c) {
+                w->marker = 1;
+                break;
+            }
+            c = 0xFF;
+        }
+        w->p = q;
+        w->buf = (w->buf << 8) | (uint64_t)c;
+        w->left += 8;
+    }
+    if (w->marker && nbits > w->left) {
+        w->insufficient = 1;
+        w->buf <<= 57 - w->left;
+        w->left = 57;
+    }
+    return 0;
+}
+
+static int lj_bits(Lj *w, int n) {
+    if (w->left < n && lj_fill(w, n)) return 1;
+    w->left -= n;
+    return 0;
+}
+
+/* A Huffman code (HUFF_DECODE, jpeg_huff_decode); *sym <- its value. */
+static int lj_huff(Lj *w, const Huff *t, int *sym) {
+    int len = 1, code;
+    if (w->left < 8 && lj_fill(w, 0)) return 1;
+    if (w->left >= 8) {
+        const int look = (int)(w->buf >> (w->left - 8)) & 0xFF;
+        for (; len <= 8; len++) {
+            if ((look >> (8 - len)) <= t->maxcode[len]) {
+                w->left -= len;
+                *sym = t->vals[t->valptr[len] + (look >> (8 - len)) - t->mincode[len]];
+                return 0;
+            }
+        }
+    }
+    if (lj_bits(w, len)) return 1;
+    code = (int)(w->buf >> w->left) & ((1 << len) - 1);
+    while (code > t->maxcode[len]) {
+        if (lj_bits(w, 1)) return 1;
+        code = (code << 1) | (int)((w->buf >> w->left) & 1);
+        len++;
+    }
+    *sym = len > 16 ? 0 : t->vals[t->valptr[len] + code - t->mincode[len]];
+    return 0;
+}
+
+static int lj_mcu_slow(Lj *w, const Huff *const *dc, const Huff *const *ac, int nblk) {
+    for (int i = 0; i < nblk; i++) {
+        int s;
+        if (lj_huff(w, dc[i], &s) || (s && lj_bits(w, s))) return 1;
+        for (int k = 1; k < 64; k++) {
+            if (lj_huff(w, ac[i], &s)) return 1;
+            if (s & 15) {
+                k += s >> 4;
+                if (lj_bits(w, s & 15)) return 1;
+            } else if (s >> 4 == 15) {
+                k += 15;
+            } else {
+                break;
+            }
+        }
+    }
+    return 0;
+}
+
+static void lj_fill_fast(Lj *w) {
+    if (w->left > 16) return;
+    for (int i = 0; i < 6; i++) { /* GET_BYTE: at a marker, zeros and p kept on it */
+        const int c0 = w->p[0], c1 = w->p[1];
+        w->p++;
+        w->buf = (w->buf << 8) | (uint64_t)c0;
+        w->left += 8;
+        if (c0 == 0xFF) {
+            w->p++;
+            if (c1) {
+                w->marker = 1;
+                w->p -= 2;
+                w->buf &= ~(uint64_t)0xFF;
+            }
+        }
+    }
+}
+
+static int lj_huff_fast(Lj *w, const Huff *t) {
+    lj_fill_fast(w);
+    const int look = (int)(w->buf >> (w->left - 8)) & 0xFF;
+    for (int len = 1; len <= 8; len++) {
+        if ((look >> (8 - len)) <= t->maxcode[len]) {
+            w->left -= len;
+            return t->vals[t->valptr[len] + (look >> (8 - len)) - t->mincode[len]];
+        }
+    }
+    int len = 9;
+    w->left -= len;
+    int code = (int)(w->buf >> w->left) & 511;
+    while (code > t->maxcode[len]) {
+        w->left--;
+        code = (code << 1) | (int)((w->buf >> w->left) & 1);
+        len++;
+    }
+    return len > 16 ? 0 : t->vals[t->valptr[len] + code - t->mincode[len]];
+}
+
+/* 0 when the MCU met a marker (it is then read again slowly) */
+static int lj_mcu_fast(Lj *w, const Huff *const *dc, const Huff *const *ac, int nblk) {
+    for (int i = 0; i < nblk; i++) {
+        int s = lj_huff_fast(w, dc[i]);
+        if (s) {
+            lj_fill_fast(w);
+            w->left -= s;
+        }
+        for (int k = 1; k < 64; k++) {
+            s = lj_huff_fast(w, ac[i]);
+            if (s & 15) {
+                k += s >> 4;
+                lj_fill_fast(w);
+                w->left -= s & 15;
+            } else if (s >> 4 == 15) {
+                k += 15;
+            } else {
+                break;
+            }
+        }
+    }
+    return !w->marker;
+}
+
+/* 1 when libjpeg, fed the file as PIL feeds it, suspends at its end before
+ * the last MCU of the sequential scan s: then PIL raises. */
+static int huff_suspends(const Jpeg *j, const Scan *s) {
+    const Huff *dc[10], *ac[10];
+    int nblk = 0;
+    for (int i = 0; i < s->ns; i++) {
+        const Comp *k = s->sc[i];
+        const int n = s->ns == 1 ? 1 : k->h * k->v;
+        for (int b = 0; b < n; b++, nblk++) {
+            dc[nblk] = &j->dc[k->td];
+            ac[nblk] = &j->ac[k->ta];
+        }
+    }
+    const int64_t size = j->end - j->data;
+    Lj st = {s->data, j->data + (size < PIL_BLOCK ? size : PIL_BLOCK), 0, 0, 0, 0};
+    int todo = j->restart, rst = 0;
+    for (int64_t m = 0; m < s->mcus;) {
+        Lj w = st;
+        int left_todo = todo, next_rst = rst, susp = 0, fast = !j->restart;
+        if (j->restart && left_todo == 0) {
+            w.left = 0;
+            w.p = read_restart(w.p, w.avail, &next_rst, &w.marker);
+            susp = w.p == NULL;
+            if (!w.marker) w.insufficient = 0;
+            left_todo = j->restart;
+        }
+        if (!susp && !w.insufficient) {
+            Lj f = w;
+            if (fast && w.avail - w.p >= 512 * nblk && !w.marker && lj_mcu_fast(&f, dc, ac, nblk))
+                w = f;
+            else
+                susp = lj_mcu_slow(&w, dc, ac, nblk);
+        }
+        if (susp) {
+            if (st.avail == j->end) return 1;
+            st.avail = j->end - st.avail > PIL_BLOCK ? st.avail + PIL_BLOCK : j->end;
+            continue; /* the same MCU with the next block read */
+        }
+        st = w;
+        todo = left_todo - (j->restart != 0);
+        rst = next_rst;
+        m++;
+    }
+    return 0;
+}
+
+/* MCU m of the Huffman scan s: sequential blocks through the IDCT into
+ * each component's plane, progressive ones into its coefficients. */
+static inline void huff_mcu(Jpeg *j, Bits *b, const Scan *s, Comp *const *sc, int64_t m) {
+    const int ns = s->ns, ss = s->ss, se = s->se, ah = s->ah, al = s->al;
+    const int mx = (int)(m % s->mcux), my = (int)(m / s->mcux);
+    for (int i = 0; i < ns; i++) {
+        Comp *k = sc[i];
+        const Huff *dc = &j->dc[k->td], *ac = &j->ac[k->ta];
+        if (!j->progressive) {
+            if (ns == 1) {
+                decode_block(b, k, dc, ac, mx, my);
+                continue;
+            }
+            for (int v = 0; v < k->v; v++) {
+                for (int h = 0; h < k->h; h++) decode_block(b, k, dc, ac, mx * k->h + h, my * k->v + v);
+            }
+            continue;
+        }
+        const int nh = ns == 1 ? 1 : k->h, nv = ns == 1 ? 1 : k->v;
+        for (int v = 0; v < nv; v++) {
+            for (int h = 0; h < nh; h++) {
+                int16_t *blk = k->coef + ((int64_t)(my * nv + v) * k->bw + mx * nh + h) * 64;
+                if (ss > 0)
+                    (ah ? ac_refine : ac_first)(j, b, ac, blk, ss, se, al);
+                else if (ah)
+                    dc_refine(b, blk, al);
+                else
+                    dc_first(b, k, dc, blk, al);
+            }
+        }
+    }
+}
+
 /* One Huffman scan starting at the SOS segment p; *pos <- the first byte
- * after its entropy-coded data. Sequential scans go through the IDCT into
- * each component's plane block by block; progressive ones into its
- * coefficients. */
+ * after its entropy-coded data. Past its data (at a marker, or the end of
+ * a cut file) the scan follows libjpeg-turbo (jdhuff.c, jdphuff.c): the
+ * MCU in which a bit past the data is read is decoded with zero bits, and
+ * the MCUs after it are skipped up to the next restart that reads its
+ * marker (sequential blocks stay zero: samples 128; progressive
+ * coefficients keep what earlier scans gave; the end-of-band run stands).
+ * A cut file (no marker after the data) raises as PIL does when libjpeg
+ * would wait for more data: when a bit past the end is read, at a restart
+ * with no marker after it, or when its bit reader, which reads up to 8
+ * bytes ahead, reaches the end before the last MCU (huff_suspends); a
+ * progressive file, or a sequential file of several scans, also when no
+ * EOI follows (jpeg_decode). An intact MCU costs one test of b.marker,
+ * which is set at most once per restart interval (two loops, a fast one
+ * with no test but its bound, tied with it on the card: PERF.md, PR 17). */
 static int decode_scan(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
     Scan s;
     if (scan_header(j, p, &s)) return 1;
-    const int ns = s.ns, ss = s.ss, se = s.se, ah = s.ah, al = s.al;
     Comp *const sc[3] = {s.sc[0], s.sc[1], s.sc[2]}; /* a local copy: no store aliases it */
-    const int64_t mcus = s.mcus, mcux = s.mcux;
-    Bits b = {s.data, j->end, 0, 0, 0};
+    const int ns = s.ns;
+    const int64_t mcus = s.mcus;
+    Bits b = {s.data, j->end, 0, 0, 0, 0};
     j->eobrun = 0;
     int todo = j->restart, rst = 0;
+    int skipping = 0; /* libjpeg's insufficient_data */
     for (int64_t m = 0; m < mcus; m++) {
         if (j->restart && todo == 0) {
-            restart(&b, &rst);
-            for (int i = 0; i < ns; i++) sc[i]->pred = 0;
-            j->eobrun = 0;
+            if (restart(j, &b, &rst, sc, ns)) return 1;
             todo = j->restart;
-        }
-        const int mx = (int)(m % mcux), my = (int)(m / mcux);
-        for (int i = 0; i < ns; i++) {
-            Comp *k = sc[i];
-            const Huff *dc = &j->dc[k->td], *ac = &j->ac[k->ta];
-            if (!j->progressive) {
-                if (ns == 1) {
-                    decode_block(&b, k, dc, ac, mx, my);
-                    continue;
-                }
-                for (int v = 0; v < k->v; v++) {
-                    for (int h = 0; h < k->h; h++) decode_block(&b, k, dc, ac, mx * k->h + h, my * k->v + v);
-                }
+            if (skipping && b.marker) {
+                /* the marker left unread keeps the interval skipped */
+                const int64_t n = todo < mcus - m ? todo : mcus - m;
+                if (!j->progressive) gray_mcus(&s, m, n);
+                m += n - 1;
+                todo = 0;
                 continue;
             }
-            const int nh = ns == 1 ? 1 : k->h, nv = ns == 1 ? 1 : k->v;
-            for (int v = 0; v < nv; v++) {
-                for (int h = 0; h < nh; h++) {
-                    int16_t *blk = k->coef + ((int64_t)(my * nv + v) * k->bw + mx * nh + h) * 64;
-                    if (ss > 0)
-                        (ah ? ac_refine : ac_first)(j, &b, ac, blk, ss, se, al);
-                    else if (ah)
-                        dc_refine(&b, blk, al);
-                    else
-                        dc_first(&b, k, dc, blk, al);
-                }
-            }
+            skipping = 0;
         }
+        huff_mcu(j, &b, &s, sc, m);
         todo--;
+        if (b.marker && b.nbits < b.zeros) { /* MCU m read past the data */
+            if (b.marker == 2) return fail(j, TRUNCATED);
+            j->last_good = imcu_row(&s, m);
+            const int64_t left = mcus - m - 1, n = j->restart && todo < left ? todo : left;
+            if (!j->progressive) gray_mcus(&s, m + 1, n);
+            m += n;
+            todo -= (int)n;
+            skipping = 1;
+        }
     }
+    if (!skipping) j->last_good = imcu_row(&s, mcus - 1);
+    if (b.marker == 2 && !j->progressive && huff_suspends(j, &s)) return fail(j, TRUNCATED);
     /* the bits left of a partly read byte are dropped */
     *pos = next_marker(b.p, j->end);
     return 0;
@@ -1072,27 +1456,30 @@ static const uint32_t ARITAB[114] = {
 /* The decoder registers: C (the code value and its input bits), A (the
  * interval), ct (bits left in C's input byte; -16 before the first two
  * bytes, -1 after a bad code: the rest of the scan, up to a restart, is not
- * read). After a marker the input is zeros. */
+ * read). After a marker the input is zeros. jdarith.c reads a byte only when
+ * it needs one and cannot wait for more data: a byte wanted past the end of
+ * a cut file (ran_out) is an error, and PIL raises. */
 typedef struct {
     const uint8_t *p, *end;
     int64_t c, a;
     int ct;
     int marker;     /* a marker was met: p stays on it */
+    int ran_out;    /* a byte was wanted past the end of the data */
 } Arith;
 
 static int arith_byte(Arith *e) {
-    if (e->marker || e->p >= e->end) {
-        e->marker = 1;
+    if (e->marker) return 0;
+    const uint8_t *q = e->p;
+    while (q < e->end && *q == 0xFF) q++; /* extra FF bytes are swallowed */
+    if (q >= e->end) {
+        e->ran_out = 1;
         return 0;
     }
-    const int d = *e->p;
-    if (d != 0xFF) {
+    if (q == e->p) {
         e->p++;
-        return d;
+        return *q;
     }
-    const uint8_t *q = e->p + 1;
-    while (q < e->end && *q == 0xFF) q++; /* extra FF bytes are swallowed */
-    if (q < e->end && *q == 0) {
+    if (*q == 0) {
         e->p = q + 1;
         return 0xFF; /* a stuffed zero */
     }
@@ -1143,11 +1530,12 @@ static int arith_decode(Arith *e, uint8_t *st) {
 
 /* jdarith.c process_restart: past the restart marker (read_restart); the
  * registers start over. */
-static void arith_restart(Arith *e, int *rst) {
+static int arith_restart(Arith *e, int *rst) {
     e->p = read_restart(e->p, e->end, rst, &e->marker);
     e->c = 0;
     e->a = 0;
     e->ct = -16;
+    return e->p == NULL;
 }
 
 /* A DC difference (F.1.4.4.1, Figures F.19-F.24), k->ctx updated; on a
@@ -1279,12 +1667,12 @@ static int decode_scan_arith(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
     if (scan_header(j, p, &s)) return 1;
     const int ns = s.ns, ss = s.ss, se = s.se, ah = s.ah, al = s.al;
     arith_reset(j, &s);
-    Arith e = {s.data, j->end, 0, 0, -16, 0};
+    Arith e = {s.data, j->end, 0, 0, -16, 0, 0};
     int todo = j->restart, rst = 0;
     int16_t coef[64];
     for (int64_t m = 0; m < s.mcus; m++) {
         if (j->restart && todo == 0) {
-            arith_restart(&e, &rst);
+            if (arith_restart(&e, &rst)) return fail(j, TRUNCATED);
             arith_reset(j, &s);
             todo = j->restart;
         }
@@ -1330,6 +1718,8 @@ static int decode_scan_arith(Jpeg *j, const uint8_t *p, const uint8_t **pos) {
             }
         }
     }
+    if (e.ran_out) return fail(j, TRUNCATED);
+    j->last_good = imcu_row(&s, s.mcus - 1); /* jdarith.c reads past a marker as zeros, skipping nothing */
     *pos = next_marker(e.p, j->end);
     return 0;
 }
@@ -1371,9 +1761,11 @@ static int16_t estimate(int64_t num, int64_t q, int al) {
  * neighbours; the rows follow libjpeg-turbo's iMCU-row arithmetic, whose
  * last iMCU row counts only its own block rows. */
 static void idct_smoothed(const Jpeg *j, const Comp *k) {
-    const int *cb = k->coef_bits;
-    int change_dc = 1;
-    for (int i = 1; i < 10; i++) change_dc &= cb[i] == -1;
+    /* rows past the last one a scan ended with its data intact take the
+     * record from before the component's latest scan (jdcoefct.c: the
+     * previous scan's latch; none after a single scan) */
+    static const int none[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+    const int *const prev = j->scans > 1 ? k->prev_bits : none;
     const uint16_t *q = k->q;
     const int64_t q00 = q[0], q01 = q[1], q10 = q[8], q20 = q[16], q11 = q[9], q02 = q[2];
     const int64_t q03 = q[3], q12 = q[10], q21 = q[17], q30 = q[24];
@@ -1382,6 +1774,9 @@ static void idct_smoothed(const Jpeg *j, const Comp *k) {
     int16_t w[64];
     int d[26];
     for (int r = 0; r < imcu_rows; r++) {
+        const int *cb = r > j->last_good ? prev : k->coef_bits;
+        int change_dc = 1;
+        for (int i = 1; i < 10; i++) change_dc &= cb[i] == -1;
         int block_rows = sv;
         if (r == imcu_rows - 1 && nby % sv) block_rows = nby % sv;
         const int image_rows = block_rows * imcu_rows;
@@ -1634,14 +2029,20 @@ int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out, char *err, int64_t
             goto done;
         }
     }
-    /* sequential: until every component had its scan; progressive: every
-     * scan up to EOI */
+    /* a sequential file of one scan: that scan (libjpeg decodes it as it
+     * reads, and PIL stops once the last row is out); a progressive file,
+     * or a sequential one of several scans, which libjpeg reads whole before
+     * the first row: every scan up to EOI, without which PIL raises */
     for (;;) {
         if ((rc = (j.arith ? decode_scan_arith : decode_scan)(&j, p, &p))) goto done;
         int more = 0, eoi = 0;
         for (int c = 0; c < j.ncomp; c++) more |= !j.comp[c].seen;
-        if (!more && !j.progressive) break;
-        if ((rc = read_markers(&j, &p, j.progressive ? &eoi : NULL))) goto done;
+        if (!more && !j.progressive && j.scans == 1) {
+            j.tail = 1;
+            if ((rc = read_markers(&j, &p, &eoi))) goto done;
+            break;
+        }
+        if ((rc = read_markers(&j, &p, j.progressive || !more ? &eoi : NULL))) goto done;
         if (eoi) break;
     }
     if (j.progressive) idct_coefficients(&j);

@@ -6,7 +6,9 @@ decodes them):
 Each image is made from a seed: smooth shading, hard-edged ellipses, a
 sinusoidal texture and noise, so that every band of the DCT carries data.
 The two files libjpeg wrote (``libjpeg_arith.c``) are kept as committed;
-only their manifest entries are rewritten.
+only their manifest entries are rewritten. Each fixture's damaged copies
+(``damaged``) are decoded by PIL too: their outcomes are the entry's
+``damaged`` record.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ import json
 
 import numpy as np
 
-from topo4d_tpu_torch.fixtures import DENSE, DENSE_PROGRESSIVE, MANIFEST, path, sha256
+from topo4d_tpu_torch.fixtures import (DAMAGED, DENSE, DENSE_PROGRESSIVE, MANIFEST, PNG8, damaged,
+                                       damaged_outcome, path, sha256)
 from topo4d_tpu_torch.fixtures.jpeg_writer import encode_baseline, encode_scans
 from topo4d_tpu_torch.fixtures.png_writer import encode_png_any
+from topo4d_tpu_torch.utils.png import encode_png
 
 SAMPLING_420 = [[2, 2], [1, 1], [1, 1]]
 
@@ -48,6 +52,7 @@ FIXTURES = {
     "view_127x93_rgb16_adam7.png": (
         93, 127, False, 10, {"writer": "encode_png_any", "depth": 16, "color_type": 2, "interlace": True}
     ),
+    PNG8: (93, 127, False, 19, {"writer": "encode_png"}),
     "libjpeg_61x43_q85_420_arith.jpg": (43, 61, False, 11, {"writer": "libjpeg_arith.c", "progressive": 0}),
     "libjpeg_61x43_q85_420_arith_progressive.jpg": (43, 61, False, 12, {"writer": "libjpeg_arith.c", "progressive": 1}),
     "view_517x389_q75_422_arith.jpg": (
@@ -132,6 +137,8 @@ def encode(img: np.ndarray, save: dict, seed: int) -> bytes:
     if writer == "encode_baseline":
         return encode_baseline(img, sampling=[tuple(f) for f in save["sampling"]], quality=save["quality"],
                                restart=save.get("restart", 0))
+    if writer == "encode_png":
+        return encode_png(img)
     if writer == "encode_png_any":
         # 16-bit samples whose low bytes carry noise: PIL keeps the high bytes
         low = np.random.default_rng(seed).integers(0, 256, img.shape)
@@ -149,6 +156,18 @@ def encode(img: np.ndarray, save: dict, seed: int) -> bytes:
     return data if transform is None else splice_adobe(data, transform)
 
 
+def pil_decode(data: bytes):
+    """``np.asarray(PIL.Image.open(...))`` of the bytes, or None where PIL
+    raises (any of its errors: OSError, SyntaxError, ValueError, ...)."""
+    from PIL import Image
+
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im)
+    except Exception:
+        return None
+
+
 def main() -> None:
     from PIL import Image
 
@@ -160,6 +179,8 @@ def main() -> None:
         with Image.open(path(name)) as im:
             pixels = np.asarray(im)
         out[name] = {"shape": list(pixels.shape), "sha256": sha256(pixels), "save": save}
+        if name in DAMAGED:
+            out[name]["damaged"] = {case: damaged_outcome(pil_decode(damaged(name, case))) for case in DAMAGED[name]}
     with open(MANIFEST, "w") as fh:
         json.dump(out, fh, indent=1)
         fh.write("\n")

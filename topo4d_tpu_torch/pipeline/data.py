@@ -95,7 +95,12 @@ def read_image(path: str) -> np.ndarray:
     libjpeg-turbo smooths them). What PIL fails on raises ``ValueError``
     naming the file (lossless, hierarchical, 12-bit, two-component, DNL-sized
     frames, more than 10 blocks per MCU, fractional sampling, bad DAC
-    segments), and so does CMYK, which PIL reads as four channels."""
+    segments), and so does CMYK, which PIL reads as four channels. Damaged
+    and cut-off files read as PIL reads them, or raise where it raises
+    ("image file is truncated" and the rest): a JPEG's damaged scans as
+    libjpeg-turbo reads them, gray past their data (``utils/jpeg.py``); a
+    PNG's chunks as PIL's plugin reads them, its image data inflated only as
+    far as the image needs (``utils/png.py`` ``decode_png``)."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data.startswith(SIGNATURE):

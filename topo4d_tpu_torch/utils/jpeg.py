@@ -16,6 +16,26 @@ segments, on which PIL fails too, and CMYK/YCCK (4 components, which PIL
 reads as four channels) raise ``ValueError``, naming the file. Unlike PIL,
 which reads a file in 64 KiB blocks that libjpeg's arithmetic decoder
 cannot wait on, it reads arithmetic-coded files of any size.
+
+Damaged and cut-off files read, or raise, as PIL reads them:
+
+- Huffman scans past their data (a marker, or the end of a cut file): the
+  MCU that reads past it is decoded with zero bits, the MCUs after it are
+  skipped up to the next restart that reads its marker (sequential blocks
+  gray, progressive coefficients as earlier scans left them), and a
+  progressive file smooths the rows past the last MCU its final scan decoded with
+  the record from before that scan;
+- a cut file raises where libjpeg, fed PIL's 64 KiB reads, would wait for
+  data that never comes before its last row is out: a bit read past the
+  end, a restart with no marker after it, its bit reader's look-ahead (up
+  to 8 bytes) reaching the end before the last MCU, an arithmetic decoder
+  wanting a byte past the end; a progressive file, or a sequential one of
+  several scans, also without EOI;
+- after a sequential file's one scan, the markers up to EOI (or the end)
+  are read as PIL's ``jpeg_finish_decompress`` reads them: a reserved
+  marker, a second frame header or scan, or a bad table raises;
+- a code no Huffman table holds takes 17 bits (libjpeg's
+  ``jpeg_huff_decode``), and a table is checked when a scan first uses it.
 """
 
 from __future__ import annotations

@@ -30,7 +30,10 @@ Filtered rows are undone by ``png_unfilter`` of ``csrc/imgdec.c``
 8 bits), which holds no interpreter lock; ``unfilter_plain`` is its NumPy
 mirror, for the tests. Sub-byte samples are unpacked after the unfilter.
 An interlaced image is seven filtered passes, each unfiltered alone and
-scattered into place.
+scattered into place. Damaged and cut-off files read, or raise, as PIL's
+plugin reads them (``decode_png``): CRCs are checked only before the image
+data, which is the first run of IDAT chunks, inflated only as far as the
+image needs.
 """
 
 from __future__ import annotations
@@ -178,47 +181,128 @@ def _as_pil(samples: np.ndarray, h: int, w: int, ctype: int, depth: int) -> np.n
     return px
 
 
+PIL_BLOCK = 65536  # ImageFile.MAXBLOCK: PIL reads a chunk's image data in blocks of this size
+
+
+def _is_type(kind: bytes) -> bool:
+    """A chunk type as PIL's ``is_cid`` takes one: four ASCII letters,
+    digits or underscores."""
+    return len(kind) == 4 and all(c == 95 or 48 <= c <= 57 or 65 <= c <= 90 or 97 <= c <= 122 for c in kind)
+
+
+def _inflate_as_pil(view: memoryview, run, total: int, name: str):
+    """PIL's zip decoder (``ZipDecode.c``) over the IDAT run: inflate fed
+    each chunk's data in PIL's reads, stopped as soon as the image's
+    ``total`` bytes are out. So what follows them (more data, the Adler-32,
+    or nothing) is read only as far as that read reaches, and a data error
+    there raises only then. -> (the image's filtered bytes, the index in
+    ``run`` of the chunk they ended in)."""
+    inflater = zlib.decompressobj()
+    parts, got = [], 0
+    for i, (start, stop, _) in enumerate(run):
+        for a in range(start, stop, PIL_BLOCK):
+            try:
+                part = inflater.decompress(view[a : min(a + PIL_BLOCK, stop)], total - got)
+            except zlib.error as e:
+                raise ValueError(f"{name}: broken image data ({e})") from None
+            parts.append(part)
+            got += len(part)
+            if got == total:
+                return np.frombuffer(b"".join(parts), np.uint8), i
+    raise ValueError(f"{name}: image file is truncated ({got} of {total} bytes of image data)")
+
+
+def _inflate(view: memoryview, run, total: int, name: str):
+    """``_inflate_as_pil``'s result. An intact run of chunks inflates in one
+    call into a buffer of the image's size, which holds no interpreter lock
+    while the loader's threads read (a growing buffer, or one call per PIL
+    read, takes the lock at each step). Where that call ends without error,
+    PIL, which reads a part of the same stream, reads the same bytes; where
+    it fails, or the file cuts the run, which of PIL's reads ends the image
+    decides what PIL sees, and ``_inflate_as_pil`` reads as PIL does."""
+    start, stop, declared = run[-1]
+    if stop == declared:
+        stream = view[run[0][0] : stop] if len(run) == 1 else b"".join(view[a:b] for a, b, _ in run)
+        try:
+            raw = zlib.decompress(stream, bufsize=total + 1)
+        except zlib.error:
+            raw = b""
+        if len(raw) >= total:
+            return np.frombuffer(raw, np.uint8, total), len(run) - 1
+    return _inflate_as_pil(view, run, total, name)
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The bytes of a PNG file -> what ``np.asarray(PIL.Image.open(...))``
     gives for it (the table in the module docstring). ``name`` labels the
-    errors."""
+    errors. Damaged and cut-off files read, or raise ``ValueError``, as PIL
+    12 reads them, chunk by chunk:
+
+    - ``Image.open``: the chunks before the first IDAT, each CRC checked; a
+      chunk cut by the file's end, a bad chunk type or CRC, or no IHDR
+      raises. Ancillary chunks are skipped.
+    - ``load``: the image data is the first run of consecutive IDAT chunks
+      (``load_read``); their CRCs are not checked. It is inflated only as
+      far as the image needs (``_inflate``): more data than that, or a
+      stream without its Adler-32, reads; too little, or a bad Adler-32 in
+      the read that ends the image, raises.
+    - ``load_end``: after the chunk in which the image ended, the chunks up
+      to IEND, without their CRCs; one whose data the file cuts raises. A
+      cut chunk header, or one of no chunk type, ends the file. (PIL also
+      parses the text and animation chunks it meets there; such chunks are
+      only skipped here.)
+    """
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     # chunk bodies as views of ``data``: a reading thread copies as little
     # as it can while it holds the interpreter lock
     view = memoryview(data)
-    pos, idat, header = 8, [], None
-    while pos + 12 <= len(data):
-        (n,) = struct.unpack(">I", view[pos : pos + 4])
-        kind, body = bytes(view[pos + 4 : pos + 8]), view[pos + 8 : pos + 8 + n]
-        if zlib.crc32(body, zlib.crc32(kind)) != struct.unpack(">I", view[pos + 8 + n : pos + 12 + n])[0]:
+    n = len(data)
+    pos, header = 8, None
+    while True:
+        kind = bytes(view[pos + 4 : pos + 8])
+        if pos + 8 > n or not _is_type(kind):
+            raise ValueError(f"{name}: no image data (a cut or broken chunk header at byte {pos})")
+        (length,) = struct.unpack_from(">I", data, pos)
+        if kind == b"IDAT":
+            break
+        if kind == b"IEND" or pos + 12 + length > n:
+            raise ValueError(f"{name}: no image data ({kind.decode('latin-1')} chunk at byte {pos})")
+        body = view[pos + 8 : pos + 8 + length]
+        if zlib.crc32(body, zlib.crc32(kind)) != struct.unpack_from(">I", data, pos + 8 + length)[0]:
             raise ValueError(f"{name}: bad CRC in its {kind.decode('latin-1')} chunk")
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + n
+            if length < 13:
+                raise ValueError(f"{name}: truncated IHDR chunk")
+            header = struct.unpack_from(">IIBBBBB", data, pos + 8)
+        pos += 12 + length
     if header is None:
         raise ValueError(f"{name}: no IHDR chunk")
-    w, h, depth, ctype, method, filtering, interlace = header
-    if ctype not in DEPTHS or depth not in DEPTHS[ctype] or method != 0 or filtering != 0 or interlace > 1:
+    w, h, depth, ctype, _, filtering, interlace = header  # PIL reads any compression method as deflate
+    if ctype not in DEPTHS or depth not in DEPTHS[ctype] or filtering != 0 or interlace > 1:
         raise ValueError(
-            f"{name}: bit depth {depth}, color type {ctype}, compression {method}, filter method {filtering}, "
+            f"{name}: bit depth {depth}, color type {ctype}, filter method {filtering}, "
             f"interlace {interlace} is not a valid PNG header"
         )
+    run = []  # (data start, data end in the file, declared end) of each IDAT chunk
+    while True:
+        (length,) = struct.unpack_from(">I", data, pos)
+        run.append((pos + 8, min(pos + 8 + length, n), pos + 8 + length))
+        pos += 12 + length
+        if pos + 8 > n or view[pos + 4 : pos + 8] not in (b"IDAT", b"DDAT"):
+            break
     c = CHANNELS[ctype]
     passes = [(0, 0, 1, 1)] if interlace == 0 else ADAM7
     sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
     sizes = [(ph, pw) if ph > 0 and pw > 0 else (0, 0) for ph, pw in sizes]  # an empty pass has no rows
     total = sum(ph * (1 + _row_bytes(pw, c, depth)) for ph, pw in sizes)
-    # the output's size is known: one inflate call, which holds no
-    # interpreter lock (a growing output buffer takes the lock at each step)
-    stream = idat[0] if len(idat) == 1 else b"".join(idat)
-    raw = np.frombuffer(zlib.decompress(stream, bufsize=total + 1), np.uint8)
-    if raw.size != total:
-        raise ValueError(f"{name}: {raw.size} bytes of image data, expected {total}")
+    raw, last = _inflate(view, run, total, name)
+    pos = run[last][2] + 4  # past the rest of that chunk and its CRC
+    while pos + 8 <= n and _is_type(bytes(view[pos + 4 : pos + 8])) and view[pos + 4 : pos + 8] != b"IEND":
+        (length,) = struct.unpack_from(">I", data, pos)
+        if pos + 8 + length > n:
+            raise ValueError(f"{name}: image file is truncated (its {bytes(view[pos + 4 : pos + 8]).decode()} chunk)")
+        pos += 12 + length
     if interlace == 0:
         samples = _pass(raw, h, w, c, depth, name)
     else:
@@ -232,6 +316,8 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
             grid[y0::dy, x0::dx] = _pass(raw[off : off + size], ph, pw, c, depth, name).reshape(ph, pw, c)
             off += size
     return _as_pil(samples, h, w, ctype, depth)
+
+
 def read_png(path: str) -> np.ndarray:
     """``decode_png`` of the file at ``path``."""
     with open(path, "rb") as fh:
