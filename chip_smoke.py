@@ -112,8 +112,8 @@ order; any failure raises and exits non-zero:
    committed fixtures' SHA-256 (PIL's decodes); a 24-view JPEG tree of the
    4096x3000 fixture read and turned on the card, each view bit for bit
    against the fixture's decode turned on the host; and the geometry
-   loop's ms per step beside a dense PNG read and a dense JPEG read at 1, 2
-   and 4 loader threads;
+   loop's ms per step (``SWEEP_STEPS`` track steps per fit) beside a dense
+   PNG read and a dense JPEG read at 1, 2 and 4 loader threads;
 10. several ranks on the one card: processes started with the spawn start
    method, each on ``cuda:0`` over gloo through ``initialize_multihost``
    (NCCL refuses two ranks on one device), so no time here says anything
@@ -190,7 +190,20 @@ order; any failure raises and exits non-zero:
    restart marker deleted; PNG cut inside IEND, bad CRCs, streams of other
    lengths, IDAT chunks split) read by ``read_image`` against PIL's
    outcome in the manifest: its SHA-256, or a ``ValueError`` naming the
-   file.
+   file;
+14. the validation protocols (``topo4d_tpu_torch/validate``, ``phase_validate``)
+   at full width and cut depth: a. ``fabricate`` on the card (24 views
+   at 375x512 on the head grid, ratio 2, motion 0.004, 2 frames), frame 2
+   read back equal to a fresh render bit for bit; b. the headline
+   protocol's three modes (parity, batched0, headline) through
+   ``cli.main`` at 300 init and 150 track steps, each fit's launches and
+   each mode's scoring read around it, the per-frame finals, the 1.2x
+   criterion, the frozen-binning drift and the common metric; c. the
+   common metric of one frame on the card against the CPU's (rtol 1e-4);
+   d. ``long_run.verify_run`` on headline's and batched0's outputs and
+   their exported-vertex drift; e. tex8k's reader and ``seam_check`` on
+   phase 4's 8192x8192 ``face.png``. The protocols' criteria are logged;
+   at this depth they are no verdict.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2268,23 +2281,25 @@ def backends_check(trainer, frame):
 
 
 SWEEP_THREADS = (1, 2, 4)  # loader threads at which the geometry loop is timed beside a frame read
+SWEEP_STEPS = 100  # track steps of each timed fit (the CLI run's frames take 200)
 
 
 def loader_sweep(trainer, read_frame, label):
     """Does a frame read on the host slow the host-bound geometry loop? The
     ms per step of ``trainer.fit_frame_geometry`` on the tracked frame 2
-    alone, then while another thread runs ``read_frame()`` (a dense read)
-    over and over with ``LOAD_THREADS`` at each of ``SWEEP_THREADS`` (the
-    fit lies wholly inside the reads), then alone again; the seconds per
-    read at each -> [(threads, 0 for none; ms per step; s per read or
-    None)]."""
+    (``SWEEP_STEPS`` steps) alone, then while another thread runs
+    ``read_frame()`` (a dense read) over and over with ``LOAD_THREADS`` at
+    each of ``SWEEP_THREADS`` (the fit lies wholly inside the reads), then
+    alone again; the seconds per read at each -> [(threads, 0 for none; ms
+    per step; s per read or None)]."""
     from concurrent.futures import ThreadPoolExecutor
 
     from topo4d_tpu_torch.pipeline import data
 
-    src, saved, n = trainer.source, data.LOAD_THREADS, trainer.cfg.schedule.opt_num
+    src, saved, sched, n = trainer.source, data.LOAD_THREADS, trainer.cfg.schedule, SWEEP_STEPS
     frame = src.frame(2)
     rows = []
+    saved_steps, sched.opt_num = sched.opt_num, n
     with ThreadPoolExecutor(max_workers=1) as pool:
         for k in (0, *SWEEP_THREADS, 0):
             data.LOAD_THREADS = k or saved
@@ -2308,7 +2323,7 @@ def loader_sweep(trainer, read_frame, label):
             if reader is not None:
                 reader.result()
             rows.append((k, wall / n * 1e3, sum(reads) / len(reads) if reads else None))
-    data.LOAD_THREADS = saved
+    data.LOAD_THREADS, sched.opt_num = saved, saved_steps
     alone = (rows[0][1] + rows[-1][1]) / 2
     log(f"the geometry loop beside {label} ({n} track steps, progress renders included): "
         f"{rows[0][1]:.3f} and {rows[-1][1]:.3f} ms per step alone, before and after; "
@@ -3533,15 +3548,15 @@ def phase_face3d(statics, bake_inputs):
     return out
 
 
-def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, blend4k, blur, bake):
+def kernel_rows(run, batched, fused, v3, cli, multi, modes, validate, errs, geo_timing, blend4k, blur, bake):
     """The ``kernels`` line: times, bounds and plain times at the shapes the
     main path gives each kernel (the largest: the 4K dense view, the 8K
     bake), the geometry shapes' numbers beside them; launches over each
     path's run with the counts set to 0 just before it: the parity
     ``Trainer.run`` (K1/K2, K5, K6), by part, the batched one and the CLI's
     (``launches_cli``, and by part), phase 10's over its ranks
-    (``launches_multi_rank``), phase 11's by part; K4's over the v3 path
-    (the first v3 run of its geometry and dense steps)."""
+    (``launches_multi_rank``), phase 11's and phase 14's by part; K4's over
+    the v3 path (the first v3 run of its geometry and dense steps)."""
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
     by_part.update({f"batched geometry frame {p['frame']}": p["counts"] for p in batched["parts"]})
@@ -3553,6 +3568,7 @@ def kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, bl
         "phase 10 sharded bake, 2 and 3 ranks": multi["bake"],
     })
     by_part.update(modes["counts"])
+    by_part.update(validate["counts"])
     multi_total = {k: sum(multi[p].get(k, 0) for p in ("view_sharded", "tile_sharded", "bake"))
                    for k in counts}
 
@@ -3928,6 +3944,160 @@ def phase_kinds(calib, statics, params_np, cams):
     return out
 
 
+VALIDATE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_validate")
+VALIDATE_VIEWS = 24  # phase 14's dataset: the protocols' rig, grid and working views
+VALIDATE_GRID = (92, 90)
+VALIDATE_SIZE = (375, 512)
+VALIDATE_FRAMES = 2  # frames of phase 14's dataset and fits (the protocols run 3, 21 and 800)
+# cut from the protocols' 7,000 and 1,100 steps; a tracked frame's last 100 are polish steps (means3D frozen)
+VALIDATE_SCHEDULE = ("-ion", "300", "-on", "150", "-lf", "50")
+VALIDATE_MOTION = 0.004  # the protocols' per-frame motion amplitude
+
+
+def phase_validate(face_png):
+    """Phase 14: the validation protocols (``topo4d_tpu_torch/validate``) at
+    full width and cut depth. a: ``fabricate`` on the card (24 views at
+    375x512, the head grid, ratio 2, ``VALIDATE_FRAMES`` frames), frame 2
+    read back by ``DiskSequence`` equal bit for bit to a fresh render on
+    the card; b: ``headline.main``'s three modes through ``cli.main``
+    (``VALIDATE_SCHEDULE`` appended), each fit's launches and the common
+    metric's read around it (K1/K2 per view-step and K5 twice, no plain
+    version; the scoring K1 and K5 once per view and frame); c: the
+    common metric of one frame on the card against its CPU run (rtol
+    1e-4); d: ``long_run.verify_run`` on headline's and batched0's outputs
+    and their drift; e: tex8k's reader and ``seam_check`` on phase 4's
+    8192x8192 ``face.png``. The protocols' criteria are logged (at this
+    depth they are no verdict); a fault in a path or a launch count
+    raises."""
+    from topo4d_tpu_torch.pipeline.data import SyntheticSequence, read_image
+    from topo4d_tpu_torch.testing import grid_scene, make_grid_mesh
+    from topo4d_tpu_torch.validate import fabricate, headline, long_run, score, tex8k
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(VALIDATE_DIR, ignore_errors=True)
+    root, out = os.path.join(VALIDATE_DIR, "fab"), os.path.join(VALIDATE_DIR, "headline")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fabricate.fabricate(root, VALIDATE_VIEWS, VALIDATE_FRAMES, *VALIDATE_GRID, *VALIDATE_SIZE, 2, VALIDATE_MOTION,
+                        dense_tree=False, device=DEVICE)
+    fab_s = time.perf_counter() - t0
+    src = score.open_source(root, 2, DEVICE)
+    verts, _ = make_grid_mesh(*VALIDATE_GRID, extent=0.5)
+    scene = grid_scene(verts, *VALIDATE_GRID)
+    wobble = SyntheticSequence(params=scene, cameras=src.cameras, num_frames=VALIDATE_FRAMES,
+                               motion_scale=VALIDATE_MOTION)
+    want = fabricate.render_frame(scene, wobble.vertices_at(2).astype(np.float32), src.cameras)
+    if not np.array_equal(np.stack(src.frame(2).images.pixels), want):
+        raise AssertionError("phase 14a: the fabricated frame 2 differs from its render on the card")
+    log(f"phase 14a: the fabricator on the card, {VALIDATE_VIEWS} views x {VALIDATE_FRAMES} frames at "
+        f"{VALIDATE_SIZE[0]}x{VALIDATE_SIZE[1]} ({verts.shape[0]} Gaussians, motion {VALIDATE_MOTION}) in {fab_s:.3f} "
+        "s; frame 2 read back equal to a fresh render, bit for bit")
+
+    counts, walls = {}, {}
+    run_mode, score_params = headline.run_mode, score.score_params
+
+    def counted_fit(name, *args, **kwargs):
+        torch.cuda.synchronize()
+        reset_counts()
+        r = run_mode(name, *args, **kwargs)
+        torch.cuda.synchronize()
+        counts[f"phase 14 {name} fit"] = read_counts()
+        return r
+
+    def counted_score(*args, **kwargs):  # headline.main scores score.MODES in order
+        part = f"phase 14 scoring {score.MODES[len(walls)]}"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = score_params(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        counts[part] = read_counts()
+        return r
+
+    headline.run_mode, score.score_params = counted_fit, counted_score
+    try:
+        report = headline.main(root, out, VALIDATE_FRAMES, DEVICE, VALIDATE_SCHEDULE)
+    finally:
+        headline.run_mode, score.score_params = run_mode, score_params
+    ion, on = int(VALIDATE_SCHEDULE[1]), int(VALIDATE_SCHEDULE[3])
+    for name, spec in headline.MODES.items():
+        if spec["views_per_step"] == 1:
+            renders = ion + (VALIDATE_FRAMES - 1) * on
+        else:
+            v = VALIDATE_VIEWS
+            renders = v * (-(-ion // v) + (VALIDATE_FRAMES - 1) * -(-on // v))
+        check_counts(counts[f"phase 14 {name} fit"], f"phase 14b {name} fit", {
+            "tile_blend_fwd": renders, "tile_blend_bwd": renders, "gauss_blur": 2 * renders,
+            "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "tile_blend_plain": 0, "gauss_blur_plain": 0,
+            "uv_bake": 0, "uv_bake_plain": 0,
+        })
+    for part, c in counts.items():
+        if part.startswith("phase 14 scoring"):
+            check_counts(c, f"phase 14b {part}", {
+                "tile_blend_fwd": VALIDATE_VIEWS * VALIDATE_FRAMES, "tile_blend_bwd": 0,
+                "gauss_blur": VALIDATE_VIEWS * VALIDATE_FRAMES,
+                "tile_blend_plain": 0, "gauss_blur_plain": 0,
+            })
+    common = report["common_metric"]
+    for name, rows in common.items():
+        for t, r in rows.items():
+            if not (np.isfinite(r["photometric_mean"]) and np.isfinite(r["psnr_mean"])):
+                raise AssertionError(f"phase 14b: {name} frame {t} scored {r}")
+    log("phase 14b: the headline protocol (" + " ".join(VALIDATE_SCHEDULE) + f" over {VALIDATE_FRAMES} frames): "
+        + "; ".join(
+            f"{name} {report['wall_s'][name]:.3f} s, final loss_total "
+            + ", ".join(f"{v:.5f}" for v in report["modes"][name]["final_loss_per_frame"].values())
+            + ", photometric " + ", ".join(f"{r['photometric_mean']:.5f}" for r in common[name].values())
+            + ", psnr " + ", ".join(f"{r['psnr_mean']:.3f}" for r in common[name].values())
+            for name in headline.MODES)
+        + f"; headline <= 1.2x parity {report['headline_within_1p2x_parity']}; headline / parity photometric "
+        + ", ".join(f"{v:.4f}" for v in report["headline_over_parity_photometric"].values())
+        + "; frozen-binning drift " + ", ".join(f"{v:.3e}" for v in report["frozen_binning_means_drift"].values())
+        + f"; scoring {', '.join(f'{v:.3f}' for v in walls.values())} s; launches per part "
+        + "; ".join(f"{part.removeprefix('phase 14 ')} {c}" for part, c in counts.items()))
+
+    t0 = time.perf_counter()
+    cpu = score.score_params(score.open_source(root, 2, "cpu"), score.run_params(out, "headline"), 1)[0]
+    card = common["headline"][0]
+    for k in ("photometric_mean", "psnr_mean"):
+        if not np.isclose(card[k], cpu[k], rtol=1e-4, atol=0.0):
+            raise AssertionError(f"phase 14c: {k} on the card {card[k]} against the CPU's {cpu[k]}")
+    log(f"phase 14c: headline's frame 0 scored on the card against the CPU ({time.perf_counter() - t0:.3f} s): "
+        f"photometric rel err {abs(card['photometric_mean'] / cpu['photometric_mean'] - 1):.2e}, psnr rel err "
+        f"{abs(card['psnr_mean'] / cpu['psnr_mean'] - 1):.2e} (rtol 1e-4)")
+
+    seqs = {name: os.path.join(out, name, "val", "seq01") for name in long_run.MODES}
+    verified = {name: long_run.verify_run(name, seq, VALIDATE_FRAMES, VALIDATE_MOTION) for name, seq in seqs.items()}
+    drift, _ = long_run.drift_report(seqs, VALIDATE_FRAMES, VALIDATE_FRAMES, VALIDATE_MOTION)
+    for name, v in verified.items():
+        if not all(np.isfinite(x) for x in v["max_dmeans3d"].values()) or not v["topology_byte_stable"]:
+            raise AssertionError(f"phase 14d: {name} {v}")
+    log("phase 14d: verify_run on the headline protocol's outputs (" + "; ".join(
+        f"{name}: max_dmeans3d max {v['max_dmeans3d']['max']:.3e}, topology byte-stable "
+        f"{v['topology_byte_stable']}, failed checks {v['failed_checks']}" for name, v in verified.items())
+        + f"); exported-vertex drift headline against batched0: max {drift['per_frame_max']:.3e}, p99 "
+        f"{drift['p99_max']:.3e}, failed bounds {drift.get('failed', [])}")
+
+    t0 = time.perf_counter()
+    tex = read_image(face_png)
+    read_s = time.perf_counter() - t0
+    if tex.shape != (TEX_RES, TEX_RES, 3):
+        raise AssertionError(f"phase 14e: {face_png} read as {tex.shape}")
+    t0 = time.perf_counter()
+    coverage, cstd = tex8k.texture_stats(tex)
+    seam = tex8k.seam_check(tex)
+    if not (0.0 < coverage <= 1.0 and np.isfinite(cstd)):
+        raise AssertionError(f"phase 14e: coverage {coverage}, covered std {cstd}")
+    log(f"phase 14e: tex8k's reader on phase 4's {TEX_RES}x{TEX_RES} face.png: read in {read_s:.3f} s, coverage "
+        f"{coverage:.4f}, covered std {cstd:.3f}, seam_check (grid UVs, no seam: the lines sample one island) {seam} "
+        f"in {time.perf_counter() - t0:.3f} s")
+    del tex
+    shutil.rmtree(VALIDATE_DIR, ignore_errors=True)
+    log(f"phase 14 (the validation protocols): {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "report": report}
+
+
 def main() -> int:
     global CARD, LOG_FILE, REF_PNG, SEED
     import argparse
@@ -4010,6 +4180,7 @@ def main() -> int:
     modes = phase_modes(cfg, src, trainer, scene, frames)
     face3d = phase_face3d(trainer.statics, bake_inputs)
     kinds = phase_kinds(cli["jpeg"]["calib"], trainer.statics, scene[3], src.cameras)
+    validate = phase_validate(os.path.join(OUT_DIR, cfg.data.exp, cfg.data.seq, "%06d" % FRAMES, "face.png"))
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "
@@ -4027,13 +4198,15 @@ def main() -> int:
         f"phase 12: xla bake {face3d['bake']['xla_ms']:.3f} ms against K6's {face3d['bake']['k6_ms']:.4f} ms, "
         f"{face3d['bake']['differ']} pixels apart; phase 13: progressive dense frame {kinds['read_s']['progressive']:.3f} "
         f"s against baseline {kinds['read_s']['baseline']:.3f} s, decode {kinds['decode_s_per_mpx']['progressive']:.5f} "
-        f"against {kinds['decode_s_per_mpx']['baseline']:.5f} s per Mpx; peak device memory from phase 12c's bake on "
+        f"against {kinds['decode_s_per_mpx']['baseline']:.5f} s per Mpx; phase 14: headline / parity photometric "
+        + ", ".join(f"{v:.4f}" for v in validate["report"]["headline_over_parity_photometric"].values())
+        + "; peak device memory from phase 12c's bake on "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_start:.1f} s"
     )
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, multi, modes, errs, geo_timing, blend4k,
-                                             blur, bake)}))
+    print(json.dumps({"kernels": kernel_rows(run, batched, fused, v3, cli, multi, modes, validate, errs, geo_timing,
+                                             blend4k, blur, bake)}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -1,5 +1,5 @@
 """Synthetic fixtures (host NumPy), counterparts of ``topo4d_tpu/testing.py``
-and ``scripts/fabricate_dataset.py``.
+(``scripts/fabricate_dataset.py``'s is ``validate/fabricate.py``).
 
 Same shapes, statistics and random streams as the reference's fixtures: the
 8,280-vertex head patch, the 24-view camera ring, 375x512 geometry images.
@@ -323,7 +323,7 @@ class DiskTree:
     turns: List[int]
 
 
-def _sensor_xml(i, f, cx, cy, width, height, ratio, rt) -> str:
+def sensor_xml(i, f, cx, cy, width, height, ratio, rt) -> str:
     """Invert ``extract_intrinsics``: the sensor whose calibration at
     ``resize_factor`` ``ratio`` gives a camera of focal ``f``, principal
     point (cx, cy) and size width x height, for a view rotated by ``rt``
@@ -344,7 +344,7 @@ def _sensor_xml(i, f, cx, cy, width, height, ratio, rt) -> str:
     )
 
 
-def _camera_xml(i, name, w2c, rt) -> str:
+def camera_xml(i, name, w2c, rt) -> str:
     """Invert ``extract_extrinsics``: undo the OpenGL -> COLMAP flip, the
     inverse, the per-view z rotation and the OpenGL column flip."""
     flip = np.diag([1.0, -1.0, -1.0])
@@ -377,6 +377,22 @@ def _parsing_image(height, width, face_label="skin", mouth_label="inner_mouth") 
     return mk
 
 
+def grid_scene(verts: np.ndarray, rows: int, cols: int) -> Dict[str, np.ndarray]:
+    """The disk datasets' known scene on a ``rows`` x ``cols`` grid: its
+    vertices with random colors (seed 0), identity rotations, opaque, half a
+    grid pitch wide."""
+    n = verts.shape[0]
+    rng = np.random.default_rng(0)
+    pitch = 1.0 / max(rows, cols)
+    return {
+        "means3D": verts.astype(np.float32),
+        "rgb_colors": rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
+        "unnorm_rotations": np.tile(np.array([1.0, 0, 0, 0], np.float32), (n, 1)),
+        "logit_opacities": np.full((n, 1), 6.0, np.float32),
+        "log_scales": np.full((n, 3), np.log(pitch / 2), np.float32),
+    }
+
+
 def write_disk_sequence(
     root: str,
     num_views: int = 4,
@@ -392,8 +408,11 @@ def write_disk_sequence(
     level: int = 6,
     device="cuda",
 ) -> DiskTree:
-    """A sequence in the reference's disk layout, the port's counterpart of
-    ``scripts/fabricate_dataset.py``: under ``root/seq01``, ``cameras.xml``
+    """A sequence in the reference's disk layout for the tests and
+    ``chip_smoke.py`` (the counterpart of ``scripts/fabricate_dataset.py`` is
+    ``validate/fabricate.py``, which quantises, names views and lays out UVs
+    as JAX's does; this one rounds, takes view names, rotations and a
+    component transform): under ``root/seq01``, ``cameras.xml``
     (the loader's math inverted), the startup mesh ``face_v5.obj`` with UVs,
     ``face_v5.png``, ``%06d/<view>.png`` frames rendered by this package's
     renderer (a head grid of ``rows`` x ``cols`` vertices that wobbles from
@@ -438,8 +457,8 @@ def write_disk_sequence(
     cams = make_camera_ring(num_views, width=width, height=height, distance=2.0, device=device)
     k = np.stack([cams.fx.cpu().numpy(), cams.cx.cpu().numpy(), cams.cy.cpu().numpy()], 1).astype(np.float64)
     w2c = cams.w2c.cpu().numpy().astype(np.float64)
-    sensors = [_sensor_xml(i, *k[i], width, height, ratio, rts[i]) for i in range(num_views)]
-    cameras = [_camera_xml(i, names[i], w2c[i], rts[i]) for i in range(num_views)]
+    sensors = [sensor_xml(i, *k[i], width, height, ratio, rts[i]) for i in range(num_views)]
+    cameras = [camera_xml(i, names[i], w2c[i], rts[i]) for i in range(num_views)]
     comp = ""
     if component is not None:
         comp = (
@@ -456,15 +475,7 @@ def write_disk_sequence(
         )
 
     # the truth: the head grid with random colors, wobbling from frame 2 on
-    rng = np.random.default_rng(0)
-    pitch = 1.0 / max(rows, cols)
-    truth = {
-        "means3D": verts.astype(np.float32),
-        "rgb_colors": rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
-        "unnorm_rotations": np.tile(np.array([1.0, 0, 0, 0], np.float32), (n, 1)),
-        "logit_opacities": np.full((n, 1), 6.0, np.float32),
-        "log_scales": np.full((n, 3), np.log(pitch / 2), np.float32),
-    }
+    truth = grid_scene(verts, rows, cols)
     cams_full = make_camera(
         np.stack([np.array([[f * ratio, 0, cx * ratio], [0, f * ratio, cy * ratio], [0, 0, 1.0]]) for f, cx, cy in k]),
         w2c, width * ratio, height * ratio, device=device,
