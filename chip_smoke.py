@@ -203,7 +203,16 @@ order; any failure raises and exits non-zero:
    d. ``long_run.verify_run`` on headline's and batched0's outputs and
    their exported-vertex drift; e. tex8k's reader and ``seam_check`` on
    phase 4's 8192x8192 ``face.png``. The protocols' criteria are logged;
-   at this depth they are no verdict.
+   at this depth they are no verdict;
+15. the tex8k protocol's dense phase at full width (``phase_tex8k_dense``):
+   the 92x90 head grid with its UV seam, density 30 on the seam patch
+   (356,550 dense Gaussians), ``raster.max_span`` 2, 3000x4096 views: a.
+   one fabricated dense view on the card against its CPU render (one uint8
+   level on at most 0.1% of the values); b. two dense steps of the
+   protocol's view order from the frame-0 state (the soft-colour anchor
+   equal to the colours) and the fixed view's PSNR on the card against the
+   CPU (losses and PSNR rtol 1e-4, colours within 2 lr per step and 99.9%
+   within 1e-6), the card's launches counted.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3555,7 +3564,7 @@ def kernel_rows(run, batched, fused, v3, cli, multi, modes, validate, errs, geo_
     path's run with the counts set to 0 just before it: the parity
     ``Trainer.run`` (K1/K2, K5, K6), by part, the batched one and the CLI's
     (``launches_cli``, and by part), phase 10's over its ranks
-    (``launches_multi_rank``), phase 11's and phase 14's by part; K4's over
+    (``launches_multi_rank``), phase 11's, 14's and 15's by part; K4's over
     the v3 path (the first v3 run of its geometry and dense steps)."""
     counts = run["counts"]
     by_part = {f"{p['kind']} frame {p['frame']}": p["counts"] for p in run["parts"]}
@@ -4098,6 +4107,140 @@ def phase_validate(face_png):
     return {"counts": counts, "report": report}
 
 
+TEX8K_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tex8k")
+TEX8K_GRID = (92, 90)  # the tex8k protocol's head grid, with its UV seam
+TEX8K_SIZE = (375, 512)  # its working views; the dense views are TEX8K_RATIO times larger
+TEX8K_RATIO = 8  # 3000x4096 dense views
+TEX8K_DENSITY = 30  # on the 18x18 seam patch: 356,550 dense Gaussians
+TEX8K_STEPS = 2  # dense steps held card against CPU (the CPU takes ~40 s a step at this size)
+
+
+def phase_tex8k_dense():
+    """Phase 15: the tex8k protocol's dense phase at full width
+    (``validate/tex8k.py``'s arguments: density 30 on the seam patch,
+    ``raster.max_span`` 2, dense views at ratio 8), card against CPU. a:
+    one dense target of the fabricator (``validate/fabricate.py``'s render)
+    on the card against its CPU render, within one uint8 level on at most
+    0.1% of the values; b: ``TEX8K_STEPS`` dense steps of the protocol's
+    view order from the frame-0 state (the soft-colour anchor equals the
+    colours, where the L1's derivative at 0 decides the first step), with
+    frozen binnings, the split pack's static rows and the trainer's auto
+    compact capacity, then the fixed view's PSNR: losses and PSNR rtol
+    1e-4, colours every element within 2 lr per step and 99.9% within 1e-6;
+    the card's launches counted around its steps (K1 once per step and once
+    for the eval, K2 once and K5 twice per step, no plain version)."""
+    from topo4d_tpu_torch.config import Config
+    from topo4d_tpu_torch.core.camera import make_camera
+    from topo4d_tpu_torch.core.gaussian import activate_params
+    from topo4d_tpu_torch.opt.adam import adam_init
+    from topo4d_tpu_torch.pipeline.data import view_order
+    from topo4d_tpu_torch.pipeline.scene import build_dense_pre_constraints, build_scene, init_dense_params
+    from topo4d_tpu_torch.pipeline.trainer import make_dense_render_fn
+    from topo4d_tpu_torch.rasterizer.render import attach_compact, binning_for, render_gaussians_capped
+    from topo4d_tpu_torch.testing import grid_scene, make_camera_ring, make_grid_mesh
+    from topo4d_tpu_torch.texture.dense import TextureState, dense_rendervars, make_texture_eval, make_texture_step
+    from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
+    from topo4d_tpu_torch.topology.obj_io import load_obj
+    from topo4d_tpu_torch.topology.regions import load_facial_regions
+    from topo4d_tpu_torch.validate import fabricate
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TEX8K_DIR, ignore_errors=True)
+    root = os.path.join(TEX8K_DIR, "fab")  # the mesh with its UV seam and the seam-centred regions
+    fabricate.fabricate(root, 1, 1, *TEX8K_GRID, 16, 16, 1, 0.004, dense_tree=False, uv_seam=True, device="cpu")
+    cfg = Config()
+    cfg.texture.gen_tex, cfg.texture.density, cfg.raster.max_span = True, TEX8K_DENSITY, 2
+    mesh = load_obj(os.path.join(root, fabricate.SEQ, "face_v5.obj"))
+    regions = load_facial_regions(os.path.join(root, "assets", "facial_regions.pkl"))
+    params, statics = build_scene(mesh, regions, cfg, num_views=24)
+    verts, _ = make_grid_mesh(*TEX8K_GRID, extent=0.5)
+    known = grid_scene(verts, *TEX8K_GRID)
+    # the geometry's colours: the known scene's (what the geometry fit aims at), with build_scene's writes
+    params["rgb_colors"] = known["rgb_colors"].copy()
+    params["rgb_colors"][regions.masks["dynamic_mouth_masks"]] = 0.0
+    params["rgb_colors"][regions.masks["dynamic_eye_masks"]] = 1.0
+    dense_np = init_dense_params(params, statics, 24)
+    topo = statics.dense.topo
+    ring = make_camera_ring(24, width=TEX8K_SIZE[0], height=TEX8K_SIZE[1], distance=2.0, device="cpu")
+    k = np.zeros((24, 3, 3))
+    for i, name in ((0, "fx"), (1, "fy")):
+        k[:, i, i] = getattr(ring, name).numpy().astype(np.float64) * TEX8K_RATIO
+    for i, name in ((0, "cx"), (1, "cy")):
+        k[:, i, 2] = getattr(ring, name).numpy().astype(np.float64) * TEX8K_RATIO
+    k[:, 2, 2] = 1.0
+    width, height = TEX8K_SIZE[0] * TEX8K_RATIO, TEX8K_SIZE[1] * TEX8K_RATIO
+    order = [int(v) for v in view_order(24, cfg.schedule.dense_opt_num, seed=10_000)[:TEX8K_STEPS]]
+    views = sorted(set(order) | {0})
+    build_s = time.perf_counter() - t_phase
+
+    @torch.no_grad()
+    def target(cams, v):  # the fabricator's dense frame (``fabricate.render_frame``), floored to uint8
+        rv = activate_params({n: torch.as_tensor(x, device=cams.w2c.device) for n, x in known.items()})
+        return (torch.clamp(render_gaussians_capped(rv, cams[v]).image, 0.0, 1.0) * 255).to(torch.uint8)
+
+    runs, cap, counts = {}, None, {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        cams = make_camera(k, ring.w2c.numpy(), width, height, device=dev)
+        targets = {v: target(cams, v) for v in views}
+        means = interpolate_dense_attribute(
+            torch.as_tensor(params["means3D"], device=dev),
+            *(torch.as_tensor(a, device=dev) for a in (topo.quad_faces, topo.father_face, topo.weights)),
+        )
+        dense = {n: torch.as_tensor(x, device=dev) for n, x in dense_np.items()}
+        bs = {v: binning_for(dense_rendervars(dense, means), cams[v], 2, with_static=True) for v in views}
+        if cap is None:  # the trainer's auto capacity (quantum 2048 above 8,192 tiles), from the card's binnings
+            occ = max(int((b.tile_count > 0).sum()) for b in bs.values())
+            cap = -(-int(occ * 1.2) // 2048) * 2048
+            crowd = max(int(b.tile_count.max()) for b in bs.values())
+        bs = {v: attach_compact(b, cap) for v, b in bs.items()}
+        render = make_dense_render_fn(cfg, dev)
+        step, evaluate = make_texture_step(render), make_texture_eval(render)
+        state = TextureState(params=dense, opt=adam_init(dense))
+        pre = build_dense_pre_constraints(dense_np, regions, dev)
+        gts = {v: t.float() / 255.0 for v, t in targets.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        losses = []
+        for v in order:
+            state, m = step(state, means, gts[v], cams, v, dense["dense_rgb_colors"], pre, dict(cfg.lrs.dense),
+                            cfg.dense_weights.as_dict(), bs[v], with_metrics=False)
+            losses.append(float(m["loss_total"]))
+        fixed = float(evaluate(state, means, gts[0], cams, 0, bs[0]))
+        torch.cuda.synchronize()
+        if dev == DEVICE:
+            counts["phase 15 dense steps"] = read_counts()
+        runs[dev] = {"losses": losses, "fixed": fixed, "colors": state.params["dense_rgb_colors"].cpu(),
+                     "target": targets[0].cpu(), "s": time.perf_counter() - t0, "steps_s": time.perf_counter() - t1}
+    check_counts(counts["phase 15 dense steps"], "phase 15b dense steps", {
+        "tile_blend_fwd": TEX8K_STEPS + 1, "tile_blend_bwd": TEX8K_STEPS, "gauss_blur": 2 * TEX8K_STEPS,
+        "tile_blend_v3_fwd": 0, "tile_blend_v3_bwd": 0, "tile_blend_plain": 0, "gauss_blur_plain": 0,
+    })
+    card, cpu = runs[DEVICE], runs["cpu"]
+    d = (card["target"].to(torch.int16) - cpu["target"].to(torch.int16)).abs()
+    apart = float((d > 0).float().mean())
+    if int(d.max()) > 1 or apart > 1e-3:
+        raise AssertionError(f"phase 15a: the dense target on the card against the CPU: max {int(d.max())}, "
+                             f"{apart:.2e} of the values apart")
+    lg, lc = np.array(card["losses"]), np.array(cpu["losses"])
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    np.testing.assert_allclose(card["fixed"], cpu["fixed"], rtol=1e-4)
+    lr = cfg.lrs.dense["dense_rgb_colors"]
+    msg = assert_leaf_close("dense_rgb_colors", card["colors"], cpu["colors"], 2 * lr * TEX8K_STEPS)
+    moved = float(((card["colors"] - torch.as_tensor(dense_np["dense_rgb_colors"])).abs() > 0.5 * lr).float().mean())
+    shutil.rmtree(TEX8K_DIR, ignore_errors=True)
+    log(f"phase 15: tex8k's dense phase at {width}x{height}, {dense_np['dense_rgb_colors'].shape[0]} dense Gaussians "
+        f"(density {TEX8K_DENSITY} on the seam patch, max_span 2; the most entries of a tile {crowd}, compact "
+        f"capacity {cap}), scene {build_s:.3f} s; a: dense target view 0 on the card against the CPU, max "
+        f"{int(d.max())} level, {apart:.2e} of the values apart; b: {TEX8K_STEPS} dense steps (views {order}) and "
+        f"view 0's PSNR card against CPU: loss rel err {float(np.max(np.abs(lg - lc) / np.abs(lc))):.2e}, PSNR "
+        f"{card['fixed']:.5f} against {cpu['fixed']:.5f}; {msg}; {100 * moved:.2f}% of the colours moved by "
+        f"more than lr / 2; launches {counts['phase 15 dense steps']}; card {card['s']:.3f} s (steps "
+        f"{card['steps_s']:.3f}), CPU {cpu['s']:.3f} s; phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts}
+
+
 def main() -> int:
     global CARD, LOG_FILE, REF_PNG, SEED
     import argparse
@@ -4181,6 +4324,7 @@ def main() -> int:
     face3d = phase_face3d(trainer.statics, bake_inputs)
     kinds = phase_kinds(cli["jpeg"]["calib"], trainer.statics, scene[3], src.cameras)
     validate = phase_validate(os.path.join(OUT_DIR, cfg.data.exp, cfg.data.seq, "%06d" % FRAMES, "face.png"))
+    validate["counts"].update(phase_tex8k_dense()["counts"])
     log(
         f"summary: ms per dense step {dense['compact'][0]:.3f} (ten steps, unprofiled; card busy "
         f"{dense['compact'][1]:.3f}), full canvas {dense['full canvas'][0]:.3f} (busy {dense['full canvas'][1]:.3f}); "

@@ -23,6 +23,7 @@ from topo4d_tpu.losses.flatten import fused_flatten_loss as j_flat_loss
 from topo4d_tpu.losses.flatten import fused_umbrella_loss as j_umb_loss
 from topo4d_tpu.losses.image import _shift_pass as j_shift_pass
 from topo4d_tpu.losses.image import l1_loss as j_l1
+from topo4d_tpu.losses.image import l1_loss_sum_last as j_l1_sum_last
 from topo4d_tpu.losses.image import photometric_loss as j_photo
 from topo4d_tpu.losses.image import psnr as j_psnr
 from topo4d_tpu.losses.image import ssim as j_ssim
@@ -47,7 +48,7 @@ from topo4d_tpu_torch.losses.flatten import (
     fused_umbrella_loss,
     to_device,
 )
-from topo4d_tpu_torch.losses.image import _shift_pass, l1_loss, photometric_loss, psnr, ssim
+from topo4d_tpu_torch.losses.image import _shift_pass, l1_abs, l1_loss, l1_loss_sum_last, photometric_loss, psnr, ssim
 from topo4d_tpu_torch.losses.neighbors import build_inverse_incidence, gather_rows_inv
 from topo4d_tpu_torch.losses.temporal import make_temporal_priors, rigid_rot_iso_losses
 from topo4d_tpu_torch.opt.step import HARD_FLATTEN_KEYS, SOFT_FLATTEN_KEYS, UMBRELLA_KEYS, GeometryPriors, build_topo_losses
@@ -111,15 +112,24 @@ def test_photometric_loss_and_gradient_match_jax(seed, shape):
 
 def test_l1_gradient_at_zero_residual():
     """Where prediction equals target exactly, JAX's |x| has gradient +1
-    (``jax.grad(jnp.abs)(0.0) == 1``) and torch's 0, the subgradient the
-    original reference (PyTorch) uses. The port keeps torch's. Parity tests
-    therefore keep their targets off exact equality (ROADMAP Queue 3)."""
+    (``jax.grad(jnp.abs)(0.0) == 1``), and so has the port's (``l1_abs``),
+    though ``torch.abs``'s is 0: the soft-color anchor sits there on a
+    frame's first dense step. Both L1 forms, and ``l1_abs`` at -0.0, NaN and
+    the infinities, against JAX."""
     a = np.zeros((3, 4, 5), np.float32)
     gj = np.asarray(jax.grad(j_l1)(jnp.asarray(a), jnp.asarray(a)))
     x = torch.as_tensor(a).requires_grad_(True)
     l1_loss(x, torch.as_tensor(a)).backward()
     np.testing.assert_array_equal(gj, np.full_like(a, 1.0 / a.size))
-    np.testing.assert_array_equal(x.grad.numpy(), np.zeros_like(a))
+    np.testing.assert_array_equal(x.grad.numpy(), gj)
+    gj = np.asarray(jax.grad(j_l1_sum_last)(jnp.asarray(a), jnp.asarray(a)))
+    x = torch.as_tensor(a).requires_grad_(True)
+    l1_loss_sum_last(x, torch.as_tensor(a)).backward()
+    np.testing.assert_array_equal(x.grad.numpy(), gj)
+    edge = np.array([-1.0, -0.0, 0.0, 1.0, np.nan, -np.inf, np.inf], np.float32)
+    x = torch.as_tensor(edge).requires_grad_(True)
+    torch.sum(l1_abs(x)).backward()
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(jax.vmap(jax.grad(jnp.abs))(jnp.asarray(edge))))
 
 
 # ---------------------------------------------------------------------------

@@ -12,14 +12,36 @@ import torch
 from topo4d_tpu_torch.losses.blur import _shift_pass, gauss_blur  # noqa: F401 (_shift_pass: the plain form)
 
 
+class _L1Abs(torch.autograd.Function):
+    """|x| differentiated as ``jnp.abs`` is: +1 where x >= 0, zero included,
+    and -1 below. ``torch.abs`` gives 0 at 0, and a residual that is exactly
+    0 is common in these losses: the soft-color anchor at a frame's first
+    dense step, the background pixels of a render and its target."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def l1_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x|, with the derivative at 0 that the JAX package's losses take (+1)."""
+    return _L1Abs.apply(x)
+
+
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """mean |x - y| (reference ``l1_loss_v1``)."""
-    return torch.mean(torch.abs(x - y))
+    return torch.mean(l1_abs(x - y))
 
 
 def l1_loss_sum_last(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """mean over the leading dims of sum_last |x - y| (reference ``l1_loss_v2``)."""
-    return torch.mean(torch.sum(torch.abs(x - y), dim=-1))
+    return torch.mean(torch.sum(l1_abs(x - y), dim=-1))
 
 
 def l2_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ from topo4d_tpu_torch.config import Config
 from topo4d_tpu_torch.core.agisoft import load_camera
 from topo4d_tpu_torch.core.camera import Camera, make_camera
 from topo4d_tpu_torch.core.gaussian import activate_params
-from topo4d_tpu_torch.rasterizer.render import render_gaussians
+from topo4d_tpu_torch.rasterizer.render import render_gaussians_capped
 from topo4d_tpu_torch.utils.jpeg import SOI, decode_jpeg
 from topo4d_tpu_torch.utils.png import SIGNATURE, decode_png
 
@@ -230,7 +230,9 @@ def _load_view(path: str, mpath: Optional[str]):
 @dataclasses.dataclass
 class SyntheticSequence:
     """A known Gaussian scene whose vertices wobble over time; the targets
-    are rendered with this package's renderer on the cameras' device.
+    are rendered on the cameras' device as the JAX package renders them
+    (``render_gaussians_capped``: ``max_span`` 4, at most 512 entries a
+    tile).
 
     ``cameras_full`` is the rig of the texture phase's full-resolution
     views (``frame(t, full_res=True)``); it defaults to ``cameras``.
@@ -271,10 +273,7 @@ class SyntheticSequence:
             rv = activate_params(
                 {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in params.items()}
             )
-            imgs = [
-                render_gaussians(rv, cams[i], max_span=4).image.cpu().numpy()
-                for i in range(self.num_views)
-            ]
+            imgs = [render_gaussians_capped(rv, cams[i]).image.cpu().numpy() for i in range(self.num_views)]
             self._frames[(t, full_res)] = FrameData(images=np.stack(imgs), masks=None, view_names=self.view_names)
         return self._frames[(t, full_res)]
 

@@ -120,6 +120,22 @@ def render_gaussians(
     return _composite(out, bg, tiles_x, tiles_y, width, height, proj.radii, bins.num_cropped, overflow)
 
 
+CAPPED_SPAN, CAPPED_ENTRIES = 4, 512  # JAX's render_gaussians_tiled(max_span=4, capacity=512)
+
+
+def render_gaussians_capped(rv: GaussianRenderVars, cam: Camera) -> RenderOutput:
+    """``render_gaussians`` at ``max_span`` ``CAPPED_SPAN`` with at most
+    ``CAPPED_ENTRIES`` entries blended per tile, its first in depth order,
+    the rest dropped: the contract of JAX's ``render_gaussians_tiled``
+    (``rasterizer/tiled.py:201``) as the JAX package renders its synthetic
+    targets, its validation datasets and its scorer. The cap acts where a
+    view sees a surface edge-on. Blended by K1 on the card; no gradient."""
+    with torch.no_grad():
+        binning = compute_binning(project_gaussians(rv, cam), cam.width, cam.height, CAPPED_SPAN)
+        binning = binning._replace(tile_count=torch.clamp(binning.tile_count, max=CAPPED_ENTRIES))
+        return render_gaussians(rv, cam, max_span=CAPPED_SPAN, binning=binning)
+
+
 def _composite(out, bg, tiles_x: int, tiles_y: int, width: int, height: int, radii, num_cropped, overflow):
     """Tile rows (T, C >= 5, 256) -> the view's RenderOutput: the
     background composited, untiled and cropped."""

@@ -28,7 +28,7 @@ import torch.utils.checkpoint
 from topo4d_tpu_torch.core.camera import Camera
 from topo4d_tpu_torch.core.gaussian import GaussianRenderVars
 from topo4d_tpu_torch.core.quaternion import quat_normalize
-from topo4d_tpu_torch.losses.image import l1_loss_sum_last, photometric_loss, psnr
+from topo4d_tpu_torch.losses.image import l1_abs, l1_loss_sum_last, photometric_loss, psnr
 from topo4d_tpu_torch.opt.adam import AdamState, adam_update
 from topo4d_tpu_torch.opt.constraints import DenseConstraint, apply_constraints
 from topo4d_tpu_torch.pipeline.masks import get_mask
@@ -101,7 +101,7 @@ def make_texture_step(
         out = render_fn(dense_rendervars(p, dense_means3d), cams[view_id], binning)
         if use_mask:
             m = get_mask(DENSE_MASK_LABELS, mask, cmap_index)
-            im_loss = torch.sum(torch.abs((out.image - gt) * m)) / torch.clamp(torch.sum(m), min=1.0)
+            im_loss = torch.sum(l1_abs((out.image - gt) * m)) / torch.clamp(torch.sum(m), min=1.0)
         elif remat:
             im_loss = torch.utils.checkpoint.checkpoint(
                 photometric_loss, out.image, gt, use_reentrant=False, preserve_rng_state=False

@@ -14,7 +14,8 @@ inner-mouth block; ``root/assets/facial_regions.pkl``; and with
 ``dense_tree`` the same frames at ``ratio`` times the size under
 ``root + "_dense"`` with a skin-labelled centre half.
 
-Frames are rendered by this package's renderer (K1 on the card), every
+Frames are rendered by ``render_gaussians_capped`` (K1 on the card, at most
+512 entries a tile, as JAX's fabricator renders them), every
 view of a frame before one download, quantised as JAX's fabricator does
 (``(clip(im, 0, 1) * 255)`` floored), and encoded by ``utils/png.py`` on a
 thread pool. Each PNG is written under a temporary name and renamed, and a
@@ -39,7 +40,7 @@ from topo4d_tpu_torch.core.gaussian import activate_params
 from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.pipeline.data import SyntheticSequence
 from topo4d_tpu_torch.pipeline.masks import bgr_colormap
-from topo4d_tpu_torch.rasterizer.render import render_gaussians
+from topo4d_tpu_torch.rasterizer.render import render_gaussians_capped
 from topo4d_tpu_torch.testing import (
     camera_xml,
     grid_scene,
@@ -121,7 +122,7 @@ def render_frame(params: dict, means: np.ndarray, cams: Camera) -> np.ndarray:
     rv = activate_params({
         k: torch.as_tensor(means if k == "means3D" else v, device=dev) for k, v in params.items()
     })
-    ims = [render_gaussians(rv, cams[v], max_span=4).image for v in range(cams.fx.shape[0])]
+    ims = [render_gaussians_capped(rv, cams[v]).image for v in range(cams.fx.shape[0])]
     return (torch.clamp(torch.stack(ims), 0.0, 1.0) * 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -136,6 +136,17 @@ def obj_vertices(seq, t):
     return np.asarray(vs, np.float64)
 
 
+def drift_saturation(d_max) -> Tuple[List[float], int, float]:
+    """The saturation rule of a per-frame drift curve (``run_long_r04.py``):
+    its means over windows of an eighth of the frames -> (the window means,
+    the window, the last window over the window at three quarters)."""
+    d = np.asarray(d_max, np.float64)
+    nf = d.shape[0]
+    win = max(nf // 8, 1)
+    windowed = [float(np.mean(d[i: i + win])) for i in range(0, nf, win)]
+    return windowed, win, float(windowed[-1] / max(windowed[max(len(windowed) * 3 // 4 - 1, 0)], 1e-12))
+
+
 def drift_report(seqs, frames, b0_frames, motion):
     """The headline-against-batched0 exported-vertex drift over the frames
     both ran -> (its summary with any failed bounds, the per-frame curves)."""
@@ -148,8 +159,7 @@ def drift_report(seqs, frames, b0_frames, motion):
         d_med.append(float(np.median(dv)))
         n_out.append(int((dv > 5 * motion).sum()))
     d = np.asarray(d_max)
-    win = max(nf // 8, 1)
-    windowed = [float(np.mean(d[i: i + win])) for i in range(0, nf, win)]
+    windowed, win, ratio = drift_saturation(d)
     nverts = obj_vertices(seqs["headline"], 1).shape[0]
     dr = {
         "per_frame_max": float(d.max()),
@@ -161,9 +171,7 @@ def drift_report(seqs, frames, b0_frames, motion):
         "num_vertices": int(nverts),
         "windowed_means": windowed,
         "window": win,
-        "last_window_over_three_quarters": float(
-            windowed[-1] / max(windowed[max(len(windowed) * 3 // 4 - 1, 0)], 1e-12)
-        ),
+        "last_window_over_three_quarters": ratio,
     }
     # the mesh at large within a few frame motions of the exact-binning
     # trajectory (p99), the basin-flip cluster small and not growing, the

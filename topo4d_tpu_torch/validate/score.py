@@ -9,8 +9,9 @@ SSIM)) and the mean PSNR over every view against the dataset's frames.
 A run's ``params.npz`` stacks only the per-frame keys (``means3D``,
 ``rgb_colors``, ``unnorm_rotations``); every frame is scored with frame 0's
 scales, opacities and exposure (``cam_m``, ``cam_c``), as JAX's scorer does.
-The render is ``render_gaussians`` at ``max_span`` 4: K1 on the card, the
-plain blend on the CPU.
+The render is ``render_gaussians_capped`` (``max_span`` 4, at most 512
+entries a tile, as JAX's scorer renders): K1 on the card, the plain blend
+on the CPU.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from topo4d_tpu_torch.core.gaussian import activate_params
 from topo4d_tpu_torch.device import resolve_device
 from topo4d_tpu_torch.losses.image import photometric_loss, psnr
 from topo4d_tpu_torch.pipeline.data import DiskSequence, frame_tensor
-from topo4d_tpu_torch.rasterizer.render import render_gaussians
+from topo4d_tpu_torch.rasterizer.render import render_gaussians_capped
 
 MODES = ("parity", "batched0", "headline")
 FRAME_KEYS = ("means3D", "rgb_colors", "unnorm_rotations")  # stacked per frame in params.npz
@@ -68,7 +69,7 @@ def score_params(src: DiskSequence, npz, frames: int) -> Dict[int, Dict[str, flo
         gt = frame_tensor(src.frame(t + 1).images, dev)
         pls, pss = [], []
         for i in range(src.num_views):
-            im = render_gaussians(rv, cams[i], max_span=4).image
+            im = render_gaussians_capped(rv, cams[i]).image
             im = torch.exp(p["cam_m"][i])[:, None, None] * im + p["cam_c"][i][:, None, None]
             pls.append(float(photometric_loss(im, gt[i])))
             pss.append(float(torch.mean(psnr(im, gt[i]))))
