@@ -74,7 +74,7 @@ def test_device_trace_enabled_writes_a_parseable_trace(tmp_path, monkeypatch):
         assert tracing is True
         y = sync_value(torch.mm(x, x))
     assert float(y[0, 0]) == 64.0
-    assert os.listdir(logdir) == ["trace_rank0.json"]
+    assert sorted(os.listdir(logdir)) == ["counters_rank0.json", "trace_rank0.json"]
     events = _trace_events(logdir / "trace_rank0.json")
     assert any(e.get("name") == "aten::mm" for e in events)
     # the variable enables it too, and an exception in the block still leaves the trace

@@ -10,7 +10,7 @@ slices (``_shift_pass``), which is also the kernel's oracle on the card.
 The kernel accumulates in the plain version's order, so the two agree bit
 for bit. The backward is the blur of the cotangent (symmetric taps, zero
 padding: the blur is its own transpose). ``LAUNCHES`` counts kernel
-launches and plain calls.
+launches and plain calls. Under a profiler K5's entry is the span ``blur``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from topo4d_tpu_torch import kernels
+from topo4d_tpu_torch.utils.profiling import traced
 
 KERNEL_TAPS = 11  # the window size csrc/blur.cu is built for
 
@@ -67,6 +68,7 @@ def gauss_blur_plain(x: torch.Tensor, window_size: int = 11, sigma: float = 1.5)
     return _shift_pass(_shift_pass(x, 1, window_size, sigma), 2, window_size, sigma)
 
 
+@traced("blur")
 def gauss_blur_cuda(x: torch.Tensor, window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
     """Launch K5 on (C, H, W) float32 -> (C, H, W) float32."""
     if x.device.type != "cuda":

@@ -48,7 +48,7 @@ import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,7 +99,7 @@ from topo4d_tpu_torch.texture.dense import (
     make_texture_step,
 )
 from topo4d_tpu_torch.topology.interpolate import interpolate_dense_attribute
-from topo4d_tpu_torch.utils.profiling import PhaseTimer, device_trace, mpix_per_s
+from topo4d_tpu_torch.utils.profiling import PhaseTimer, count, device_trace, mpix_per_s, span, traced, tracing
 
 
 def make_render_fn(cfg: Config, device):
@@ -163,6 +163,22 @@ def make_dense_render_fn(cfg: Config, device):
     return lambda rv, cam, binning: render_gaussians(
         rv, cam, bg=bg, max_span=cfg.raster.max_span, binning=binning, tile_capacity=cap
     )
+
+
+def _binning_table(binnings: List[Binning]) -> List[Tuple[int, int, int]]:
+    """Each binning's (occupied tiles, valid entries, cropped Gaussians), in
+    one read-back from the card (the binnings share one canvas; a tile's
+    count is its valid entries)."""
+    counts = torch.stack([b.tile_count for b in binnings])
+    cropped = torch.stack([b.num_cropped for b in binnings]).to(torch.int64)
+    table = torch.stack([torch.sum(counts > 0, dim=1), torch.sum(counts, dim=1), cropped], dim=1)
+    return [tuple(row) for row in table.tolist()]
+
+
+def _blend_rows(binning: Binning) -> int:
+    """The rows a blend through ``binning`` launches over: its compact
+    capacity, or the canvas's tiles when it has no compact list."""
+    return int((binning.tile_count if binning.compact is None else binning.compact.ids).shape[0])
 
 
 class Trainer:
@@ -259,6 +275,8 @@ class Trainer:
         self.dense_means3d: Optional[torch.Tensor] = None
         self.dense_anchor: Optional[torch.Tensor] = None
         self._auto_tile_cap = 0
+        # under a profiler, the frame's counted binnings by id: (blend rows, occupied tiles)
+        self._binning_rows: Dict[int, Tuple[int, int]] = {}
 
     def weights_for(self, phase: str) -> Dict[str, float]:
         return self.cfg.weights.as_dict()
@@ -463,13 +481,43 @@ class Trainer:
     def _auto_compact(self, binnings: List[Binning]) -> List[Binning]:
         """Under the auto capacity, one compact list for all of ``binnings``,
         sized from their largest occupancy (one read back from the card);
-        otherwise the binnings as they are (``pipeline/trainer.py:653-669``)."""
-        if self.cfg.texture.tile_capacity >= 0:
-            return binnings
-        occ = int(torch.max(torch.stack([torch.sum(b.tile_count > 0) for b in binnings])))
-        cap = self._auto_tile_capacity(occ, int(binnings[0].tile_count.shape[0]))
-        return [attach_compact(b, cap) for b in binnings]
+        otherwise the binnings as they are (``pipeline/trainer.py:653-669``).
 
+        Under a profiler a second read-back, after the untraced path's work,
+        takes each binning's occupied tiles, valid entries and cropped
+        Gaussians; the binnings are counted (``binning.entries``,
+        ``binning.cropped``, ``binning.overflow``) and kept for the count of
+        their renders (``_counted_render``)."""
+        if self.cfg.texture.tile_capacity < 0:
+            occ = int(torch.max(torch.stack([torch.sum(b.tile_count > 0) for b in binnings])))
+            cap = self._auto_tile_capacity(occ, int(binnings[0].tile_count.shape[0]))
+            binnings = [attach_compact(b, cap) for b in binnings]
+        if tracing():
+            for b, (occ, entries, cropped) in zip(binnings, _binning_table(binnings)):
+                rows = _blend_rows(b)
+                count("binning.entries", entries)
+                count("binning.cropped", cropped)
+                count("binning.overflow", max(occ - rows, 0))
+                self._binning_rows[id(b)] = (rows, occ)
+        return binnings
+
+    def _counted_render(self, render: Callable) -> Callable:
+        """``render`` counting, under a profiler, each render through a
+        binning counted by ``_auto_compact``: ``blend.renders``,
+        ``blend.rows`` (the rows the blend launches over) and
+        ``blend.tiles_occupied`` (the view's occupied tiles among them)."""
+
+        def counted(rv, cam, binning):
+            if binning is not None and tracing() and id(binning) in self._binning_rows:
+                rows, occ = self._binning_rows[id(binning)]
+                count("blend.renders")
+                count("blend.rows", rows)
+                count("blend.tiles_occupied", min(occ, rows))
+            return render(rv, cam, binning)
+
+        return counted
+
+    @traced("dense.binnings")
     def dense_binnings(self, t: int) -> List[Binning]:
         """Each full-resolution view's frozen binning of the current dense
         state for frame ``t`` (scan mode's, ``pipeline/trainer.py:692-720``):
@@ -488,6 +536,7 @@ class Trainer:
                 )
         return binnings
 
+    @traced("dense.frame")
     def fit_frame_texture(self, t: int, frame_data) -> Dict[str, float]:
         """Fit the dense colors and rotations of frame ``t`` on the
         full-resolution views (``source.cameras_full``). Returns the last
@@ -521,9 +570,16 @@ class Trainer:
         Under ``data.use_mask_dense`` a frame with masks takes the masked L1
         step; the steps are rebuilt when that state flips
         (``pipeline/trainer.py:575-595``).
+
+        Under a profiler the frame is the span ``dense.frame``, with
+        ``dense.transfer`` (the targets to the card), ``dense.binnings``,
+        the steps' spans (``texture.dense.make_texture_step``) and a
+        ``dense.eval`` per eval row inside; every render through a frozen
+        binning is counted (``_counted_render``).
         """
         cfg = self.cfg
         dev = self.device
+        self._binning_rows.clear()
         if self.texture_state is None:
             dense_np = init_dense_params(ckpt.to_numpy(self.state.params), self.statics, self.source.num_views)
             dense = {k: torch.as_tensor(v, device=dev) for k, v in dense_np.items()}
@@ -536,12 +592,13 @@ class Trainer:
         # the unmasked objective (the loader has warned)
         masks = None
         if cfg.data.use_mask_dense and frame_data.masks is not None:
-            masks = frame_tensor(frame_data.masks, dev)
+            with span("dense.transfer"):
+                masks = frame_tensor(frame_data.masks, dev)
         use_mask = masks is not None
         if self.texture_step is None or self._texture_masked != use_mask:
             # built apart from the state, so that a resumed run, whose
             # texture_state comes from the checkpoint, gets them too
-            render = make_dense_render_fn(cfg, dev)
+            render = self._counted_render(make_dense_render_fn(cfg, dev))
             remat = cfg.texture.remat_photometric
             self.texture_step = make_texture_step(render, use_mask, cfg.data.cmap_index, remat)
             self.texture_multi_step = make_texture_multi_step(render, use_mask, cfg.data.cmap_index, remat)
@@ -556,7 +613,8 @@ class Trainer:
             )
         with torch.no_grad():
             self.dense_means3d = interpolate_dense_attribute(self.state.params["means3D"], *self._dense_interp)
-        images = frame_tensor(frame_data.images, dev)
+        with span("dense.transfer"):
+            images = frame_tensor(frame_data.images, dev)
         cams = self.source.cameras_full
         num_views = images.shape[0]
         sched = cfg.schedule
@@ -579,6 +637,7 @@ class Trainer:
             )
             return m
 
+        @traced("dense.eval")
         def eval_row(i: int, binning_of, allview: bool) -> Dict[str, float]:
             state, means = self.texture_state, self.dense_means3d
             row = {"tex_psnr_fixed": float(self.texture_eval(state, means, images[0], cams, 0, binning_of(0)))}
@@ -620,7 +679,8 @@ class Trainer:
                 if not use_binning:
                     return None
                 if v not in binnings:
-                    binnings[v] = self._auto_compact([self._fresh_dense_binning(v)])[0]
+                    with span("dense.binnings"):
+                        binnings[v] = self._auto_compact([self._fresh_dense_binning(v)])[0]
                     uses[v] = 0
                 return binnings[v]
 

@@ -20,7 +20,8 @@ VMEM-resident K3, one contract), or to the window-span pair
 ``csrc/blend_v3_fwd.cu`` (K4f) and ``csrc/blend_v3_bwd.cu`` (K4b) under
 "v3", or raises; a CPU tensor goes to ``tile_blend_plain`` under every
 variant, which is also each kernel's oracle on the card. ``LAUNCHES``
-counts kernel launches and plain calls. ``warp_block_cull_plain`` mirrors
+counts kernel launches and plain calls. Under a profiler K1's and K2's
+entries are the spans ``blend.fwd`` and ``blend.bwd``. ``warp_block_cull_plain`` mirrors
 K1's per-warp bounding-box cull, for the tests and chip_smoke.py's counts;
 no blend calls it.
 """
@@ -34,6 +35,7 @@ import torch
 from topo4d_tpu_torch import kernels
 from topo4d_tpu_torch.core.gaussian import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_MIN
 from topo4d_tpu_torch.rasterizer.tiles import PACK_FIELDS, TILE
+from topo4d_tpu_torch.utils.profiling import traced
 
 PX = TILE * TILE  # 256 pixels per tile
 
@@ -304,6 +306,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@traced("blend.fwd")
 def tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: int, tile_ids=None):
     """Launch K1 -> (R, 8, 256) float32."""
     rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)
@@ -319,6 +322,7 @@ def tile_blend_fwd_cuda(packed, tile_start, tile_count, tiles_x: int, tiles_y: i
     return out
 
 
+@traced("blend.bwd")
 def tile_blend_bwd_cuda(packed, tile_start, tile_count, fwd_out, g_out, tiles_x: int, tiles_y: int, tile_ids=None):
     """Launch K2 -> dpacked (16, E_pad) float32 (zero outside the tile ranges)."""
     rows = _check_inputs(packed, tile_start, tile_count, tiles_x, tiles_y, tile_ids)

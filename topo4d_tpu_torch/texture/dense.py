@@ -33,6 +33,7 @@ from topo4d_tpu_torch.opt.adam import AdamState, adam_update
 from topo4d_tpu_torch.opt.constraints import DenseConstraint, apply_constraints
 from topo4d_tpu_torch.pipeline.masks import get_mask
 from topo4d_tpu_torch.rasterizer.tiles import Binning
+from topo4d_tpu_torch.utils.profiling import span, traced
 
 # facial regions kept in the masked dense loss (reference train.py:396-398)
 DENSE_MASK_LABELS = (
@@ -79,8 +80,13 @@ def make_texture_step(
     over max(their count, 1). ``remat`` (``texture.remat_photometric``):
     the unmasked photometric loss is recomputed in the backward instead of
     saving its intermediates (``texture/dense.py:87-93``).
+
+    Under a profiler each step is the span ``dense.step``, and its parts the
+    spans ``dense.constraints``, ``render.forward``, ``dense.loss``,
+    ``dense.backward`` and ``dense.update`` (``utils/profiling.py``).
     """
 
+    @traced("dense.step")
     def step(
         state: TextureState,
         dense_means3d: torch.Tensor,
@@ -95,27 +101,32 @@ def make_texture_step(
         with_metrics: bool = True,
         mask: Optional[torch.Tensor] = None,  # (3, H, W) parsing image when use_mask
     ) -> Tuple[TextureState, Dict[str, torch.Tensor]]:
-        params = apply_constraints(state.params, pre_constraints)
+        with span("dense.constraints"):
+            params = apply_constraints(state.params, pre_constraints)
         keys = list(params)
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        out = render_fn(dense_rendervars(p, dense_means3d), cams[view_id], binning)
-        if use_mask:
-            m = get_mask(DENSE_MASK_LABELS, mask, cmap_index)
-            im_loss = torch.sum(l1_abs((out.image - gt) * m)) / torch.clamp(torch.sum(m), min=1.0)
-        elif remat:
-            im_loss = torch.utils.checkpoint.checkpoint(
-                photometric_loss, out.image, gt, use_reentrant=False, preserve_rng_state=False
-            )
-        else:
-            im_loss = photometric_loss(out.image, gt)
-        losses = {
-            "im": im_loss,
-            "soft_color": l1_loss_sum_last(p["dense_rgb_colors"], anchor_colors),
-        }
-        total = sum(weights[k] * v for k, v in losses.items() if k in weights)
-        g = torch.autograd.grad(total, [p[k] for k in keys], allow_unused=True)
-        grads = {k: torch.zeros_like(p[k]) if gk is None else gk for k, gk in zip(keys, g)}
-        new_params, new_opt = adam_update(params, grads, state.opt, lr)
+        with span("render.forward"):
+            out = render_fn(dense_rendervars(p, dense_means3d), cams[view_id], binning)
+        with span("dense.loss"):
+            if use_mask:
+                m = get_mask(DENSE_MASK_LABELS, mask, cmap_index)
+                im_loss = torch.sum(l1_abs((out.image - gt) * m)) / torch.clamp(torch.sum(m), min=1.0)
+            elif remat:
+                im_loss = torch.utils.checkpoint.checkpoint(
+                    photometric_loss, out.image, gt, use_reentrant=False, preserve_rng_state=False
+                )
+            else:
+                im_loss = photometric_loss(out.image, gt)
+            losses = {
+                "im": im_loss,
+                "soft_color": l1_loss_sum_last(p["dense_rgb_colors"], anchor_colors),
+            }
+            total = sum(weights[k] * v for k, v in losses.items() if k in weights)
+        with span("dense.backward"):
+            g = torch.autograd.grad(total, [p[k] for k in keys], allow_unused=True)
+            grads = {k: torch.zeros_like(p[k]) if gk is None else gk for k, gk in zip(keys, g)}
+        with span("dense.update"):
+            new_params, new_opt = adam_update(params, grads, state.opt, lr)
         with torch.no_grad():
             metrics = {("loss_" + k): v.detach() for k, v in losses.items()}
             metrics["loss_total"] = total.detach()

@@ -1,15 +1,24 @@
-"""Phase timing, the profiler trace and the throughput counter
-(``utils/profiling.py``).
+"""Phase timing, the profiler trace, the port's spans and counters, and the
+throughput counter (``utils/profiling.py``).
 
 - ``PhaseTimer`` accumulates wall-clock seconds per named pipeline phase
   (geometry, texture, checkpoint, export), written per run as
   ``timings.json`` beside ``metrics.jsonl``. The trainer's export worker
   times its phases on another thread, so updates and reads take a lock.
+  Each phase also opens the span ``phase.<name>``.
+- ``span`` and ``count``: the port's own spans (``topo4d.<name>`` in the
+  profiler's event list, on the clock of the card's activities) and
+  counters of host integers. Both are live exactly while a
+  ``torch.profiler`` records on the calling thread (``tracing``): the
+  main thread and autograd's threads, not a pool's workers. Otherwise a
+  span is one shared no-op context and a count does nothing, so an
+  untraced run pays one check of the profiler's state per call.
 - ``device_trace`` runs ``torch.profiler`` around a block when a log
   directory is given or ``TOPO4D_PROFILE_DIR`` is set, and writes one
   Chrome trace per process (``trace_rank<r>.json``, viewable in Perfetto or
-  ``chrome://tracing``). A trace that was asked for and cannot be taken
-  raises; it never goes missing silently.
+  ``chrome://tracing``) and the block's counters beside it
+  (``counters_rank<r>.json``). A trace that was asked for and cannot be
+  taken raises; it never goes missing silently.
 - ``sync_value`` waits for the card before a host clock is read.
 - ``mpix_per_s`` is the trainer's throughput counter.
 """
@@ -17,13 +26,62 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Callable, ContextManager, Dict, Iterator, Optional
 
 import torch
+
+SPAN_PREFIX = "topo4d."
+_NO_SPAN = contextlib.nullcontext()  # shared by every untraced span: it allocates nothing
+_COUNTERS: Dict[str, int] = {}
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` records on this thread: spans and
+    counters are live exactly then."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str) -> ContextManager:
+    """``record_function("topo4d.<name>")`` while ``tracing()``, else a
+    shared no-op context."""
+    if tracing():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def traced(name: str) -> Callable:
+    """Decorator: each call of the function runs inside ``span(name)``."""
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host integer ``n`` to counter ``name`` while ``tracing()``
+    (never a value read from the card: the caller holds it already)."""
+    if tracing():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters since the last ``reset_counters``."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 class PhaseTimer:
@@ -44,7 +102,8 @@ class PhaseTimer:
     def phase(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span("phase." + name):
+                yield
         finally:
             self.add(name, time.perf_counter() - t0)
 
@@ -92,7 +151,8 @@ def device_trace(logdir: Optional[str] = None, device="cuda") -> Iterator[bool]:
     activity, and the card's kernels and copies (CUDA activity, through
     CUPTI) when ``device`` is a CUDA device (a CUDA device without a card
     raises). On exit, the block's exceptions included, it writes
-    ``<logdir>/trace_rank<r>.json``, ``r`` this process's rank (0 alone).
+    ``<logdir>/trace_rank<r>.json``, ``r`` this process's rank (0 alone),
+    and the counters counted in the block, ``<logdir>/counters_rank<r>.json``.
     """
     logdir = logdir or os.environ.get("TOPO4D_PROFILE_DIR")
     if not logdir:
@@ -108,12 +168,16 @@ def device_trace(logdir: Optional[str] = None, device="cuda") -> Iterator[bool]:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     prof = profile(activities=activities)
+    reset_counters()
     prof.start()
     try:
         yield True
     finally:
         prof.stop()
-        prof.export_chrome_trace(os.path.join(logdir, f"trace_rank{process_index()}.json"))
+        rank = process_index()
+        prof.export_chrome_trace(os.path.join(logdir, f"trace_rank{rank}.json"))
+        with open(os.path.join(logdir, f"counters_rank{rank}.json"), "w") as fh:
+            json.dump(counters(), fh, indent=2, sort_keys=True)
 
 
 def sync_value(x):
